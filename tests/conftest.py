@@ -56,3 +56,7 @@ def pytest_configure(config):
         "markers",
         "slow: slow end-to-end test; deselect with -m 'not slow' "
         "(fast suite targets < 60 s)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips without "
+        "one")
