@@ -9,6 +9,8 @@ from repro_torch.configs.base import ArchConfig, reduced
 _MODULES = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "paper-moe-100m": "repro_torch.configs.paper_moe_100m",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -3,8 +3,10 @@
 The JAX package is the reference: parity tests take its weights
 (``repro.models.lm.init``), hand them over as numpy, and run both models on
 the same numbers.  The port's parameter trees have the same nested keys and
-the same stacked ``[L, ...]`` layer dims, so the bridge is a leaf-wise
-conversion.
+the same stacked ``[L, ...]`` layer dims (and the same single unstacked
+``shared_attn`` copy), so the bridge is a leaf-wise conversion.  Like the
+port's other entry points it puts the tensors on the card unless the caller
+asks for the CPU.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 
-def from_jax(tree, device="cpu") -> Dict[str, Any]:
+def from_jax(tree, device="cuda") -> Dict[str, Any]:
     """A nested dict of array-likes (numpy, or anything ``np.asarray``
     accepts) -> the same nested dict of torch tensors, dtype preserved
     (bfloat16 leaves included)."""

@@ -2,8 +2,10 @@
 
 Layers are grouped by block type into *stacked* parameter groups with a
 leading ``[L, ...]`` layer dim, exactly the JAX package's tree, so weights
-carry over key for key (``models.bridge``).  The reference's ``lax.scan``
-over a stack becomes a Python loop over the layer index.
+carry over key for key (``models.bridge``); ``shared_attn`` keeps a single
+unstacked weight copy for all its occurrences but a KV cache per
+occurrence.  The reference's ``lax.scan`` over a stack becomes a Python
+loop over the layer index.
 
 ``decode_step`` differs from the reference in one way the serve engine
 needs: ``state["pos"]`` is a per-row position ``[B]``, so one batched call
@@ -55,14 +57,23 @@ def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         d["lm_head"] = ParamDef((cfg.d_model, cfg.vocab), ("embed", "vocab"))
     for t, n in type_counts(cfg).items():
-        d[t] = map_defs(lambda x: stacked(n, x), BLOCKS[t]["defs"](cfg))
+        bd = BLOCKS[t]["defs"](cfg)
+        d[t] = bd if t == "shared_attn" else \
+            map_defs(lambda x: stacked(n, x), bd)
     return d
 
 
 def init(cfg: ArchConfig, generator: torch.Generator, dtype=torch.float32,
-         device="cpu"):
+         device="cuda"):
     """Random weights from ``generator`` (which lives on ``device``)."""
     return init_params(model_defs(cfg), generator, dtype, device)
+
+
+def _layer_params(params, t: str, li: int):
+    """Block type ``t``'s weights for its ``li``-th occurrence."""
+    if t == "shared_attn":
+        return params[t]
+    return {k: v[li] for k, v in params[t].items()}
 
 
 def n_moe_layers(cfg: ArchConfig) -> int:
@@ -77,22 +88,27 @@ def _head(params, cfg, x):
 # ------------------------------------------------------------------- forward
 
 def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
-            token_offset: int = 0):
+            token_offset: int = 0, impl: str = "auto"):
     """batch: tokens [B,S].  Returns (logits [B,S,V] f32, aux dict with the
-    MoE metrics stacked over layers; the whole batch is one MoE group)."""
+    MoE metrics stacked over layers; the whole batch is one MoE group).
+
+    ``impl`` picks the scans' implementation: ``auto`` is the CUDA kernel
+    for tensors on the card and the plain torch version on the CPU (the
+    reference's default is its XLA chunked form, which the port does not
+    have)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
     x = params["embed"][tokens].to(torch.bfloat16)
     ctx = {"cfg": cfg, "moe_groups": "batch", "token_offset": token_offset,
            "positions": torch.arange(s, device=dev)[None].expand(b, s),
-           "moe_metrics": []}
+           "moe_metrics": [], "impl": impl}
     if plan is None and n_moe_layers(cfg):
         plan = moe_lib.identity_plan(cfg, n_moe_layers(cfg), device=dev)
     for t, count, off in pattern_runs(cfg):
         apply = BLOCKS[t]["apply"]
         for li in range(off, off + count):
-            p_l = {k: v[li] for k, v in params[t].items()}
+            p_l = _layer_params(params, t, li)
             if t == "moe":
                 ctx["plan_slots"], ctx["plan_cum"] = plan.slots[li], \
                     plan.cum[li]
@@ -109,9 +125,10 @@ def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
 # -------------------------------------------------------------------- decode
 
 def init_cache(cfg: ArchConfig, batch: int, smax: int, kv_dtype=None,
-               device="cpu"):
-    """Per-type stacked caches (leaves ``[n, B, Smax, KH, hd]``) and a
-    per-row position ``[B]``."""
+               device="cuda"):
+    """Per-type stacked caches (a leading dim of one entry per occurrence:
+    attention ``k``/``v`` ``[n, B, Smax, KH, hd]``, recurrent states in the
+    dtypes their blocks give them) and a per-row position ``[B]``."""
     caches = {}
     for t, n in type_counts(cfg).items():
         one = BLOCKS[t]["cache"](cfg, batch, smax, kv_dtype, device)
@@ -145,7 +162,7 @@ def decode_step(params, state, token, cfg: ArchConfig, *, plan=None,
     for t, count, off in pattern_runs(cfg):
         decode = BLOCKS[t]["decode"]
         for li in range(off, off + count):
-            p_l = {k: v[li] for k, v in params[t].items()}
+            p_l = _layer_params(params, t, li)
             c_l = {k: v[li] for k, v in caches[t].items()}
             if t == "moe":
                 ctx["plan_slots"], ctx["plan_cum"] = plan.slots[li], \

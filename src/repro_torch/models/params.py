@@ -38,7 +38,7 @@ def map_defs(fn, defs):
 
 
 def init_params(defs, generator: torch.Generator, dtype=torch.float32,
-                device="cpu") -> Dict[str, Any]:
+                device="cuda") -> Dict[str, Any]:
     """Draw a parameter tree in ``dtype`` on ``device``.  Leaves are drawn in
     sorted-key order (the JAX package's flatten order), one after another
     from ``generator``, which must live on ``device``."""
@@ -61,9 +61,3 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32,
 
     return walk(defs)
 
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)

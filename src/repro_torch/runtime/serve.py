@@ -20,16 +20,21 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.params import tree_map
+from repro_torch.models.blocks import BLOCKS
 
 
 def serving_params(params, device):
-    """Weights as the serving path holds them: on ``device``, in bfloat16.
-    Every use of a weight in the model casts it to the bf16 activations
-    first, so holding them in bf16 is exact and halves the bytes read per
+    """Weights as the serving path holds them: on ``device``, in bfloat16,
+    except the leaves a block reads in f32 (``BLOCKS[t]["f32"]``), which
+    keep their dtype.  Every other use of a weight casts it to the bf16
+    activations first, so this is exact and halves the bytes read per
     step."""
-    return tree_map(lambda p: p.to(device=device, dtype=torch.bfloat16),
-                    params)
+    def leaf(p, keep_dtype):
+        return p.to(device=device,
+                    dtype=p.dtype if keep_dtype else torch.bfloat16)
+
+    return {k: {n: leaf(p, n in BLOCKS[k]["f32"]) for n, p in v.items()}
+            if k in BLOCKS else leaf(v, False) for k, v in params.items()}
 
 
 def build_serve_step(cfg: ArchConfig):

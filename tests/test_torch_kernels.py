@@ -1,11 +1,16 @@
-"""The port's MoE kernels against the JAX package's.
+"""The port's kernels against the JAX package's.
 
 On the CPU the port's wrappers take their plain torch versions; those are
 held against the Pallas kernels run in interpret mode (the JAX package's own
 CPU oracle) and against the jnp references.  The CUDA kernels themselves
 are held against the plain versions on the card (``cuda`` marker; they skip
-without a GPU).  Integer outputs must be bit-equal everywhere; float
-tolerances are those of tests/test_moe_dispatch.py.
+without a GPU).  Integer outputs must be bit-equal everywhere; the MoE
+float tolerances are those of tests/test_moe_dispatch.py.  The scans' plain
+versions are held against the JAX package in tests/test_torch_ssm.py; here
+the scan kernels are held against them on the card, y within one ulp of its
+dtype (relative 2^-7 for bf16, 1e-4 for f32: the sums run in another
+order, so a value may round to the neighbouring ulp) plus 1e-4 of the
+output's scale, the final state within 1e-4 of its scale.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -23,6 +28,10 @@ from repro_torch.kernels.moe_dispatch import ops as dops
 from repro_torch.kernels.moe_dispatch.ref import combine_ref, dispatch_ref
 from repro_torch.kernels.moe_gating import ops as gops
 from repro_torch.kernels.moe_gating.ref import gating_ref
+from repro_torch.kernels.mamba2_ssd import ops as mops
+from repro_torch.kernels.mamba2_ssd.ref import mamba2_ref
+from repro_torch.kernels.rwkv6_scan import ops as rops
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
 
 
 def _t(a):
@@ -138,6 +147,10 @@ def test_plain_versions_count_no_launches(rng):
     buf, rank, keep, _, _ = dops.dispatch(v, torch.ones(2, 4, 2), slot, ones,
                                           4, 4)
     dops.combine(buf, torch.ones(2, 4, 2), slot, rank, keep)
+    x = torch.rand((1, 2, 5, 16))
+    rops.rwkv6(x, x, x, x, torch.rand(2, 16))
+    mops.mamba2(x, torch.rand(1, 2, 5), -torch.ones(2), x[0, :1],
+                x[0, :1], torch.zeros(2))
     assert all(n == 0 for n in LAUNCHES.values())
 
 
@@ -149,6 +162,12 @@ def test_cuda_impl_refuses_cpu_tensors():
         dops.dispatch(x, torch.ones(1, 2, 2), torch.zeros((1, 2, 2),
                       dtype=torch.int32), torch.ones((1, 2, 2),
                       dtype=torch.int32), 4, 4, impl="cuda")
+    x = torch.zeros((1, 2, 5, 16))
+    with pytest.raises(ValueError):
+        rops.rwkv6(x, x, x, x, torch.zeros(2, 16), impl="cuda")
+    with pytest.raises(ValueError):
+        mops.mamba2(x, torch.zeros(1, 2, 5), -torch.ones(2), x[0, :1],
+                    x[0, :1], torch.zeros(2), impl="cuda")
 
 
 # ----------------------------------------------------------- on the card
@@ -182,3 +201,71 @@ def test_cuda_dispatch_combine_match_plain(cuda, rng, dtype, g, t, k, d, s,
         assert torch.equal(a, b)
     y = dops.combine(got[0], w, slot, got[1], got[2], impl="cuda")
     assert torch.equal(y, combine_ref(got[0], w, slot, got[1], got[2]))
+
+
+def _assert_scan_close(y, ry, st, rst):
+    ulp = 2.0 ** -7 if y.dtype == torch.bfloat16 else 1e-4
+    y, ry = y.float(), ry.float()
+    if y.numel():
+        bound = ulp * ry.abs() + 1e-4 * ry.abs().max()
+        assert torch.all((y - ry).abs() <= bound), \
+            (y - ry).abs().max().item()
+    assert (st - rst).abs().max().item() <= 1e-4 * rst.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,n,with_s0", [
+    (1, 2, 1, 16, False), (2, 3, 33, 16, True), (1, 4, 100, 64, True),
+    (2, 2, 257, 64, False), (1, 1, 40, 128, True), (1, 2, 0, 32, True)])
+def test_cuda_rwkv6_matches_plain(cuda, rng, dtype, b, h, t, n, with_s0):
+    """Ragged T, every head size, model-range decays; the inputs are
+    [B,T,H,N] activations seen through a transpose, as the model hands
+    them over."""
+    def act(lo=None, hi=None):
+        a = rng.uniform(lo, hi, (b, t, h, n)) if lo is not None else \
+            0.5 * rng.standard_normal((b, t, h, n))
+        return _t(a.astype(np.float32)).to(cuda, dtype).transpose(1, 2)
+    r, k, v = act(), act(), act()
+    w = act(0.0113, 0.9997)
+    u = _t((0.1 * rng.standard_normal((h, n))).astype(np.float32)).to(cuda)
+    s0 = _t((0.1 * rng.standard_normal((b, h, n, n))).astype(np.float32)) \
+        .to(cuda) if with_s0 else None
+    reset_launches()
+    y, st = rops.rwkv6(r, k, v, w, u, s0)
+    assert LAUNCHES["rwkv6_scan"] == 1
+    assert y.dtype == dtype and (t < 2 or y.stride() == r.stride())
+    ry, rst = rwkv6_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    _assert_scan_close(y, ry, st, rst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,p,n,with_h0", [
+    (1, 2, 1, 16, 16, False), (2, 3, 33, 16, 16, True),
+    (1, 4, 100, 64, 64, True), (2, 2, 257, 64, 64, False),
+    (1, 2, 40, 32, 128, True), (1, 2, 0, 8, 32, True)])
+def test_cuda_mamba2_matches_plain(cuda, rng, dtype, b, h, t, p, n,
+                                   with_h0):
+    """Ragged T, every state size, softplus dt; x and dt seen through
+    transposes and B, C as column slices of one tensor, as the model hands
+    them over."""
+    x = _t(rng.standard_normal((b, t, h, p)).astype(np.float32)) \
+        .to(cuda, dtype).transpose(1, 2)
+    dt = _t(np.logaddexp(2.0 * rng.standard_normal((b, t, h)), 0)
+            .astype(np.float32)).to(cuda).transpose(1, 2)
+    bc = _t(rng.standard_normal((b, t, 2 * n)).astype(np.float32)) \
+        .to(cuda, dtype)
+    bm, c = bc[..., :n], bc[..., n:]
+    a = -_t(rng.uniform(0.5, 2.0, h).astype(np.float32)).to(cuda)
+    d = _t(rng.standard_normal(h).astype(np.float32)).to(cuda)
+    h0 = _t((0.1 * rng.standard_normal((b, h, p, n))).astype(np.float32)) \
+        .to(cuda) if with_h0 else None
+    reset_launches()
+    y, hT = mops.mamba2(x, dt, a, bm, c, d, h0)
+    assert LAUNCHES["mamba2_ssd"] == 1
+    assert y.dtype == dtype and (t < 2 or y.stride() == x.stride())
+    ry, rhT = mamba2_ref(x, dt, a, bm, c, d, h0)
+    torch.cuda.synchronize()
+    _assert_scan_close(y, ry, hT, rhT)

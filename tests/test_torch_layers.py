@@ -30,7 +30,7 @@ def _np(x):
 def _bf16_pair(a):
     """The same bf16 values on both sides."""
     j = jnp.asarray(a, jnp.bfloat16)
-    return j, bridge.from_jax(np.asarray(j))
+    return j, bridge.from_jax(np.asarray(j), device="cpu")
 
 
 def test_rms_norm_bf16(rng):
@@ -118,7 +118,8 @@ def test_decode_attention_fp8_cache_dequantizes(rng):
     assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("arch", ["paper-moe-100m", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["paper-moe-100m", "olmoe-1b-7b",
+                                  "rwkv6-1.6b", "zamba2-7b"])
 def test_model_defs_match_reference_tree(arch):
     """Same nested keys and shapes as the JAX declaration (the bridge's
     contract), at full width; nothing is allocated."""
@@ -140,7 +141,7 @@ def test_bridge_keeps_keys_dtypes_and_layer_dims():
     params = jax.jit(j_lm.init, static_argnums=0)(cfg,
                                                   jax.random.PRNGKey(0))
     params["moe"]["ln1"] = params["moe"]["ln1"].astype(jnp.bfloat16)
-    t = bridge.from_jax(jax.tree.map(np.asarray, params))
+    t = bridge.from_jax(jax.tree.map(np.asarray, params), device="cpu")
     assert t["moe"]["w_gate"].shape == params["moe"]["w_gate"].shape
     assert t["moe"]["w_gate"].shape[0] == cfg.num_layers
     assert t["moe"]["ln1"].dtype == torch.bfloat16
@@ -153,8 +154,8 @@ def test_bridge_keeps_keys_dtypes_and_layer_dims():
 
 def test_torch_init_is_seeded_and_shaped():
     cfg = get_arch("paper-moe-100m-smoke")
-    a = lm.init(cfg, torch.Generator().manual_seed(3))
-    b = lm.init(cfg, torch.Generator().manual_seed(3))
+    a = lm.init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    b = lm.init(cfg, torch.Generator().manual_seed(3), device="cpu")
     assert torch.equal(a["moe"]["router"], b["moe"]["router"])
     assert torch.all(a["moe"]["ln1"] == 1)
     assert a["embed"].std().item() == pytest.approx(0.02, rel=0.1)

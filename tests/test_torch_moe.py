@@ -39,7 +39,7 @@ def _layer0():
     params = jax.jit(j_lm.init, static_argnums=0)(j_get_arch(ARCH),
                                                   jax.random.PRNGKey(0))
     jp = jax.tree.map(lambda a: a[0], params["moe"])
-    return jp, bridge.from_jax(jax.tree.map(np.asarray, jp))
+    return jp, bridge.from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def _plans(cfg_j, cfg_t, hot=False):
@@ -117,8 +117,8 @@ def test_moe_ffn_fused_bf16(rng):
     x = jnp.asarray(rng.standard_normal((24, cfg_t.d_model)), jnp.bfloat16)
     (js, jc), (ts, tc) = _plans(cfg_j, cfg_t)
     y, met = _j_moe_ffn(jp, x, js, jc, cfg_j)
-    yt, mt = moe.moe_ffn(tp, bridge.from_jax(np.asarray(x))[None], ts, tc,
-                         cfg_t, torch.tensor([0]))
+    xt = bridge.from_jax(np.asarray(x), device="cpu")[None]
+    yt, mt = moe.moe_ffn(tp, xt, ts, tc, cfg_t, torch.tensor([0]))
     for k in ("slot_counts", "kept_counts", "dropped", "expert_counts"):
         np.testing.assert_array_equal(mt[k][0].numpy(), np.asarray(met[k]),
                                       err_msg=k)

@@ -18,7 +18,8 @@ question.  The parity tests therefore run on fixed inputs (their own seeds,
 independent of PYTEST_SEED) on which the two frameworks route alike; the
 routing itself is held bit-equal in tests/test_torch_moe.py.
 * Inside the port, greedy ``ServeEngine`` output equals ``generate_static``
-  token for token.
+  token for token, for the MoE family and the recurrent ones (rwkv6,
+  zamba2), and a reset slot leaks no recurrent state.
 """
 import dataclasses
 import subprocess
@@ -59,7 +60,8 @@ def _setup(seed=0):
     cfg_j = _flags(j_get_arch(ARCH))
     params = jax.jit(j_lm.init, static_argnums=0)(cfg_j,
                                                   jax.random.PRNGKey(seed))
-    return cfg_j, params, bridge.from_jax(jax.tree.map(np.asarray, params))
+    return cfg_j, params, bridge.from_jax(jax.tree.map(np.asarray, params),
+                                          device="cpu")
 
 
 @lru_cache(maxsize=None)
@@ -104,7 +106,7 @@ def test_decode_step_matches_reference():
     cfg = _flags(get_arch(ARCH))
     toks = np.random.default_rng(5).integers(1, cfg.vocab, (3, 10))
     js = j_lm.init_cache(cfg_j, 3, 16)
-    ts = lm.init_cache(cfg, 3, 16)
+    ts = lm.init_cache(cfg, 3, 16, device="cpu")
     step = _j_step()
     for i in range(toks.shape[1]):
         jl, js = step(params, js, jnp.asarray(toks[:, i:i + 1]))
@@ -135,7 +137,7 @@ def test_decode_step_row_groups_match_vmapped_slots():
 
     one = j_lm.init_cache(cfg_j, 1, smax)
     js = jax.tree.map(lambda x: jnp.zeros((slots,) + x.shape, x.dtype), one)
-    ts = lm.init_cache(cfg, slots, smax)
+    ts = lm.init_cache(cfg, slots, smax, device="cpu")
     for j in range(steps):
         active = j < lens
         jl, js = vstep(js, jnp.asarray(toks[:, j]), jnp.asarray(active))
@@ -155,7 +157,7 @@ def test_forward_matches_reference():
     cfg_j, _, _ = _setup()
     params = jax.jit(j_lm.init, static_argnums=0)(cfg_j,
                                                   jax.random.PRNGKey(1))
-    tp = bridge.from_jax(jax.tree.map(np.asarray, params))
+    tp = bridge.from_jax(jax.tree.map(np.asarray, params), device="cpu")
     cfg = _flags(get_arch(ARCH))
     toks = np.random.default_rng(1).integers(1, cfg.vocab, (2, 12))
     jl, jaux = jax.jit(lambda p, t: j_lm.forward(p, {"tokens": t}, cfg_j))(
@@ -183,12 +185,26 @@ def test_greedy_static_and_engine_match_reference():
     _assert_greedy_matches(srv.generate(prompts, 10), ref, margins)
 
 
-@pytest.mark.parametrize("fused", [True, False])
-def test_engine_equals_static_token_for_token(rng, fused):
-    """The port's own invariant: 4 rows never overflow capacity 4 in either
-    grouping, so greedy engine output is the static loop's, exactly."""
-    _, _, tp = _setup()
-    cfg = _flags(get_arch(ARCH), fused)
+@lru_cache(maxsize=None)
+def _ssm_setup(arch):
+    """Reference weights of a recurrent family, bridged to the port."""
+    params = jax.jit(j_lm.init, static_argnums=0)(j_get_arch(arch),
+                                                  jax.random.PRNGKey(0))
+    return bridge.from_jax(jax.tree.map(np.asarray, params), device="cpu")
+
+
+@pytest.mark.parametrize("arch,fused", [
+    pytest.param(ARCH, True, id="True"), pytest.param(ARCH, False, id="False"),
+    pytest.param("rwkv6-1.6b-smoke", None, id="rwkv6-1.6b-smoke"),
+    pytest.param("zamba2-7b-smoke", None, id="zamba2-7b-smoke")])
+def test_engine_equals_static_token_for_token(rng, arch, fused):
+    """The port's own invariant: greedy engine output is the static loop's,
+    exactly.  For the MoE family 4 rows never overflow capacity 4 in either
+    grouping; the recurrent families have no grouping to differ."""
+    if fused is None:
+        tp, cfg = _ssm_setup(arch), get_arch(arch)
+    else:
+        tp, cfg = _setup()[2], _flags(get_arch(arch), fused)
     prompts = rng.integers(1, cfg.vocab, (4, 13)).astype(np.int32)
     srv = BatchedServer(cfg, tp, max_len=64, slots=4, prefill_chunk=4,
                         decode_chunk=2, device="cpu")
@@ -214,6 +230,39 @@ def test_engine_continuous_join_evict_mixed_lengths(rng):
         np.testing.assert_array_equal(
             r.output(), srv.generate_static(p[None], max_new=6)[0],
             err_msg=f"plen={len(p)}")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b-smoke", "zamba2-7b-smoke"])
+def test_engine_reset_slot_leaks_no_recurrent_state(rng, arch):
+    """A slot that served one request and is then reset carries none of its
+    recurrent state (WKV/SSM states, token-shift rows, conv window) into the
+    next: each request's output equals a fresh one-row static run, and the
+    cache rows of an idle reset slot are zero."""
+    tp, cfg = _ssm_setup(arch), get_arch(arch)
+    eng = ServeEngine(cfg, tp, max_len=64, slots=2, prefill_chunk=8,
+                      decode_chunk=4, device="cpu")
+    prompts = [rng.integers(1, cfg.vocab, (n,)).astype(np.int32)
+               for n in (11, 5, 14, 3)]
+    reqs = [eng.submit(p, max_new=6) for p in prompts]
+    eng.run_until_done()
+    srv = BatchedServer(cfg, tp, max_len=64, device="cpu")
+    for p, r in zip(prompts, reqs):
+        np.testing.assert_array_equal(
+            r.output(), srv.generate_static(p[None], max_new=6)[0],
+            err_msg=f"plen={len(p)}")
+    # a tick that resets both slots and runs neither: the zeroed rows
+    # stay zero, since inactive rows leave their states untouched
+    sp = eng.pool
+    assert any(c.any() for leaves in sp.caches.values()
+               for c in leaves.values())
+    pos, _, n_valid = eng._tick(
+        eng.params, sp.caches, sp.pos, np.zeros((2, 1), np.int64),
+        np.ones(2, np.int64), np.zeros(2, bool), np.ones(2, bool),
+        np.zeros(2, np.float32), sp.gens)
+    assert pos.tolist() == [0, 0] and n_valid.tolist() == [0, 0]
+    for leaves in sp.caches.values():
+        for c in leaves.values():
+            assert not c.any()
 
 
 def test_engine_sampling_is_seeded(rng):
