@@ -20,7 +20,24 @@
 4. ``[equiv]``: checks that greedy ``ServeEngine`` output equals
    ``generate_static`` token for token on a 4-row batch (4 rows never
    overflow a capacity of 4, so neither grouping drops an assignment);
-5. ``[rwkv6]`` and ``[zamba2]``: for ``rwkv6-1.6b`` (24 layers, d_model
+5. ``[train]``: trains ``paper-moe-100m`` at full width with ``TrainLoop``
+   (fused gating and dispatch, ``MoEReshaper`` closing the Reshape loop,
+   a skewed ``TokenStream``, global batch 8 x 1024 in 2 microbatches):
+   first, from the initial state, one step through the kernels against
+   the same step through the plain versions (the integer load metrics,
+   the loss and every gradient leaf, the plain step replaying the kernel
+   step's expert choices; and against the plain MoE kernels alone, the
+   attention kernel in both arms, exactly), the granulated step against
+   the fused one, and the kernel step run twice; then a warm-up step and
+   6 steps of the main path, each step's kernel launches checked against
+   what the code predicts, one more step under a CUDA-only trace, and the
+   MoE kernels against their plain versions on the inputs of the warm-up
+   step's last calls (dispatch and combine as each other's backward);
+6. ``[flash]``: the flash-attention forward and backward kernels against
+   their plain version (and an f32 oracle) at the training shape,
+   ``zamba2-7b``'s shared-attention shape and a ragged length, timed at
+   the training shape beside ``scaled_dot_product_attention``;
+7. ``[rwkv6]`` and ``[zamba2]``: for ``rwkv6-1.6b`` (24 layers, d_model
    2048, 32 heads of 64, vocab 65536) and ``zamba2-7b`` (81 layers: 68
    Mamba2 and 13 occurrences of one shared attention block, d_model 3584,
    112 SSM heads), at full width with random bf16 weights from the seed:
@@ -33,7 +50,7 @@
    ``BatchedServer.generate`` on 4 prompts of 16..64 tokens; greedy
    ``ServeEngine`` against ``generate_static`` on ``[4, 32] + 16``.  Each
    model is freed before the next;
-6. prints the kernels' JSON line, the card's name and power limit, and
+8. prints the kernels' JSON line, the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or without
@@ -53,9 +70,11 @@ import numpy as np
 
 SRC = Path(__file__).resolve().parent / "src"
 
-# H100 SXM published peaks (dense): HBM bytes/s and f32 CUDA-core FLOP/s
+# H100 SXM published peaks (dense): HBM bytes/s, f32 CUDA-core FLOP/s and
+# bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 SEED = 0
 PROMPT_LENS = (16, 24, 37, 50, 64, 81, 100, 128)
@@ -83,9 +102,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S
+             ) -> tuple:
+    """The least time for the work: bytes over the memory rate or
+    operations over the peak ``rate`` for their type, the larger."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / F32_FLOP_PER_S * 1e3
+    t_f = flops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -662,6 +684,492 @@ def moe_phase(torch, dev) -> list:
     return rows
 
 
+# [train]: paper-moe-100m at full width, trained by TrainLoop with the
+# fused kernels on and the Reshape loop closed (as src/repro/launch/
+# train.py sets it up), on a skewed token stream
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = 1024, 8, 2, 6
+TRAIN_ALPHA = 1.5
+# kernels vs plain versions over one full step: loss within 1e-3 relative,
+# each gradient leaf within 5e-2 relative L2 (bf16 forward and backward,
+# rounded at other points by the attention kernel and cuBLAS)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-3, 5e-2
+# a token that the kernel step and the all-plain step first route to
+# different experts must be a near-tie of the plain router: a top-k margin
+# of at most this many bf16 ulps of the token's largest |logit|
+FLIP_MARGIN_ULPS = 4
+
+# [flash]: (tag, [B, S, H, hd]) in the model's layout, bf16, causal: the
+# training shape, zamba2-7b's shared attention, and a ragged length
+FLASH_CASES = (("train", (4, 1024, 8, 64)), ("zamba2", (2, 1024, 32, 112)),
+               ("ragged", (4, 1000, 8, 64)))
+# kernel vs plain version (both bf16, each rounding its results at other
+# points and after sums in another order), by relative L2 error: over the
+# whole tensor within FLASH_RTOL, and within FLASH_TILE_RTOL in every tile
+# of FLASH_TILE sequence rows of one head (query rows for o and dq, key
+# rows for dk and dv), so that a fault confined to late rows or late KV
+# tiles, where the values are small, shows
+FLASH_RTOL, FLASH_TILE_RTOL, FLASH_TILE = 5e-3, 1e-2, 64
+
+
+def event_ms(torch, fn, reps: int = 10) -> float:
+    """Device time of one ``fn()`` call between two events, best of three
+    runs of ``reps`` calls after a warm-up (for work that a CUDA graph
+    cannot capture, such as autograd's backward)."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) / reps)
+    return best
+
+
+def flash_bound(b, s, h, hd, es, backward):
+    """Causal attention over [B, S, H, hd] inputs of ``es`` bytes: (bound
+    ms, by).  Operations: 2·hd per (q, k) pair a product, 2 products in the
+    forward (QK^T, PV) and 5 in the backward (QK^T, dO·V^T, P^T·dO,
+    dS^T·Q, dS·K), at the bf16 tensor-core rate; bytes: q, k, v, o (and
+    dO, dq, dk, dv) once, and the f32 log-sum-exp."""
+    pairs = b * h * s * (s + 1) // 2
+    n = 8 if backward else 4
+    return bound_ms(n * b * s * h * hd * es + 4 * b * h * s,
+                    (10 if backward else 4) * hd * pairs, BF16_FLOP_PER_S)
+
+
+def flash_phase(torch, dev, launches) -> list:
+    """The flash-attention kernels against their plain version (chunked
+    attention in bf16, differentiated by autograd) and an f32 materialised
+    oracle, forward and backward, at each of FLASH_CASES; timed at the
+    training shape.  ``launches`` are the [train] main path's counts.
+    Returns the two kernels' JSON rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_bwd_cuda, flash_fwd_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.attention import chunked_attention
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for tag, (b, s, h, hd) in FLASH_CASES:
+        q, k, v, do = (torch.randn((b, s, h, hd), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = flash_fwd_cuda(q, k, v)
+        grads = flash_bwd_cuda(q, k, v, o, lse, do)
+        ps = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        po = chunked_attention(*ps)
+        pgrads = torch.autograd.grad(po, ps, do, retain_graph=True)
+        fs = [x.float().requires_grad_(True) for x in (q, k, v)]
+        fo = attention_ref(*(x.transpose(1, 2) for x in fs)).transpose(1, 2)
+        fgrads = torch.autograd.grad(fo, fs, do.float())
+        torch.cuda.synchronize()
+        errs, out = {}, []
+        for name, got, plain, oracle in zip(
+                ("o", "dq", "dk", "dv"), (o,) + grads, (po,) + pgrads,
+                (fo,) + fgrads):
+            errs[name] = (got.float() - plain.float()).abs().max().item()
+            rel = _rel_l2(torch, got, plain)
+            tile = _tile_rel_l2(torch, got, plain)
+            k_or = _tile_rel_l2(torch, got, oracle)
+            p_or = _tile_rel_l2(torch, plain, oracle)
+            out.append(f"{name} {rel:.4g}, worst tile {tile:.4g} (worst "
+                       f"tile vs f32: kernel {k_or:.4g}, plain {p_or:.4g}; "
+                       f"max abs {errs[name]:.4g} of "
+                       f"{plain.float().abs().max().item():.4g})")
+            if not (rel <= FLASH_RTOL and tile <= FLASH_TILE_RTOL):
+                raise AssertionError(
+                    f"flash {tag}: {name} kernel vs plain rel L2 {rel}, "
+                    f"worst tile {tile} > {FLASH_RTOL}, {FLASH_TILE_RTOL}")
+        log(f"[flash] {tag} q,k,v,dO {[b, s, h, hd]} bf16 causal, kernel "
+            f"vs plain rel L2: {'; '.join(out)}; tolerance {FLASH_RTOL}, "
+            f"{FLASH_TILE_RTOL} in every {FLASH_TILE}-row tile of a head")
+        if tag == "train":
+            qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            so = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            doh = do.transpose(1, 2).contiguous()
+            with torch.no_grad():
+                fwd_t = dict(
+                    ms=graph_ms(torch, lambda: flash_fwd_cuda(q, k, v),
+                                reps=10),
+                    plain_ms=graph_ms(torch, lambda: chunked_attention(
+                        q, k, v), reps=10),
+                    library_ms=graph_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, is_causal=True), reps=10))
+                bwd_ms = graph_ms(torch, lambda: flash_bwd_cuda(
+                    q, k, v, o, lse, do), reps=10)
+            bwd_t = dict(
+                ms=bwd_ms,
+                plain_ms=event_ms(torch, lambda: torch.autograd.grad(
+                    po, ps, do, retain_graph=True)),
+                library_ms=event_ms(torch, lambda: torch.autograd.grad(
+                    so, (qh, kh, vh), doh, retain_graph=True)))
+            for name, t, bwd, err in (
+                    ("flash_fwd", fwd_t, False, errs["o"]),
+                    ("flash_bwd", bwd_t, True,
+                     max(errs["dq"], errs["dk"], errs["dv"]))):
+                b_ms, b_by = flash_bound(b, s, h, hd, 2, bwd)
+                rows.append(dict(
+                    name=name, route="cuda",
+                    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention/"
+                             "flash_attention.py:58",
+                    launches=launches[name], max_abs_err=err, ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                    library_ms=t["library_ms"]))
+                log(f"[flash] {name} at {[b, s, h, hd]}: {t['ms']:.4f} ms "
+                    f"(plain {t['plain_ms']:.4f} ms, scaled_dot_product_"
+                    f"attention {t['library_ms']:.4f} ms, bound "
+                    f"{b_ms:.5f} ms by {b_by})")
+            del qh, kh, vh, so, doh
+        del q, k, v, do, o, lse, grads, ps, po, pgrads, fs, fo, fgrads
+        _free(torch)
+    return rows
+
+
+def _rel_l2(torch, a, b) -> float:
+    return (torch.linalg.vector_norm((a - b).float()) /
+            torch.linalg.vector_norm(b.float()).clamp_min(1e-30)).item()
+
+
+def _tile_rel_l2(torch, got, ref) -> float:
+    """The worst relative L2 error of ``got`` against ``ref`` ([B, S, H,
+    hd]) over tiles of FLASH_TILE sequence rows of one batch row and
+    head (the last tile of a ragged S is short)."""
+    import torch.nn.functional as F
+    pad = -got.shape[1] % FLASH_TILE
+
+    def tiles(x):
+        x = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        b, s, h, hd = x.shape
+        return x.reshape(b, s // FLASH_TILE, FLASH_TILE, h, hd).square() \
+            .sum((2, 4)).sqrt()
+    err = tiles(got.float() - ref.float())
+    return (err / tiles(ref).clamp_min(1e-30)).max().item()
+
+
+def _int_diff(torch, a, b) -> int:
+    return int((a != b).sum().item())
+
+
+def _gating_tap(torch, record=None, replay=None):
+    """A stand-in for ``models.moe``'s gating call: it records each call's
+    router logits and outputs (weights, ids, phi) into ``record``, or
+    returns the recorded outputs in order instead of computing them
+    (``replay``), so that a second run routes every token exactly as the
+    first did."""
+    from repro_torch.models import moe as moe_lib
+    orig = moe_lib.gating
+    it = iter(replay or ())
+
+    def gating(logits, k, impl="auto"):
+        if replay is not None:
+            return next(it)[1]
+        out = orig(logits, k, impl)
+        record.append((logits.clone(), tuple(x.clone() for x in out)))
+        return out
+    return gating
+
+
+def _first_flips(torch, kern, plain, n_layers) -> list:
+    """Where two steps' gating calls (``_gating_tap`` records, microbatch
+    by microbatch, layer by layer) first give a token another expert set,
+    in each microbatch: (layer, tokens flipped, the worst top-k margin of
+    the plain step's router over them — its k-th largest logit less the
+    next —, and the worst change of a logit between the two steps), the
+    last two in bf16 ulps of the token's largest |logit|.  Later layers
+    see hidden states that the flips changed."""
+    out = []
+    for i, ((lk, ok), (lp, op)) in enumerate(zip(kern, plain)):
+        if i % n_layers == 0:
+            found = False
+        if found:
+            continue
+        ek, ep = ok[1].sort(-1).values, op[1].sort(-1).values
+        flip = (ek != ep).any(-1)
+        if not flip.any():
+            continue
+        found = True
+        k = ep.shape[-1]
+        top = lp.topk(k + 1, dim=-1).values
+        ulp = torch.exp2(torch.floor(torch.log2(lp.abs().amax(-1))) - 7)
+        margin = ((top[..., k - 1] - top[..., k]) / ulp)[flip]
+        moved = ((lk - lp).abs().amax(-1) / ulp)[flip]
+        out.append((i % n_layers, int(flip.sum()), margin.max().item(),
+                    moved.max().item()))
+    return out
+
+
+def train_compare(torch, cfg, hyper, state, tokens, plan, fails):
+    """Checks from one state on one batch, before the loop trains: the
+    full step through the kernels against the same step through the plain
+    versions (every one of them; the MoE ones only, with the attention
+    kernel in both arms), the granulated step against the fused one, and
+    the kernel step run twice."""
+    from repro_torch.models import blocks, lm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.runtime.train import build_fused_step, build_grad_step
+    n_mb = TRAIN_MB
+    ps, pc = plan
+    mb = TRAIN_BATCH // n_mb
+    ints = ("expert_counts", "slot_counts", "dropped")
+    gating = moe_lib.gating
+
+    def step(impl):
+        return build_fused_step(cfg, hyper, impl)(
+            state, {"tokens": tokens}, ps, pc, 1.0, n_mb)
+
+    def mb0_grads(impl):
+        grad_mb = build_grad_step(cfg, hyper, impl)[0]
+        return grad_mb(state["params"], {"tokens": tokens[:mb]}, ps, pc, 0)
+
+    def worst_leaf(a, b):
+        return max(_rel_l2(torch, x, y) for x, y in
+                   zip(tree_leaves(a), tree_leaves(b)))
+
+    step_routes, mb0_routes = [], []
+    try:
+        moe_lib.gating = _gating_tap(torch, record=step_routes)
+        sk, mk, ok = step("auto")
+        moe_lib.gating = _gating_tap(torch, record=mb0_routes)
+        gk, _ = mb0_grads("auto")
+    finally:
+        moe_lib.gating = gating
+    loss_k = mk["loss"].mean().item()
+
+    # every plain version: near-tied router logits can send a token to
+    # another expert (the attention kernel and the plain attention round
+    # bf16 at other points), and a flip changes the later layers' inputs.
+    # So the integer metrics are reported, the first flips in each
+    # microbatch are held to be near-ties, and the arithmetic is held on a
+    # second plain step that replays the kernel step's expert choices
+    plain_routes = []
+    try:
+        moe_lib.gating = _gating_tap(torch, record=plain_routes)
+        sp, mp, _ = step("torch")
+    finally:
+        moe_lib.gating = gating
+    loss_p = mp["loss"].mean().item()
+    flips = {key: _int_diff(torch, mk[key], mp[key]) for key in ints}
+    first = _first_flips(torch, step_routes, plain_routes,
+                         lm.n_moe_layers(cfg))
+    worst_margin = max((f[2] for f in first), default=0.0)
+    log(f"[train] kernels vs every plain version, first flipped expert "
+        f"sets per microbatch (layer, tokens, worst plain top-k margin and "
+        f"worst logit change, in bf16 ulps of the token's largest |logit|):"
+        f" {[(a, b, round(c, 3), round(d, 3)) for a, b, c, d in first]}; "
+        f"tolerance {FLIP_MARGIN_ULPS} ulps")
+    if worst_margin > FLIP_MARGIN_ULPS:
+        fails.append(f"train: a token flipped at a top-k margin of "
+                     f"{worst_margin} bf16 ulps, not a near-tie")
+    del sp, mp, plain_routes
+    try:
+        moe_lib.gating = _gating_tap(torch, replay=step_routes)
+        sr, mr, _ = step("torch")
+        moe_lib.gating = _gating_tap(torch, replay=mb0_routes)
+        gr, _ = mb0_grads("torch")
+    finally:
+        moe_lib.gating = gating
+    loss_r = mr["loss"].mean().item()
+    diffs = {key: _int_diff(torch, mk[key], mr[key]) for key in ints}
+    worst = worst_leaf(gk, gr)
+    log(f"[train] one step, kernels vs every plain version (same state and "
+        f"batch): loss {loss_k:.7f} vs {loss_p:.7f} (rel "
+        f"{abs(loss_k - loss_p) / loss_p:.3g}), integer entries that "
+        f"differ {flips} (router near-ties); with the plain step replaying "
+        f"the kernel step's expert choices: loss {loss_r:.7f} (rel "
+        f"{abs(loss_k - loss_r) / loss_r:.3g}, tolerance "
+        f"{TRAIN_LOSS_RTOL}), integer entries that differ {diffs}, "
+        f"microbatch-0 gradient leaves worst rel L2 {worst:.4g} (tolerance "
+        f"{TRAIN_GRAD_RTOL})")
+    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * loss_p or \
+            abs(loss_k - loss_r) > TRAIN_LOSS_RTOL * loss_r or \
+            any(diffs.values()) or worst > TRAIN_GRAD_RTOL:
+        fails.append("train: the kernel step differs from the plain step")
+    del sr, mr, gr, step_routes, mb0_routes
+    # the MoE kernels' plain versions, attention through its kernel in both
+    orig = blocks.flash_attention
+    blocks.flash_attention = lambda q, k, v, impl="auto", **kw: orig(
+        q, k, v, impl="auto", **kw)
+    try:
+        sm, mm, _ = step("torch")
+        gm, _ = mb0_grads("torch")
+    finally:
+        blocks.flash_attention = orig
+    diffs = {key: _int_diff(torch, mk[key], mm[key]) for key in ints}
+    worst = worst_leaf(gk, gm)
+    same_loss = torch.equal(mk["loss"], mm["loss"])
+    log(f"[train] one step, kernels vs the plain gating, dispatch and "
+        f"combine (attention kernel in both): integer metrics "
+        f"{'equal' if not any(diffs.values()) else diffs}; per-microbatch "
+        f"losses equal bit for bit: {same_loss}; microbatch-0 gradient "
+        f"leaves: worst rel L2 {worst:.4g}; expert_counts per layer of "
+        f"microbatch 0: {mk['expert_counts'][0].tolist()}")
+    if any(diffs.values()) or worst > TRAIN_GRAD_RTOL:
+        fails.append("train: the MoE kernels' step differs from their plain "
+                     "versions'")
+    del sm, mm, gm
+    # granulated (gradient per microbatch, summed, then apply) vs fused
+    grad_mb, apply, _ = build_grad_step(cfg, hyper)
+    acc, metrics = None, []
+    for i in range(n_mb):
+        g, m = grad_mb(state["params"],
+                       {"tokens": tokens[i * mb:(i + 1) * mb]}, ps, pc,
+                       i * mb * TRAIN_SEQ)
+        acc = g if acc is None else tree_map(lambda a, b: a + b, acc, g)
+        metrics.append(m)
+    sg, _ = apply(state, acc, n_mb, 1.0)
+    int_eq = all(torch.equal(torch.stack([m[key] for m in metrics]), mk[key])
+                 for key in ints)
+    pairs = list(zip(tree_leaves(sg["params"]), tree_leaves(sk["params"])))
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    worst = max(_rel_l2(torch, a, b) for a, b in pairs)
+    log(f"[train] granulated vs fused step: integer metrics equal {int_eq}, "
+        f"updated params equal bit for bit {bitwise} (worst rel L2 "
+        f"{worst:.3g})")
+    if not int_eq or worst > 1e-6:
+        fails.append("train: granulated and fused steps differ")
+    del sg, acc, metrics
+    # the kernel step again: the same bits?
+    s2, _, _ = step("auto")
+    again = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(s2["params"]), tree_leaves(sk["params"])))
+    log(f"[train] the kernel step run twice from the same state gives the "
+        f"same parameters bit for bit: {again}")
+    del s2, sk, mk, ok, gk
+
+
+def train_phase(torch, dev, fails):
+    """The training main path: ``TrainLoop.run`` on paper-moe-100m at full
+    width through the kernels, with the Reshape loop closed.  Returns
+    (the MoE kernels' JSON rows at training shapes, the main path's launch
+    counts)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.reshape_moe import MoEReshaper
+    from repro_torch.core.skew import SkewParams
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+    from repro_torch.runtime.train import TrainHyper
+
+    base = get_arch("paper-moe-100m")
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, fused_gating=True, fused_dispatch=True))
+    nl = lm.n_moe_layers(cfg)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=SEED,
+                         class_alpha=TRAIN_ALPHA)
+    reshaper = MoEReshaper(cfg, nl, ep_ranks=2,
+                           params=SkewParams(eta=0.0, tau=0.2))
+    hyper = TrainHyper()
+    loop = TrainLoop(cfg, stream, hyper,
+                     LoopConfig(microbatches=TRAIN_MB, device="cuda"),
+                     reshaper=reshaper, seed=SEED)
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, "
+        f"{cfg.moe.num_experts}+{cfg.moe.spare_slots} slots top-"
+        f"{cfg.moe.top_k}, expert d_ff {cfg.moe.expert_d_ff}, vocab "
+        f"{cfg.vocab}, {sum(p.numel() for p in _leaves(loop.state['params']))}"
+        f" f32 params; global batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+        f"{TRAIN_MB} microbatches, TokenStream class_alpha {TRAIN_ALPHA}, "
+        f"Reshape ep_ranks 2, tau 0.2")
+    tokens = torch.as_tensor(TokenStream(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=SEED, class_alpha=TRAIN_ALPHA).next()["tokens"], device=dev)
+    train_compare(torch, cfg, hyper, loop.state, tokens, loop._plan_args(),
+                  fails)
+    _free(torch)
+
+    # warm-up step (first-use costs stay out of the main path), keeping the
+    # MoE kernels' inputs from its last calls: gating's last forward, and
+    # dispatch and combine as each other's backward
+    _, seen = capture_kernel_inputs(torch, lambda: loop.run(1))
+    # what the code launches per step: per MoE layer and microbatch, the
+    # forward's attention, gating, dispatch and combine, and the backward's
+    # attention, combine (dispatch's gradient) and dispatch (combine's)
+    per_step = {"flash_fwd": nl * TRAIN_MB, "flash_bwd": nl * TRAIN_MB,
+                "moe_gating": nl * TRAIN_MB,
+                "moe_dispatch": 2 * nl * TRAIN_MB,
+                "moe_combine": 2 * nl * TRAIN_MB}
+
+    # the main path
+    reset_launches()
+    prev, walls = dict(LAUNCHES), []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = loop.run(1)[-1]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        now = dict(LAUNCHES)
+        delta = {k: now[k] - prev[k] for k in per_step}
+        prev = now
+        if delta != per_step:
+            fails.append(f"train: step {h['step']} launched {delta}, the "
+                         f"code predicts {per_step}")
+        if not np.isfinite(h["loss"]):
+            fails.append(f"train: step {h['step']} loss {h['loss']}")
+        path = loop.engine.decisions[-1]["choice"] \
+            if loop.engine.decisions else "?"
+        log(f"[train] step {h['step']}: loss {h['loss']:.6f} grad_norm "
+            f"{h['grad_norm']:.6f} dropped {int(np.sum(h['dropped']))} "
+            f"slot_counts (summed over layers) "
+            f"{np.sum(h['slot_counts'], 0).tolist()}; reshape iterations "
+            f"{reshaper.iterations}, events {len(reshaper.events)}; "
+            f"{walls[-1]:.4f} s, {n_tok / walls[-1]:.1f} training tok/s "
+            f"({path} step path); launches {delta}")
+    launches = dict(LAUNCHES)
+    wall = sum(walls) / len(walls)
+    log(f"[train] {TRAIN_STEPS} steps: mean {wall:.4f} s a step, "
+        f"{n_tok / wall:.1f} training tok/s; launches {launches}; reshape "
+        f"events {[(e.layer, e.hot_expert) for e in reshaper.events]}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB")
+
+    # one more step under a CUDA-only trace: the busy share of a step
+    wall_t, busy_us, by_name = device_trace(torch, lambda: loop.run(1))
+    busy = busy_us / 1e6 / wall
+    log(f"[train] one more step under a CUDA-only trace (traced wall "
+        f"{wall_t:.4f} s): device busy {busy_us:.0f} us; over the untraced "
+        f"steps' mean wall {wall:.4f} s: busy {busy:.4f}, idle "
+        f"{1 - busy:.4f}")
+    for kname, (n, us) in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1][1])[:10]:
+        log(f"[train]   {us:10.1f} us {n:6d} launches  {kname[:90]}")
+    # the engine picks the step path from measured costs; each path forced
+    # for two more steps, for the record
+    for path in ("fused", "granulated"):
+        loop.lc.step_path = path
+        ts = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop.run(1)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        log(f"[train] {path} step path forced: {ts} s a step")
+    del loop
+    _free(torch)
+    rows, shapes = check_kernels(torch, seen, launches)
+    for r in rows:
+        r["name"] += "@train"
+        log(f"[train] kernel {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.4f} "
+            f"us by {r['bound_by']}), integer outputs equal, max |err| "
+            f"{r['max_abs_err']}, shapes and tolerance "
+            f"{shapes[r['name'][:-6]]}")
+    return rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -686,6 +1194,9 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     rows, fails = moe_phase(torch, dev), []
+    _free(torch)
+    train_rows, train_launches = train_phase(torch, dev, fails)
+    rows += flash_phase(torch, dev, train_launches) + train_rows
     for ph in SSM_PHASES:
         _free(torch)
         rows.append(ssm_phase(torch, dev, ph, fails))

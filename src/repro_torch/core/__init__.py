@@ -1,2 +1,2 @@
-"""Control plane (Amber), Maestro objectives: copies of the JAX-free
-``repro.core`` modules the serving slice runs."""
+"""Control plane (Amber), Reshape and Maestro objectives: copies of the
+JAX-free ``repro.core`` modules the serving and training slices run."""

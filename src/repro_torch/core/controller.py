@@ -48,10 +48,10 @@ def _json_restore(x):
             import numpy as _np
             return _np.asarray(x["__ndarray__"], dtype=x["dtype"])
         if "__dataclass__" in x:
-            # the Reshape plan dataclasses (core/reshape_moe.py) arrive
-            # with the training slice; until then only breakpoints restore
             from repro_torch.core import breakpoints as _bp
-            cls = getattr(_bp, x["__dataclass__"], None)
+            from repro_torch.core import reshape_moe as _rm
+            cls = getattr(_rm, x["__dataclass__"],
+                          getattr(_bp, x["__dataclass__"], None))
             fields = {k: _json_restore(v) for k, v in x["fields"].items()}
             return cls(**fields) if cls is not None else fields
         return {k: _json_restore(v) for k, v in x.items()}

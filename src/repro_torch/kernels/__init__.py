@@ -7,7 +7,7 @@ counts each wrapper's kernel launches."""
 # kernel (never for the plain torch version), so a run can show that its
 # main path went through the kernels.
 LAUNCHES = {"moe_gating": 0, "moe_dispatch": 0, "moe_combine": 0,
-            "rwkv6_scan": 0, "mamba2_ssd": 0}
+            "rwkv6_scan": 0, "mamba2_ssd": 0, "flash_fwd": 0, "flash_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -5,8 +5,8 @@
 replaces ``combine_pallas`` (src/repro/kernels/moe_dispatch/
 moe_dispatch.py:98 and :129).  The wrappers validate, allocate outputs and
 scratch, launch on the current stream and raise on a refused launch; they
-never fall back to the plain versions.  Forward only: the backward pair
-(each kernel is the other's VJP) arrives with the training slice.
+never fall back to the plain versions.  Each kernel is also the other's
+backward (``ops.Dispatch``, ``ops.Combine``).
 """
 from __future__ import annotations
 

@@ -1,12 +1,15 @@
 """GQA attention.
 
 ``chunked_attention`` is the full-sequence path (online softmax over KV
-chunks, O(S·chunk) memory), kept for ``lm.forward`` parity.
+chunks, O(S·chunk) memory): the plain version of the flash-attention
+kernel (``kernels.flash_attention``), which the blocks call on the card.
 ``decode_attention`` is the serving path: one new token per row against a
 KV cache, with a *per-row* position, so rows of one batch may sit at
 different depths (the serve engine's slots).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -22,12 +25,14 @@ def repeat_kv(k, n_rep: int):
         b, s, kh * n_rep, hd)
 
 
-def chunked_attention(q, k, v, *, kv_chunk: int = 1024):
-    """Causal self-attention, q [B,S,H,hd]; k,v [B,S,KH,hd].  Online
-    softmax over KV chunks; logits and accumulators are f32, the
-    probabilities meet V in V's dtype, as in the reference.  (The
-    reference's window and q_offset options serve block types the port
-    has not taken over yet.)"""
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None, q_offset: int = 0,
+                      kv_chunk: int = 1024):
+    """q [B,Sq,H,hd]; k,v [B,Sk,KH,hd].  Online softmax over KV chunks;
+    logits and accumulators are f32, the probabilities are rounded to V's
+    dtype before they meet V, as in the reference.  ``q_offset`` is the
+    absolute position of q[0] relative to k[0]; ``window`` a sliding
+    window (None = full)."""
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     q = q * (hd ** -0.5)
@@ -35,7 +40,7 @@ def chunked_attention(q, k, v, *, kv_chunk: int = 1024):
     v = repeat_kv(v, h // kh)
     kv_chunk = min(kv_chunk, sk)
     qt = q.transpose(1, 2).float()                    # [B,H,Sq,hd]
-    q_pos = torch.arange(sq, device=q.device)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=q.device)
@@ -44,14 +49,23 @@ def chunked_attention(q, k, v, *, kv_chunk: int = 1024):
         vb = v[:, start:start + kv_chunk].transpose(1, 2)
         k_pos = start + torch.arange(kb.shape[2], device=q.device)
         logits = torch.einsum("bhqd,bhkd->bhqk", qt, kb.float())
-        mask = k_pos[None, :] <= q_pos[:, None]
+        mask = torch.ones((sq, kb.shape[2]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
         logits = torch.where(mask, logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(-1))
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
+        # p is rounded to V's dtype, as in the reference; the product is
+        # summed in f32 and not rounded, as the reference's compiled scan
+        # does (XLA keeps the bf16 dot's result in f32 when it feeds an f32
+        # add), so the port's attention matches it to f32 rounding
         acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bhkd->bhqd", p.to(vb.dtype), vb).float()
+            "bhqk,bhkd->bhqd", p.to(vb.dtype).float(), vb.float())
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)            # [B,Sq,H,hd]

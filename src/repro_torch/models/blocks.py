@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.mamba2_ssd.ops import mamba2, mamba2_decode_step
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6, rwkv6_decode_step
 from repro_torch.models import attention as attn_lib
@@ -75,7 +76,7 @@ def _self_attention(cfg, p, x, ctx):
     q, k, v = _project_qkv(cfg, p, x)
     q = _rope(cfg, q, ctx["positions"])
     k = _rope(cfg, k, ctx["positions"])
-    out = attn_lib.chunked_attention(q, k, v)
+    out = flash_attention(q, k, v, impl=ctx.get("impl", "auto"))
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
 
 
@@ -163,7 +164,7 @@ def _moe_ffn(p, h, ctx):
         offset = torch.as_tensor(ctx["token_offset"],
                                  device=h.device).reshape(1)
     y, metrics = moe_lib.moe_ffn(p, flat, ctx["plan_slots"], ctx["plan_cum"],
-                                 cfg, offset)
+                                 cfg, offset, ctx.get("impl", "auto"))
     ctx["moe_metrics"].append(metrics)
     return h + y.reshape(b, s, d)
 

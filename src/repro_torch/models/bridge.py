@@ -28,3 +28,21 @@ def from_jax(tree, device="cuda") -> Dict[str, Any]:
         t = torch.from_numpy(a.view(np.uint16).astype(np.int16))
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def opt_from_jax(opt, device="cuda"):
+    """An AdamW ``OptState`` of the JAX package (``m``, ``v``, ``count``, as
+    numpy or anything ``np.asarray`` accepts) -> the port's ``OptState``,
+    so a parity test can start both frameworks from one training state."""
+    from repro_torch.optim.adamw import OptState
+    return OptState(from_jax(opt.m, device), from_jax(opt.v, device),
+                    from_jax(np.asarray(opt.count, dtype=np.int32), device))
+
+
+def state_from_jax(state, device="cuda") -> Dict[str, Any]:
+    """A whole training state ``{"params", "opt", "step"}`` of the JAX
+    package -> the port's."""
+    return {"params": from_jax(state["params"], device),
+            "opt": opt_from_jax(state["opt"], device),
+            "step": from_jax(np.asarray(state["step"], dtype=np.int32),
+                             device)}

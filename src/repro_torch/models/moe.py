@@ -37,7 +37,7 @@ class RoutingPlan(NamedTuple):
 
 
 def identity_plan(cfg: ArchConfig, n_moe_layers: int,
-                  device="cpu") -> RoutingPlan:
+                  device="cuda") -> RoutingPlan:
     e, r = cfg.moe.num_experts, cfg.moe.max_replicas
     slots = torch.arange(e, device=device)[None, :, None].expand(
         n_moe_layers, e, r).contiguous()
@@ -62,18 +62,24 @@ def _hash_unit(idx):
     return h.float() / float(2 ** 32)
 
 
-def route(router_w, x, plan_slots, plan_cum, cfg: ArchConfig, token_offset):
+def route(router_w, x, plan_slots, plan_cum, cfg: ArchConfig, token_offset,
+          impl: str = "auto"):
     """x [G,T,D]; token_offset [G] -> (slot [G,T,k], weight [G,T,k],
     probs [G,T,E], expert [G,T,k], counts [G,E] i32 from the fused gating
-    kernel, or None)."""
+    kernel, or None).  The gating kernel takes detached logits: its outputs
+    used here are integers, and the differentiable weights are re-gathered
+    from ``probs``, so it needs no backward."""
     m = cfg.moe
-    logits = (x @ router_w.to(x.dtype)).float()
+    # the products of the activations' dtype summed in f32 and not rounded
+    # back: the reference's einsum followed by an f32 cast compiles to
+    # exactly that, and a bf16-rounded logit reorders near-tied experts
+    logits = x.float() @ router_w.to(x.dtype).float()
     probs = torch.softmax(logits, dim=-1)
     counts = None
     if m.fused_gating:
         # the kernel's integer outputs (expert ids, phi) are used here; the
         # weights are re-gathered from ``probs`` as the reference does
-        _, top_e, counts = gating(logits.detach(), m.top_k)
+        _, top_e, counts = gating(logits.detach(), m.top_k, impl)
         top_e = top_e.long()
         top_p = torch.gather(probs, -1, top_e)
     else:
@@ -159,9 +165,11 @@ def expert_ffn(p, buf):
     return out.reshape(s, g, c, d).permute(1, 0, 2, 3)
 
 
-def moe_ffn(p, x, plan_slots, plan_cum, cfg: ArchConfig, token_offset):
+def moe_ffn(p, x, plan_slots, plan_cum, cfg: ArchConfig, token_offset,
+            impl: str = "auto"):
     """Full MoE FFN over groups.  p: dict(router, w_gate [S,D,F], w_up,
-    w_down [S,F,D]); x [G,T,D]; token_offset [G].
+    w_down [S,F,D]); x [G,T,D]; token_offset [G]; ``impl`` picks the
+    kernels or their plain versions (``kernels.*.ops``).
 
     Returns (y [G,T,D], metrics), every metric with a leading group dim:
     slot_counts/kept_counts [G,S] (the Reshape load metric phi per physical
@@ -169,11 +177,11 @@ def moe_ffn(p, x, plan_slots, plan_cum, cfg: ArchConfig, token_offset):
     m = cfg.moe
     t = x.shape[1]
     slot, weight, probs, top_e, r_counts = route(
-        p["router"], x, plan_slots, plan_cum, cfg, token_offset)
+        p["router"], x, plan_slots, plan_cum, cfg, token_offset, impl)
     y, metrics = dispatch_combine(x, slot, weight,
                                   lambda buf: expert_ffn(p, buf),
                                   num_slots(cfg), capacity(cfg, t),
-                                  fused=m.fused_dispatch)
+                                  fused=m.fused_dispatch, impl=impl)
 
     # Switch-style load-balance aux loss over *logical* experts.  With fused
     # gating the histogram comes straight from the kernel.
