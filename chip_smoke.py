@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together), prints each kernel's
+   registers and spills, and fails unless every bf16 flash kernel issues
+   tensor-core instructions (HMMA in its SASS);
 2. ``[serve]``: serves ``paper-moe-100m`` at full width (8 layers, d_model
    512, 16 experts + 2 spare slots, vocab 32000; random weights from a
    seed) with the fused gating and dispatch flags on, through
@@ -35,8 +37,10 @@
    step's last calls (dispatch and combine as each other's backward);
 6. ``[flash]``: the flash-attention forward and backward kernels against
    their plain version (and an f32 oracle) at the training shape,
-   ``zamba2-7b``'s shared-attention shape and a ragged length, timed at
-   the training shape beside ``scaled_dot_product_attention``;
+   ``zamba2-7b``'s shared-attention shape and a ragged length; the forward
+   timed at the training and ``zamba2-7b`` shapes beside
+   ``scaled_dot_product_attention``, the backward at the training shape
+   beside aten's flash-attention backward, all by CUDA-graph replay;
 7. ``[rwkv6]`` and ``[zamba2]``: for ``rwkv6-1.6b`` (24 layers, d_model
    2048, 32 heads of 64, vocab 65536) and ``zamba2-7b`` (81 layers: 68
    Mamba2 and 13 occurrences of one shared attention block, d_model 3584,
@@ -109,6 +113,59 @@ def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_mma_kernel<64>`` from a mangled kernel name (a
+    length-prefixed identifier ending in ``_kernel``, then its template
+    arguments)."""
+    import re
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for i in range(len(digits)):
+            ident = mangled[m.end():m.end() + int(digits[i:])]
+            if ident.endswith("_kernel") and ident[0].isalpha():
+                arg = re.match(r"ILi(\d+)E", mangled[m.end() + len(ident):])
+                return ident + (f"<{arg.group(1)}>" if arg else "")
+    return mangled[:60]
+
+
+def build_report(build) -> None:
+    """Each kernel's registers and spills (ptxas) and, for the flash
+    library, its tensor-core instructions (HMMA in the SASS); fails if a
+    bf16 flash kernel issues none."""
+    import re
+    import shutil
+    for src, text in build.PTXAS_LOG.items():
+        name = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name, spill = _kernel_name(m.group(1)), ""
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = f", spill stores {m.group(1)} B, loads {m.group(2)} B"
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                log(f"[build] {src}: {name}: {m.group(1)} registers{spill}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(build.build_dir() / "libflash_attention.so")],
+        capture_output=True, text=True, check=True).stdout
+    hmma, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = _kernel_name(line.split("Function :")[1].strip())
+            hmma.setdefault(name, 0)
+        elif name and "HMMA" in line:
+            hmma[name] += 1
+    log(f"[build] flash_attention SASS, HMMA instructions by kernel: "
+        f"{dict(sorted(hmma.items()))}")
+    bf16 = {n: c for n, c in hmma.items() if "_mma_kernel" in n}
+    if len(bf16) != 9 or min(bf16.values()) == 0:
+        raise AssertionError(f"bf16 flash kernels without tensor-core "
+                             f"instructions: {bf16}")
 
 
 def graph_ms(torch, fn, reps: int = 50) -> float:
@@ -359,12 +416,13 @@ def check_scan(torch, name, args, launches, tag):
     return row
 
 
-def ssm_phase(torch, dev, ph, fails) -> dict:
+def ssm_phase(torch, dev, ph, fails) -> tuple:
     """One recurrent family at full width: the forward (its main path),
     the scan kernel against its plain version, forward == decode, serving
-    and engine == static.  Returns the scan kernel's JSON row; a check that
-    does not hold is appended to ``fails`` (so that one run reports every
-    phase) and the caller fails."""
+    and engine == static.  Returns the scan kernel's JSON row and the
+    forward's launch counts; a check that does not hold is appended to
+    ``fails`` (so that one run reports every phase) and the caller
+    fails."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.mamba2_ssd import ops as mops
@@ -408,6 +466,11 @@ def ssm_phase(torch, dev, ph, fails) -> dict:
         if launches[name] != want:
             raise AssertionError(f"{tag}: {launches[name]} {name} launches "
                                  f"in the forward, expected {want}")
+        # one flash_fwd launch per occurrence of the shared attention block
+        if launches["flash_fwd"] != counts.get("shared_attn", 0):
+            raise AssertionError(f"{tag}: {launches['flash_fwd']} flash_fwd "
+                                 f"launches in the forward, expected "
+                                 f"{counts.get('shared_attn', 0)}")
         if tuple(logits.shape) != (ph["batch"], FWD_LEN, cfg.vocab) or \
                 not torch.isfinite(logits).all():
             raise AssertionError(f"{tag}: bad forward logits")
@@ -424,9 +487,7 @@ def ssm_phase(torch, dev, ph, fails) -> dict:
             f"{wall_t:.4f} s): device busy {busy_us:.0f} us; over the "
             f"untraced forward's wall {wall:.4f} s: busy {busy:.4f}, idle "
             f"{1 - busy:.4f}")
-        for kname, (n, us) in sorted(by_name.items(),
-                                     key=lambda kv: -kv[1][1])[:6]:
-            log(f"[{tag}]   {us:10.1f} us {n:6d} launches  {kname[:90]}")
+        log_trace(tag, by_name, 6)
         row = check_scan(torch, name, seen[SCANS[name][1]], launches[name],
                          tag)
         del seen
@@ -507,7 +568,7 @@ def ssm_phase(torch, dev, ph, fails) -> dict:
     log(f"[{tag}] ServeEngine vs generate_static on {list(SSM_STATIC)} + "
         f"{SSM_NEW}: equal {np.array_equal(got, ref)}, engine "
         f"{t_engine:.4f} s, static {t_static:.4f} s")
-    return row
+    return row, launches
 
 
 def block_decode_check(torch, cfg, params, toks, tag, fails) -> None:
@@ -587,6 +648,15 @@ def device_trace(torch, fn):
     return wall, busy, by_name
 
 
+def log_trace(tag, by_name, top) -> None:
+    """Log the ``top`` kernels of a trace by device time, then every other
+    kernel of the port's (they sit in an anonymous namespace)."""
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for i, (name, (n, us)) in enumerate(ranked):
+        if i < top or name.startswith("void (anonymous namespace)::"):
+            log(f"[{tag}]   {us:10.1f} us {n:6d} launches  {name[:90]}")
+
+
 def moe_phase(torch, dev) -> list:
     """The MoE serving main path, its device trace, the MoE kernels against
     their plain versions, and engine == static.  Returns the kernels' JSON
@@ -655,9 +725,7 @@ def moe_phase(torch, dev) -> list:
         f"({eng.tick_no - ticks0} ticks, traced wall {wall_t:.4f} s): device "
         f"busy {busy_us:.0f} us; over the untraced main path's wall "
         f"{wall:.4f} s: busy {busy:.4f}, idle {1 - busy:.4f}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    for name, (n, us) in top:
-        log(f"[profile]   {us:10.1f} us {n:6d} launches  {name[:90]}")
+    log_trace("profile", by_name, 8)
 
     rows, shapes = check_kernels(torch, seen, launches)
     for r in rows:
@@ -742,12 +810,25 @@ def flash_bound(b, s, h, hd, es, backward):
                     (10 if backward else 4) * hd * pairs, BF16_FLOP_PER_S)
 
 
+def sdpa_backward(torch, q, k, v, do):
+    """One call of aten's flash-attention backward (the backward of
+    ``scaled_dot_product_attention``'s flash backend) on heads-first causal
+    inputs, as a closure that a CUDA graph can capture."""
+    aten = torch.ops.aten
+    o, lse, cq, ck, mq, mk, seed, offset = \
+        aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True)[:8]
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+
 def flash_phase(torch, dev, launches) -> list:
     """The flash-attention kernels against their plain version (chunked
     attention in bf16, differentiated by autograd) and an f32 materialised
     oracle, forward and backward, at each of FLASH_CASES; timed at the
-    training shape.  ``launches`` are the [train] main path's counts.
-    Returns the two kernels' JSON rows."""
+    training shape (forward and backward) and at zamba2-7b's (forward),
+    beside ``scaled_dot_product_attention``.  ``launches`` are the [train]
+    main path's counts.  Returns the JSON rows: flash_fwd and flash_bwd,
+    and flash_fwd@zamba2, whose launches the [zamba2] forward fills in."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -788,46 +869,49 @@ def flash_phase(torch, dev, launches) -> list:
         log(f"[flash] {tag} q,k,v,dO {[b, s, h, hd]} bf16 causal, kernel "
             f"vs plain rel L2: {'; '.join(out)}; tolerance {FLASH_RTOL}, "
             f"{FLASH_TILE_RTOL} in every {FLASH_TILE}-row tile of a head")
-        if tag == "train":
-            qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
-                          for x in (q, k, v))
-            so = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-            doh = do.transpose(1, 2).contiguous()
+        if tag in ("train", "zamba2"):
+            qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
+                               for x in (q, k, v, do))
             with torch.no_grad():
-                fwd_t = dict(
+                timed = [("flash_fwd", False, errs["o"], dict(
                     ms=graph_ms(torch, lambda: flash_fwd_cuda(q, k, v),
                                 reps=10),
                     plain_ms=graph_ms(torch, lambda: chunked_attention(
                         q, k, v), reps=10),
                     library_ms=graph_ms(
                         torch, lambda: F.scaled_dot_product_attention(
-                            qh, kh, vh, is_causal=True), reps=10))
-                bwd_ms = graph_ms(torch, lambda: flash_bwd_cuda(
-                    q, k, v, o, lse, do), reps=10)
-            bwd_t = dict(
-                ms=bwd_ms,
-                plain_ms=event_ms(torch, lambda: torch.autograd.grad(
-                    po, ps, do, retain_graph=True)),
-                library_ms=event_ms(torch, lambda: torch.autograd.grad(
-                    so, (qh, kh, vh), doh, retain_graph=True)))
-            for name, t, bwd, err in (
-                    ("flash_fwd", fwd_t, False, errs["o"]),
-                    ("flash_bwd", bwd_t, True,
-                     max(errs["dq"], errs["dk"], errs["dv"]))):
+                            qh, kh, vh, is_causal=True), reps=10)))]
+                if tag == "train":
+                    timed.append(("flash_bwd", True, max(
+                        errs["dq"], errs["dk"], errs["dv"]), dict(
+                        ms=graph_ms(torch, lambda: flash_bwd_cuda(
+                            q, k, v, o, lse, do), reps=10),
+                        library_ms=graph_ms(torch, sdpa_backward(
+                            torch, qh, kh, vh, doh), reps=10))))
+            if tag == "train":
+                timed[1][3]["plain_ms"] = event_ms(
+                    torch, lambda: torch.autograd.grad(
+                        po, ps, do, retain_graph=True))
+            for name, bwd, err, t in timed:
                 b_ms, b_by = flash_bound(b, s, h, hd, 2, bwd)
                 rows.append(dict(
-                    name=name, route="cuda",
+                    name=name if tag == "train" else f"{name}@{tag}",
+                    route="cuda",
                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention/"
                              "flash_attention.py:58",
-                    launches=launches[name], max_abs_err=err, ms=t["ms"],
+                    launches=launches[name] if tag == "train" else 0,
+                    max_abs_err=err, ms=t["ms"],
                     plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                     library_ms=t["library_ms"]))
+                lib = "aten flash backward" if bwd else \
+                    "scaled_dot_product_attention"
                 log(f"[flash] {name} at {[b, s, h, hd]}: {t['ms']:.4f} ms "
-                    f"(plain {t['plain_ms']:.4f} ms, scaled_dot_product_"
-                    f"attention {t['library_ms']:.4f} ms, bound "
-                    f"{b_ms:.5f} ms by {b_by})")
-            del qh, kh, vh, so, doh
+                    f"(plain {t['plain_ms']:.4f} ms, {lib} "
+                    f"{t['library_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+                    f"{b_by}; all by CUDA-graph replay but the plain "
+                    f"backward, timed between events)")
+            del qh, kh, vh, doh
         del q, k, v, do, o, lse, grads, ps, po, pgrads, fs, fo, fgrads
         _free(torch)
     return rows
@@ -1142,9 +1226,7 @@ def train_phase(torch, dev, fails):
         f"{wall_t:.4f} s): device busy {busy_us:.0f} us; over the untraced "
         f"steps' mean wall {wall:.4f} s: busy {busy:.4f}, idle "
         f"{1 - busy:.4f}")
-    for kname, (n, us) in sorted(by_name.items(),
-                                 key=lambda kv: -kv[1][1])[:10]:
-        log(f"[train]   {us:10.1f} us {n:6d} launches  {kname[:90]}")
+    log_trace("train", by_name, 10)
     # the engine picks the step path from measured costs; each path forced
     # for two more steps, for the record
     for path in ("fused", "granulated"):
@@ -1188,18 +1270,20 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"[build] {built} in {time.perf_counter() - t0:.2f} s")
-    for name, text in build.PTXAS_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line:
-                log(f"[build] {name}: {line.strip()}")
+    build_report(build)
 
     rows, fails = moe_phase(torch, dev), []
     _free(torch)
     train_rows, train_launches = train_phase(torch, dev, fails)
-    rows += flash_phase(torch, dev, train_launches) + train_rows
+    flash_rows = flash_phase(torch, dev, train_launches)
+    rows += flash_rows + train_rows
     for ph in SSM_PHASES:
         _free(torch)
-        rows.append(ssm_phase(torch, dev, ph, fails))
+        row, launches = ssm_phase(torch, dev, ph, fails)
+        rows.append(row)
+        for r in flash_rows:
+            if r["name"] == f"flash_fwd@{ph['tag']}":
+                r["launches"] = launches["flash_fwd"]
     if fails:
         raise AssertionError("; ".join(fails))
 

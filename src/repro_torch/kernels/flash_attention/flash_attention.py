@@ -8,7 +8,8 @@ differentiates its jnp form instead).  The wrappers validate, allocate
 outputs and scratch, launch on the current stream and raise on a refused
 launch; they never fall back to a plain version.  Tensors are in the
 model's layout, q [B,Sq,H,hd] and k, v [B,Sk,H,hd], with the KV heads
-already repeated.
+already repeated.  bf16 runs on the tensor cores and takes hd a multiple
+of 8 up to 128; f32 runs on the CUDA cores and takes any hd up to 128.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ def _fns():
     shape = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p]
     f.argtypes = [ctypes.c_void_p] * 5 + shape
-    b.argtypes = [ctypes.c_void_p] * 10 + shape
+    b.argtypes = [ctypes.c_void_p] * 11 + shape
     f.restype = b.restype = ctypes.c_int
     return f, b
 
@@ -52,6 +53,8 @@ def _check(q, k, v):
     if not 1 <= hd <= MAX_HEAD_DIM or sq < 1:
         raise ValueError(f"need 1 <= hd <= {MAX_HEAD_DIM} and Sq >= 1, got "
                          f"{tuple(q.shape)}")
+    if q.dtype == torch.bfloat16 and hd % 8:
+        raise ValueError(f"the bf16 kernels need hd % 8 == 0, got hd {hd}")
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device or x.dtype != q.dtype or x.dim() != 4 or \
                 (x.shape[0], x.shape[2], x.shape[3]) != (b, h, hd) or \
@@ -63,11 +66,18 @@ def _check(q, k, v):
         raise ValueError("k and v must have the same length")
 
 
+def _dense(x):
+    """Contiguous, and 16-byte aligned (the bf16 kernels copy 16-byte
+    chunks)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def flash_fwd_cuda(q, k, v, causal: bool = True,
                    window: Optional[int] = None, q_offset: int = 0):
     """-> (o [B,Sq,H,hd] in q's dtype, lse [B,H,Sq] f32)."""
     _check(q, k, v)
-    q, k, v = (x.contiguous() for x in (q, k, v))
+    q, k, v = (_dense(x) for x in (q, k, v))
     b, sq, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -84,19 +94,23 @@ def flash_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
                    window: Optional[int] = None, q_offset: int = 0):
     """The forward's inputs, its o and lse, and dO -> (dq, dk, dv) in the
     inputs' dtype.  One launch of the C entry point runs three kernels
-    (delta, dK/dV, dQ); it counts once."""
+    (delta and the scaled q, dK/dV, dQ); it counts once."""
     _check(q, k, v)
-    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do.to(q.dtype)))
+    q, k, v, o, do = (_dense(x) for x in (q, k, v, o, do.to(q.dtype)))
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != (q.shape[0], q.shape[2], q.shape[1]) or \
             lse.dtype != torch.float32:
         raise ValueError("o and dO must be shaped like q, lse [B,H,Sq] f32")
     lse = lse.contiguous()
     delta = torch.empty_like(lse)
+    # the scaled q, the bf16 products' operand (the f32 kernels scale q as
+    # they load it)
+    qs = torch.empty_like(q) if q.dtype == torch.bfloat16 else None
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fns()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    None if qs is None else qs.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                     *_shape_args(q, k, causal, window, q_offset), stream)
     check(err, "flash_bwd launch")

@@ -137,13 +137,23 @@ def cuda():
     return torch.device("cuda")
 
 
+# lengths on and off the kernels' 64-row tiles (1, 63, 65, 1000), the three
+# head dims of the bf16 kernels (64, 112 and 128), windows, a one-row
+# decode-like chunk at a q_offset, and cross attention
 GPU_CASES = [(2, 200, 200, 4, 4, 64, True, None, 0),
              (1, 1000, 1000, 2, 2, 112, True, None, 0),
              (2, 130, 130, 2, 1, 128, True, 48, 0),
              (1, 70, 150, 2, 2, 64, True, None, 80),
-             (1, 65, 129, 3, 3, 112, False, None, 0)]
+             (1, 65, 129, 3, 3, 112, False, None, 0),
+             (1, 1, 65, 2, 2, 64, False, None, 0),
+             (1, 63, 63, 2, 2, 128, True, None, 0),
+             (2, 65, 65, 4, 2, 112, True, None, 0),
+             (2, 1, 300, 2, 2, 112, True, None, 299),
+             (1, 1000, 1000, 2, 1, 64, True, 100, 0),
+             (1, 63, 1000, 2, 2, 128, False, None, 0)]
 _GPU_IDS = ["causal", "ragged-1000-hd112", "window-gqa-hd128", "q_offset",
-            "cross"]
+            "cross", "len1-cross", "len63-hd128", "len65-gqa-hd112",
+            "decode-row-q_offset", "window-1000-gqa", "cross-63x1000-hd128"]
 
 
 def _oracle(q, k, v, g, mask):
@@ -200,3 +210,16 @@ def test_cuda_flash_backward_is_deterministic(cuda, rng):
         runs.append([t.grad for t in ts])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [12, 100])
+def test_cuda_bf16_refuses_head_dims_off_8(cuda, rng, hd):
+    """The tensor-core kernels copy 16-byte chunks of a row: the bf16 route
+    raises for hd % 8 != 0 and never falls back."""
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _inputs(rng, 1, 16, 16, 2, 2, hd))
+    reset_launches()
+    with pytest.raises(ValueError, match="hd % 8"):
+        fops.flash_attention(q, k, v)
+    assert LAUNCHES["flash_fwd"] == 0
