@@ -5,8 +5,9 @@
 
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together), prints each kernel's
-   registers and spills, and fails unless every bf16 flash kernel issues
-   tensor-core instructions (HMMA in its SASS);
+   registers and spills, and fails unless every bf16 flash and Mamba2 SSD
+   kernel issues tensor-core instructions (HMMA in its SASS) and spills
+   nothing;
 2. ``[serve]``: serves ``paper-moe-100m`` at full width (8 layers, d_model
    512, 16 experts + 2 spare slots, vocab 32000; random weights from a
    seed) with the fused gating and dispatch flags on, through
@@ -130,42 +131,60 @@ def _kernel_name(mangled: str) -> str:
     return mangled[:60]
 
 
+# bf16 kernels that must issue tensor-core instructions (HMMA in their
+# SASS), by library: the names that mark them and how many there are (one
+# per head dim or state size); none of them may spill
+TENSOR_CORE_KERNELS = {
+    "flash_attention": (("_mma_kernel",), 9),
+    "mamba2_ssd": (("mamba2_ssd_state_kernel", "mamba2_ssd_scan_kernel"),
+                   8)}
+NO_SPILLS = tuple(m for marks, _ in TENSOR_CORE_KERNELS.values()
+                  for m in marks)
+
+
 def build_report(build) -> None:
-    """Each kernel's registers and spills (ptxas) and, for the flash
-    library, its tensor-core instructions (HMMA in the SASS); fails if a
-    bf16 flash kernel issues none."""
+    """Each kernel's registers and spills (ptxas) and, for the libraries of
+    TENSOR_CORE_KERNELS, each kernel's tensor-core instructions (HMMA in
+    the SASS); fails if a bf16 kernel issues none or spills."""
     import re
     import shutil
+    spilled = []
     for src, text in build.PTXAS_LOG.items():
         name = None
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                name, spill = _kernel_name(m.group(1)), ""
+                name, spill, nbytes = _kernel_name(m.group(1)), "", 0
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             if m:
                 spill = f", spill stores {m.group(1)} B, loads {m.group(2)} B"
+                nbytes = int(m.group(1)) + int(m.group(2))
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
                 log(f"[build] {src}: {name}: {m.group(1)} registers{spill}")
+                if nbytes and any(k in name for k in NO_SPILLS):
+                    spilled.append(name)
+    if spilled:
+        raise AssertionError(f"bf16 kernels that spill: {spilled}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run(
-        [tool, "-sass", str(build.build_dir() / "libflash_attention.so")],
-        capture_output=True, text=True, check=True).stdout
-    hmma, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = _kernel_name(line.split("Function :")[1].strip())
-            hmma.setdefault(name, 0)
-        elif name and "HMMA" in line:
-            hmma[name] += 1
-    log(f"[build] flash_attention SASS, HMMA instructions by kernel: "
-        f"{dict(sorted(hmma.items()))}")
-    bf16 = {n: c for n, c in hmma.items() if "_mma_kernel" in n}
-    if len(bf16) != 9 or min(bf16.values()) == 0:
-        raise AssertionError(f"bf16 flash kernels without tensor-core "
-                             f"instructions: {bf16}")
+    for lib, (marks, count) in TENSOR_CORE_KERNELS.items():
+        sass = subprocess.run(
+            [tool, "-sass", str(build.build_dir() / f"lib{lib}.so")],
+            capture_output=True, text=True, check=True).stdout
+        hmma, name = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = _kernel_name(line.split("Function :")[1].strip())
+                hmma.setdefault(name, 0)
+            elif name and "HMMA" in line:
+                hmma[name] += 1
+        log(f"[build] {lib} SASS, HMMA instructions by kernel: "
+            f"{dict(sorted(hmma.items()))}")
+        bf16 = {n: c for n, c in hmma.items() if any(k in n for k in marks)}
+        if len(bf16) != count or min(bf16.values()) == 0:
+            raise AssertionError(f"bf16 {lib} kernels without tensor-core "
+                                 f"instructions: {bf16}")
 
 
 def graph_ms(torch, fn, reps: int = 50) -> float:
@@ -332,7 +351,7 @@ def check_kernels(torch, seen, launches):
 
 def scan_rwkv6(torch, args):
     """The RWKV6 scan on one captured call's inputs: (kernel call, plain
-    call, bytes moved, f32 operations, shapes)."""
+    call, bytes moved, (f32 operations, their peak rate), shapes)."""
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
     from repro_torch.kernels.rwkv6_scan.rwkv6_scan import rwkv6_cuda
     r, k, v, w, u, s0 = args
@@ -345,14 +364,17 @@ def scan_rwkv6(torch, args):
     # (2N), S = w*S + k*v (3N^2)
     flops = b * h * t * (5 * n * n + 5 * n)
     return (lambda: rwkv6_cuda(*args)), (lambda: rwkv6_ref(*args)), \
-        nbytes, flops, {"r,k,v,w": [b, h, t, n], "dtype": str(r.dtype),
-                        "s0": s0 is not None}
+        nbytes, (flops, F32_FLOP_PER_S), \
+        {"r,k,v,w": [b, h, t, n], "dtype": str(r.dtype), "s0": s0 is not None}
 
 
 def scan_mamba2(torch, args):
     """The Mamba2 scan on one captured call's inputs: (kernel call, plain
-    call, bytes moved, f32 operations, shapes)."""
-    from repro_torch.kernels.mamba2_ssd.mamba2_ssd import mamba2_cuda
+    call, bytes moved, (operations, their peak rate), shapes).  bf16 runs
+    the chunked form on the tensor cores, so its operations are the chunked
+    form's products at the bf16 rate; f32 runs the exact recurrence on the
+    CUDA cores."""
+    from repro_torch.kernels.mamba2_ssd.mamba2_ssd import CHUNK, mamba2_cuda
     from repro_torch.kernels.mamba2_ssd.ref import mamba2_ref
     x, dt, a, bm, c, d, h0 = args
     b, h, t, p = x.shape
@@ -363,11 +385,25 @@ def scan_mamba2(torch, args):
     # heads); h0 (if any) and hT
     nbytes = es * (2 * b * h * t * p + 2 * b * t * n) + \
         4 * (b * h * t + 2 * h + n_states * b * h * p * n)
-    # per token and head: exp(dt a) (2), dt*x (P), h = h*dec + xd*B (3PN),
-    # y = h.C (2PN), + D x (2P)
-    flops = b * h * t * (5 * p * n + 3 * p + 2)
+    if x.dtype == torch.bfloat16:
+        # per token and head: its row of the chunk's state, x.w B (2PN),
+        # and C h_in^T (2PN); per pair of a token and one at or before it
+        # in its chunk, and head, (C B^T . L) x (2P); each with its f32
+        # operand in two bf16 pieces; per pair, C B^T (2N) once for all
+        # heads.  The f32
+        # element-wise work (about 5P a token and head, one exp a pair and
+        # head) runs on the CUDA cores beside the products and takes less
+        # time than they do, so it is left out.
+        full, rest = divmod(t, CHUNK)
+        pairs = full * CHUNK * (CHUNK + 1) // 2 + rest * (rest + 1) // 2
+        ops = (b * h * (2 * 4 * p * n * t + 2 * 2 * p * pairs) +
+               b * 2 * n * pairs, BF16_FLOP_PER_S)
+    else:
+        # per token and head: exp(dt a) (2), dt*x (P), h = h*dec + xd*B
+        # (3PN), y = h.C (2PN), + D x (2P)
+        ops = (b * h * t * (5 * p * n + 3 * p + 2), F32_FLOP_PER_S)
     return (lambda: mamba2_cuda(*args)), (lambda: mamba2_ref(*args)), \
-        nbytes, flops, {"x": [b, h, t, p], "B,C": [b, t, n],
+        nbytes, ops, {"x": [b, h, t, p], "B,C": [b, t, n],
                         "dtype": str(x.dtype), "h0": h0 is not None}
 
 
@@ -379,6 +415,14 @@ SCANS = {"rwkv6_scan": (scan_rwkv6, "rwkv6_cuda",
                         "src/repro/kernels/mamba2_ssd/mamba2_ssd.py:17")}
 
 
+# the device kernels each wrapper call of a scan launches once (the bf16
+# route of the model)
+SCAN_KERNELS = {"rwkv6_scan": ("rwkv6_scan_kernel",),
+                "mamba2_ssd": ("mamba2_ssd_state_kernel",
+                               "mamba2_ssd_pass_kernel",
+                               "mamba2_ssd_scan_kernel")}
+
+
 def check_scan(torch, name, args, launches, tag):
     """A scan kernel against its plain version on the captured inputs,
     both timed; returns the kernels JSON row.  Tolerance: y within one ulp
@@ -386,7 +430,7 @@ def check_scan(torch, name, args, launches, tag):
     so a value may round to the neighbouring ulp) plus 1e-4 of y's scale;
     the final f32 state within 1e-4 of its scale."""
     scan, _, replaces = SCANS[name]
-    kern, plain, nbytes, flops, shapes = scan(torch, args)
+    kern, plain, nbytes, ops, shapes = scan(torch, args)
     y, st = kern()
     ry, rst = plain()
     ulp = 2.0 ** -7 if y.dtype == torch.bfloat16 else 1e-4
@@ -399,7 +443,7 @@ def check_scan(torch, name, args, launches, tag):
         raise AssertionError(f"{name}: y max |err| {dy.max().item()} "
                              f"({int(over.sum())} over the tolerance), "
                              f"state max |err| {s_err} of {s_scale}")
-    b_ms, b_by = bound_ms(nbytes, flops)
+    b_ms, b_by = bound_ms(nbytes, *ops)
     row = dict(name=name, route="cuda",
                source=f"src/repro_torch/kernels/csrc/{name}.cu",
                replaces=replaces, launches=launches,
@@ -488,6 +532,17 @@ def ssm_phase(torch, dev, ph, fails) -> tuple:
             f"untraced forward's wall {wall:.4f} s: busy {busy:.4f}, idle "
             f"{1 - busy:.4f}")
         log_trace(tag, by_name, 6)
+        # the scan's kernels (every one named <name>_*) summed: one launch
+        # of each per recurrent layer
+        mine = {k: v for k, v in by_name.items() if f"{name}_" in k}
+        log(f"[{tag}] {name} in the trace: {len(mine)} kernels, "
+            f"{sum(v[0] for v in mine.values())} launches, "
+            f"{sum(v[1] for v in mine.values()):.1f} us")
+        for kern in SCAN_KERNELS[name]:
+            n_k = sum(v[0] for k, v in mine.items() if kern in k)
+            if n_k != want:
+                fails.append(f"{tag}: {n_k} {kern} launches in the traced "
+                             f"forward, expected {want}")
         row = check_scan(torch, name, seen[SCANS[name][1]], launches[name],
                          tag)
         del seen
@@ -653,7 +708,7 @@ def log_trace(tag, by_name, top) -> None:
     kernel of the port's (they sit in an anonymous namespace)."""
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for i, (name, (n, us)) in enumerate(ranked):
-        if i < top or name.startswith("void (anonymous namespace)::"):
+        if i < top or "(anonymous namespace)::" in name:
             log(f"[{tag}]   {us:10.1f} us {n:6d} launches  {name[:90]}")
 
 

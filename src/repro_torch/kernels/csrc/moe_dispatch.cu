@@ -16,7 +16,9 @@
 //
 // combine replaces `_combine_kernel` / `combine_pallas` (:78 / :129):
 // y[t] = sum_j w·keep·buf[slot, rank], the k terms added in j order in f32
-// and rounded once (no FMA contraction), one block per token row.
+// and rounded once (no FMA contraction), one warp per token row: the row's
+// routing in one coalesced round, then all k gathers of a lane in flight
+// together, 16 bytes each.
 //
 // Bound: bytes.  Dispatch reads v once and writes the whole [S,C,D]
 // buffer; combine reads k rows per token and writes y.  Neither does more
@@ -125,27 +127,117 @@ __global__ void dispatch_kernel(const T* __restrict__ v,
   }
 }
 
+// One warp per token row, CW rows a block.  Lanes 0..k-1 load the row's
+// routing in one round and shuffles hand each term to every lane; each lane
+// then owns 16-byte pieces of the row (8 bf16 or 4 f32 of D), issues the
+// loads of all its terms (KB at a time) before the first add, adds them in
+// j order and stores 16 bytes.  The buffer is read through its strides
+// (sg, ss, sc elements between groups, slots and rows; unit stride along
+// D), so a permuted view needs no copy.  Rows that do not start on 16-byte
+// boundaries take the same loop element by element.
+constexpr int CW = 4;     // token rows (warps) per block
+constexpr int KB = 8;     // terms in flight per lane
+
 template <typename T>
-__global__ void combine_kernel(const T* __restrict__ buf,
-                               const float* __restrict__ w,
-                               const int32_t* __restrict__ slot,
-                               const int32_t* __restrict__ rank,
-                               const int32_t* __restrict__ keep,
-                               T* __restrict__ y,
-                               int Tn, int K, int D, int S, int C) {
-  const int row = blockIdx.x;                 // g * Tn + t
-  const int g = row / Tn;
-  const T* b = buf + (size_t)g * S * C * D;
+__global__ void __launch_bounds__(32 * CW)
+combine_kernel(const T* __restrict__ buf, const float* __restrict__ w,
+               const int32_t* __restrict__ slot,
+               const int32_t* __restrict__ rank,
+               const int32_t* __restrict__ keep, T* __restrict__ y, int rows,
+               int Tn, int K, int D, long long sg, long long ss, long long sc,
+               int vec) {
+  constexpr int V = (int)(sizeof(uint4) / sizeof(T));
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * CW + (threadIdx.x >> 5);   // g * Tn + t
+  if (row >= rows) return;
+  const T* b = buf + (row / Tn) * sg;
   const size_t a0 = (size_t)row * K;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float acc = 0.f;
-    for (int j = 0; j < K; ++j) {
-      if (keep[a0 + j]) {
-        const size_t src = ((size_t)slot[a0 + j] * C + rank[a0 + j]) * D + d;
-        acc = __fadd_rn(acc, __fmul_rn(w[a0 + j], to_f32(b[src])));
+  T* yr = y + (size_t)row * D;
+
+  // term j of the row: the element offset of its buffer row (-1 if not
+  // kept) and its weight; j < 32 from lane j by shuffle, later j from
+  // memory (K > 32 never occurs in the models)
+  long long src_l = -1;
+  float w_l = 0.f;
+  if (lane < K) {
+    const size_t a = a0 + lane;
+    const int kp = keep[a], sl = slot[a], rk = rank[a];
+    const float wa = w[a];
+    if (kp) {
+      src_l = sl * ss + rk * sc;
+      w_l = wa;
+    }
+  }
+  auto term = [&](int j, long long* src, float* wj) {
+    if (j < 32) {
+      *src = __shfl_sync(0xffffffffu, src_l, j);
+      *wj = __shfl_sync(0xffffffffu, w_l, j);
+    } else {
+      const size_t a = a0 + j;
+      *src = keep[a] ? slot[a] * ss + rank[a] * sc : -1;
+      *wj = w[a];
+    }
+  };
+
+  if (vec) {
+    const int nv = D / V;
+    for (int i0 = 0; i0 < nv; i0 += 32) {     // warp-uniform trip count
+      const int i = i0 + lane;
+      float acc[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = 0.f;
+      for (int j0 = 0; j0 < K; j0 += KB) {
+        uint4 r[KB];
+        float wk[KB];
+        bool on[KB];
+#pragma unroll
+        for (int u = 0; u < KB; ++u) {
+          long long src = -1;
+          wk[u] = 0.f;
+          if (j0 + u < K) term(j0 + u, &src, &wk[u]);
+          on[u] = src >= 0;
+          r[u] = on[u] && i < nv
+                     ? *reinterpret_cast<const uint4*>(b + src + (size_t)i * V)
+                     : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < KB; ++u) {
+          if (!on[u]) continue;
+          const T* e = reinterpret_cast<const T*>(&r[u]);
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[v] = __fadd_rn(acc[v], __fmul_rn(wk[u], to_f32(e[v])));
+        }
+      }
+      if (i < nv) {
+        uint4 o;
+        T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+        for (int v = 0; v < V; ++v) oe[v] = from_f32<T>(acc[v]);
+        *reinterpret_cast<uint4*>(yr + (size_t)i * V) = o;
       }
     }
-    y[(size_t)row * D + d] = from_f32<T>(acc);
+  } else {
+    for (int d0 = 0; d0 < D; d0 += 32) {
+      const int d = d0 + lane;
+      float acc = 0.f;
+      for (int j0 = 0; j0 < K; j0 += KB) {
+        float r[KB], wk[KB];
+        bool on[KB];
+#pragma unroll
+        for (int u = 0; u < KB; ++u) {
+          long long src = -1;
+          wk[u] = 0.f;
+          if (j0 + u < K) term(j0 + u, &src, &wk[u]);
+          on[u] = src >= 0;
+          r[u] = on[u] && d < D ? to_f32(b[src + d]) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < KB; ++u)
+          if (on[u]) acc = __fadd_rn(acc, __fmul_rn(wk[u], r[u]));
+      }
+      if (d < D) yr[d] = from_f32<T>(acc);
+    }
   }
 }
 
@@ -183,27 +275,34 @@ extern "C" int moe_dispatch_launch(const void* v, const void* w,
   return (int)cudaGetLastError();
 }
 
-// buf [G,S,C,D], w [G,T,K] f32, slot/rank/keep [G,T,K] i32 -> y [G,T,D].
+// buf [G,S,C,D] (element strides sg, ss, sc, unit stride along D), w
+// [G,T,K] f32, slot/rank/keep [G,T,K] i32 -> y [G,T,D] contiguous.
 extern "C" int moe_combine_launch(const void* buf, const void* w,
                                   const void* slot, const void* rank,
                                   const void* keep, void* y, int G, int T,
-                                  int K, int D, int S, int C, int dtype,
-                                  void* stream) {
+                                  int K, int D, long long sg, long long ss,
+                                  long long sc, int dtype, void* stream) {
   const int rows = G * T;
   if (rows == 0) return 0;
-  const int threads = D >= 256 ? 256 : ((D + 31) / 32) * 32;
+  const int blocks = (rows + CW - 1) / CW;
+  const int v = dtype == 0 ? 4 : 8;          // elements in 16 bytes
+  // 16-byte pieces when every buffer and output row starts on a 16-byte
+  // boundary
+  const int vec = D % v == 0 && sg % v == 0 && ss % v == 0 && sc % v == 0 &&
+                  ((uintptr_t)buf & 15u) == 0 && ((uintptr_t)y & 15u) == 0;
   cudaStream_t st = (cudaStream_t)stream;
   const float* wf = (const float*)w;
   const int32_t* sl = (const int32_t*)slot;
   const int32_t* rk = (const int32_t*)rank;
   const int32_t* kp = (const int32_t*)keep;
   if (dtype == 0)
-    combine_kernel<float><<<rows, threads, 0, st>>>(
-        (const float*)buf, wf, sl, rk, kp, (float*)y, T, K, D, S, C);
+    combine_kernel<float><<<blocks, 32 * CW, 0, st>>>(
+        (const float*)buf, wf, sl, rk, kp, (float*)y, rows, T, K, D, sg, ss,
+        sc, vec);
   else if (dtype == 1)
-    combine_kernel<__nv_bfloat16><<<rows, threads, 0, st>>>(
-        (const __nv_bfloat16*)buf, wf, sl, rk, kp, (__nv_bfloat16*)y, T, K, D,
-        S, C);
+    combine_kernel<__nv_bfloat16><<<blocks, 32 * CW, 0, st>>>(
+        (const __nv_bfloat16*)buf, wf, sl, rk, kp, (__nv_bfloat16*)y, rows,
+        T, K, D, sg, ss, sc, vec);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1,10 +1,11 @@
 """The Mamba2 SSD scan's dispatcher and one-token decode step.
 
 ``mamba2`` runs the full sequence: the CUDA kernel for a tensor on the
-card, the plain version (``ref.mamba2_ref``) for a tensor on the CPU.  Both
-compute the exact recurrence, which the reference's chunked form matches at
-any chunk length (its decay matrix is at most 1 on the causal triangle), so
-there is no chunk length here.
+card, the plain version (``ref.mamba2_ref``) for a tensor on the CPU.  The
+plain version computes the exact recurrence; the kernel's bf16 route the
+chunked form at its own chunk length, which matches it at any chunk
+length up to rounding (the decay matrix is at most 1 on the causal
+triangle), so there is no chunk length here.
 """
 from __future__ import annotations
 

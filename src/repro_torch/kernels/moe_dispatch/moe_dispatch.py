@@ -27,8 +27,8 @@ def _fns():
     d, c = so.moe_dispatch_launch, so.moe_combine_launch
     d.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
-    c.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
-        [ctypes.c_void_p]
+    c.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+        [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
     d.restype = c.restype = ctypes.c_int
     return d, c
 
@@ -72,23 +72,26 @@ def dispatch_cuda(v, w, slot, valid, n_slots: int, cap: int):
 
 
 def combine_cuda(buf, w, slot, rank, keep):
-    """buf [G,S,C,D] (f32 or bf16); w [G,T,k] f32; slot/rank/keep [G,T,k]
+    """buf [G,S,C,D] (f32 or bf16; any strides with D contiguous, such as
+    the experts' permuted output); w [G,T,k] f32; slot/rank/keep [G,T,k]
     i32 -> y [G,T,D] in buf's dtype."""
     if not buf.is_cuda or buf.dim() != 4 or buf.dtype not in _DTYPES:
         raise ValueError("buf must be a [G,S,C,D] float32/bfloat16 CUDA "
                          "tensor")
-    g, s, cap, d = buf.shape
+    g, _, _, d = buf.shape
     t, k = slot.shape[1:]
     _check_routing("w", w, (g, t, k), torch.float32, buf.device)
     for name, x in (("slot", slot), ("rank", rank), ("keep", keep)):
         _check_routing(name, x, (g, t, k), torch.int32, buf.device)
-    buf, w, slot, rank, keep = (a.contiguous()
-                                for a in (buf, w, slot, rank, keep))
+    if buf.stride(-1) != 1:
+        buf = buf.contiguous()
+    w, slot, rank, keep = (a.contiguous() for a in (w, slot, rank, keep))
     y = torch.empty((g, t, d), dtype=buf.dtype, device=buf.device)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     err = _fns()[1](buf.data_ptr(), w.data_ptr(), slot.data_ptr(),
                     rank.data_ptr(), keep.data_ptr(), y.data_ptr(),
-                    g, t, k, d, s, cap, _DTYPES[buf.dtype], stream)
+                    g, t, k, d, *buf.stride()[:3], _DTYPES[buf.dtype],
+                    stream)
     check(err, "moe_combine launch")
     LAUNCHES["moe_combine"] += 1
     return y

@@ -187,7 +187,13 @@ def test_cuda_gating_matches_plain(cuda, rng, g, t, e, k):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,t,k,d,s,cap", [(8, 1, 2, 512, 18, 4),
                                            (1, 8, 2, 512, 18, 4),
-                                           (3, 130, 8, 96, 80, 6)])
+                                           (3, 130, 8, 96, 80, 6),
+                                           # training's microbatch
+                                           (1, 4096, 2, 512, 18, 640),
+                                           # D off 8: element-wise gathers
+                                           (2, 33, 2, 100, 10, 4),
+                                           # k past one warp's lanes
+                                           (1, 5, 40, 64, 48, 8)])
 def test_cuda_dispatch_combine_match_plain(cuda, rng, dtype, g, t, k, d, s,
                                            cap):
     v = _t(rng.standard_normal((g, t, d)).astype(np.float32)).to(cuda, dtype)
@@ -201,6 +207,10 @@ def test_cuda_dispatch_combine_match_plain(cuda, rng, dtype, g, t, k, d, s,
         assert torch.equal(a, b)
     y = dops.combine(got[0], w, slot, got[1], got[2], impl="cuda")
     assert torch.equal(y, combine_ref(got[0], w, slot, got[1], got[2]))
+    # the experts hand the buffer back as a permuted view of [S,G,C,D]
+    perm = got[0].permute(1, 0, 2, 3).contiguous().permute(1, 0, 2, 3)
+    assert torch.equal(dops.combine(perm, w, slot, got[1], got[2],
+                                    impl="cuda"), y)
 
 
 def _assert_scan_close(y, ry, st, rst):
@@ -240,32 +250,67 @@ def test_cuda_rwkv6_matches_plain(cuda, rng, dtype, b, h, t, n, with_s0):
     _assert_scan_close(y, ry, st, rst)
 
 
+def _mamba_args(dev, rng, dtype, b, h, t, p, n, with_h0, model_layout):
+    """Softplus dt and A in [-2, -0.5]; x and dt seen through transposes
+    and B, C as column slices of one tensor.  With ``model_layout`` x, B and
+    C are column slices of one activation [B, T, H*P + 2N], x viewed as
+    [B, H, T, P], as ``mamba_apply`` hands them over (a stride along T of
+    H*P + 2N); else x is a transposed [B, T, H, P] tensor."""
+    if model_layout:
+        xbc = _t(rng.standard_normal((b, t, h * p + 2 * n))
+                 .astype(np.float32)).to(dev, dtype)
+        x = xbc[..., :h * p].reshape(b, t, h, p).transpose(1, 2)
+        bm, c = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    else:
+        x = _t(rng.standard_normal((b, t, h, p)).astype(np.float32)) \
+            .to(dev, dtype).transpose(1, 2)
+    dt = _t(np.logaddexp(2.0 * rng.standard_normal((b, t, h)), 0)
+            .astype(np.float32)).to(dev).transpose(1, 2)
+    if not model_layout:
+        bc = _t(rng.standard_normal((b, t, 2 * n)).astype(np.float32)) \
+            .to(dev, dtype)
+        bm, c = bc[..., :n], bc[..., n:]
+    a = -_t(rng.uniform(0.5, 2.0, h).astype(np.float32)).to(dev)
+    d = _t(rng.standard_normal(h).astype(np.float32)).to(dev)
+    h0 = _t((0.1 * rng.standard_normal((b, h, p, n))).astype(np.float32)) \
+        .to(dev) if with_h0 else None
+    return x, dt, a, bm, c, d, h0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,t,p,n,with_h0", [
-    (1, 2, 1, 16, 16, False), (2, 3, 33, 16, 16, True),
-    (1, 4, 100, 64, 64, True), (2, 2, 257, 64, 64, False),
-    (1, 2, 40, 32, 128, True), (1, 2, 0, 8, 32, True)])
+@pytest.mark.parametrize("b,h,t,p,n,with_h0,model_layout", [
+    (1, 2, 1, 16, 16, False, False), (2, 3, 33, 16, 16, True, False),
+    (1, 4, 100, 64, 64, True, False), (2, 2, 257, 64, 64, False, False),
+    (1, 2, 40, 32, 128, True, False), (1, 2, 0, 8, 32, True, False),
+    # the zamba2-7b layer, and a T off the bf16 route's 64-token chunk
+    (2, 112, 1024, 64, 64, False, True), (1, 4, 1000, 64, 64, True, True),
+    # two tiles of head channels; P off 8 (element-wise loads), and odd
+    # (element-wise stores)
+    (1, 3, 130, 80, 16, True, True), (1, 2, 70, 12, 32, False, True),
+    (1, 3, 50, 7, 16, True, True)])
 def test_cuda_mamba2_matches_plain(cuda, rng, dtype, b, h, t, p, n,
-                                   with_h0):
-    """Ragged T, every state size, softplus dt; x and dt seen through
-    transposes and B, C as column slices of one tensor, as the model hands
-    them over."""
-    x = _t(rng.standard_normal((b, t, h, p)).astype(np.float32)) \
-        .to(cuda, dtype).transpose(1, 2)
-    dt = _t(np.logaddexp(2.0 * rng.standard_normal((b, t, h)), 0)
-            .astype(np.float32)).to(cuda).transpose(1, 2)
-    bc = _t(rng.standard_normal((b, t, 2 * n)).astype(np.float32)) \
-        .to(cuda, dtype)
-    bm, c = bc[..., :n], bc[..., n:]
-    a = -_t(rng.uniform(0.5, 2.0, h).astype(np.float32)).to(cuda)
-    d = _t(rng.standard_normal(h).astype(np.float32)).to(cuda)
-    h0 = _t((0.1 * rng.standard_normal((b, h, p, n))).astype(np.float32)) \
-        .to(cuda) if with_h0 else None
+                                   with_h0, model_layout):
+    """Ragged T, every state size, softplus dt, strided inputs."""
+    x, dt, a, bm, c, d, h0 = _mamba_args(cuda, rng, dtype, b, h, t, p, n,
+                                         with_h0, model_layout)
     reset_launches()
     y, hT = mops.mamba2(x, dt, a, bm, c, d, h0)
     assert LAUNCHES["mamba2_ssd"] == 1
-    assert y.dtype == dtype and (t < 2 or y.stride() == x.stride())
+    # y in x's layout: x's own strides where x is dense, else the dense
+    # [B, T, H, P] order that x is a slice of
+    layout = (t * h * p, p, h * p, 1) if model_layout else x.stride()
+    assert y.dtype == dtype and (t < 2 or y.stride() == layout)
     ry, rhT = mamba2_ref(x, dt, a, bm, c, d, h0)
     torch.cuda.synchronize()
     _assert_scan_close(y, ry, hT, rhT)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_is_deterministic(cuda, rng):
+    """No atomics: two calls at the zamba2-7b layer give the same bits."""
+    args = _mamba_args(cuda, rng, torch.bfloat16, 2, 112, 1024, 64, 64, True,
+                       True)
+    y1, h1 = mops.mamba2(*args)
+    y2, h2 = mops.mamba2(*args)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
