@@ -5,9 +5,9 @@
 
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together), prints each kernel's
-   registers and spills, and fails unless every bf16 flash and Mamba2 SSD
-   kernel issues tensor-core instructions (HMMA in its SASS) and spills
-   nothing;
+   registers and spills, and fails unless every bf16 flash, Mamba2 SSD and
+   RWKV6 chunk kernel issues tensor-core instructions (HMMA in its SASS)
+   and spills nothing;
 2. ``[serve]``: serves ``paper-moe-100m`` at full width (8 layers, d_model
    512, 16 experts + 2 spare slots, vocab 32000; random weights from a
    seed) with the fused gating and dispatch flags on, through
@@ -137,7 +137,8 @@ def _kernel_name(mangled: str) -> str:
 TENSOR_CORE_KERNELS = {
     "flash_attention": (("_mma_kernel",), 9),
     "mamba2_ssd": (("mamba2_ssd_state_kernel", "mamba2_ssd_scan_kernel"),
-                   8)}
+                   8),
+    "rwkv6_scan": (("rwkv6_scan_chunk_kernel",), 4)}
 NO_SPILLS = tuple(m for marks, _ in TENSOR_CORE_KERNELS.values()
                   for m in marks)
 
@@ -351,20 +352,40 @@ def check_kernels(torch, seen, launches):
 
 def scan_rwkv6(torch, args):
     """The RWKV6 scan on one captured call's inputs: (kernel call, plain
-    call, bytes moved, (f32 operations, their peak rate), shapes)."""
+    call, bytes moved, (operations, their peak rate), shapes).  bf16 runs
+    the chunked form on the tensor cores, so its operations are the chunked
+    form's products at the bf16 rate; f32 runs the exact recurrence on the
+    CUDA cores."""
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
-    from repro_torch.kernels.rwkv6_scan.rwkv6_scan import rwkv6_cuda
+    from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (CHUNK, SUB,
+                                                           rwkv6_cuda)
     r, k, v, w, u, s0 = args
     b, h, t, n = r.shape
     # r, k, v, w read once and y written once; u; s0 (if any) and sT
     n_states = 1 if s0 is None else 2
     nbytes = r.element_size() * 5 * b * h * t * n + \
         4 * (h * n + n_states * b * h * n * n)
-    # per token and head: y = r.S (2N^2), r*u*k summed (3N), + bonus*v
-    # (2N), S = w*S + k*v (3N^2)
-    flops = b * h * t * (5 * n * n + 5 * n)
+    if r.dtype == torch.bfloat16:
+        # per token and head, each f32 operand in two bf16 pieces (three
+        # products where both operands are f32, two where one is v): its
+        # row of y_state, (r.Gpre) S (3 x 2N^2), and of the state update,
+        # (k.Gpost)^T v (2 x 2N^2); per chunk, A_ij = q k^T for the pairs
+        # of distinct sub-chunks (3 x 2N a (t, s) pair) and A V over the
+        # sub-chunk blocks on or below the diagonal (2 x 2N a pair).  The
+        # diagonal blocks' A and the decays run on the CUDA cores beside
+        # the products and are left out.
+        ns = CHUNK // SUB
+        chunks = t / CHUNK
+        pairs_qk = SUB * SUB * ns * (ns - 1) // 2 * chunks
+        pairs_av = SUB * SUB * ns * (ns + 1) // 2 * chunks
+        ops = (b * h * (10 * n * n * t + 6 * n * pairs_qk +
+                        4 * n * pairs_av), BF16_FLOP_PER_S)
+    else:
+        # per token and head: y = r.S (2N^2), r*u*k summed (3N), + bonus*v
+        # (2N), S = w*S + k*v (3N^2)
+        ops = (b * h * t * (5 * n * n + 5 * n), F32_FLOP_PER_S)
     return (lambda: rwkv6_cuda(*args)), (lambda: rwkv6_ref(*args)), \
-        nbytes, (flops, F32_FLOP_PER_S), \
+        nbytes, ops, \
         {"r,k,v,w": [b, h, t, n], "dtype": str(r.dtype), "s0": s0 is not None}
 
 
@@ -417,7 +438,7 @@ SCANS = {"rwkv6_scan": (scan_rwkv6, "rwkv6_cuda",
 
 # the device kernels each wrapper call of a scan launches once (the bf16
 # route of the model)
-SCAN_KERNELS = {"rwkv6_scan": ("rwkv6_scan_kernel",),
+SCAN_KERNELS = {"rwkv6_scan": ("rwkv6_scan_chunk_kernel",),
                 "mamba2_ssd": ("mamba2_ssd_state_kernel",
                                "mamba2_ssd_pass_kernel",
                                "mamba2_ssd_scan_kernel")}

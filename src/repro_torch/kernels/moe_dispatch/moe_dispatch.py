@@ -3,10 +3,15 @@
 
 ``dispatch_cuda`` replaces ``dispatch_pallas`` and ``combine_cuda``
 replaces ``combine_pallas`` (src/repro/kernels/moe_dispatch/
-moe_dispatch.py:98 and :129).  The wrappers validate, allocate outputs and
-scratch, launch on the current stream and raise on a refused launch; they
-never fall back to the plain versions.  Each kernel is also the other's
-backward (``ops.Dispatch``, ``ops.Combine``).
+moe_dispatch.py:98 and :129).  The dispatch ranks a group's assignments in
+tiles of ``TILE`` spread over the card: a histogram pass per tile, then
+one block per (group, tile, 128-byte slice of D) that ranks its tile and
+writes its kept rows' and its share of the empty rows' slices; a group of
+one tile (the serving shapes) takes only the second launch.  The
+wrappers validate, allocate outputs and scratch (the per-tile histograms),
+launch on the current stream and raise on a refused launch; they never
+fall back to the plain versions.  Each kernel is also the other's backward
+(``ops.Dispatch``, ``ops.Combine``).
 """
 from __future__ import annotations
 
@@ -19,11 +24,18 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.build import check, lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 256      # assignments a block ranks (the kernel's TILE)
 
 
 @functools.lru_cache(maxsize=None)
 def _fns():
     so = lib("moe_dispatch")
+    # the histogram scratch below is sized with TILE; the library reports
+    # its own
+    if so.moe_dispatch_tile() != TILE:
+        raise RuntimeError(f"libmoe_dispatch ranks tiles of "
+                           f"{so.moe_dispatch_tile()}, the wrapper sizes "
+                           f"scratch for {TILE}")
     d, c = so.moe_dispatch_launch, so.moe_combine_launch
     d.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
@@ -59,12 +71,14 @@ def dispatch_cuda(v, w, slot, valid, n_slots: int, cap: int):
     keep = torch.empty((g, t, k), dtype=torch.int32, device=dev)
     routed = torch.empty((g, n_slots), dtype=torch.int32, device=dev)
     kept = torch.empty((g, n_slots), dtype=torch.int32, device=dev)
-    owner = torch.empty((g, n_slots, cap), dtype=torch.int32, device=dev)
+    tiles = max(1, -(-t * k // TILE))
+    hist = torch.empty((g, tiles, n_slots + 1), dtype=torch.int32,
+                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fns()[0](v.data_ptr(), w.data_ptr(), slot.data_ptr(),
                     valid.data_ptr(), buf.data_ptr(), rank.data_ptr(),
                     keep.data_ptr(), routed.data_ptr(), kept.data_ptr(),
-                    owner.data_ptr(), g, t, k, d, n_slots, cap,
+                    hist.data_ptr(), g, t, k, d, n_slots, cap,
                     _DTYPES[v.dtype], stream)
     check(err, "moe_dispatch launch")
     LAUNCHES["moe_dispatch"] += 1

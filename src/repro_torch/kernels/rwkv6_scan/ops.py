@@ -1,12 +1,16 @@
 """The RWKV6 WKV scan's dispatcher and one-token decode step.
 
 ``rwkv6`` runs the full sequence: the CUDA kernel for a tensor on the card,
-the plain version (``ref.rwkv6_ref``) for a tensor on the CPU.  Both compute
-the exact recurrence.  The reference's chunked form (``rwkv6_chunked``,
-src/repro/kernels/rwkv6_scan/ops.py:18) is not ported: its decay factoring
-clamps the cumulative in-chunk decay at e^-30 and is wrong at the model's
-own chunk of 128 tokens with model-range decays, so there is no chunk
-length here.
+the plain version (``ref.rwkv6_ref``, the exact recurrence) for a tensor on
+the CPU.  On the card, f32 runs the exact recurrence and bf16 (the model's
+dtype) a chunked form on the tensor cores, chunks of 64 tokens cut into
+sub-chunks of 16, whose every decay is a product of the w's (no
+exponential, no clamp).  The reference's
+chunked form (``rwkv6_chunked``, src/repro/kernels/rwkv6_scan/ops.py:18) is
+not ported: its decay factoring clamps the cumulative in-chunk decay at
+e^-30 and is wrong at the model's own chunk of 128 tokens with
+model-range decays.  The model has no chunk length to pass: the kernel's
+is fixed (``rwkv6_scan.CHUNK``).
 """
 from __future__ import annotations
 

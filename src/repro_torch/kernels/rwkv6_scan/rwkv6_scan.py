@@ -1,12 +1,16 @@
 """Launch wrapper for the CUDA RWKV6 WKV scan (``csrc/rwkv6_scan.cu``).
 
 Replaces ``rwkv6_pallas`` (src/repro/kernels/rwkv6_scan/rwkv6_scan.py:59).
-The wrapper validates its inputs, allocates the outputs, launches on the
-current stream and raises on a refused launch; it never falls back to the
-plain version.  The four ``[B,H,T,N]`` inputs may be strided views (the
-model hands over ``[B,T,H,N]`` activations transposed), as long as they
-share strides and N is contiguous; y is allocated in the same layout, so
-the caller's transpose back is free.
+bf16 runs the chunked form on the tensor cores (chunks of ``CHUNK`` tokens
+cut into sub-chunks of ``SUB``, every decay a product of the w's, so no
+clamp);
+f32 runs the exact recurrence on the CUDA cores.  The wrapper validates
+its inputs, allocates the outputs, launches on the current stream and
+raises on a refused launch; it never falls back to the plain version.  The
+four ``[B,H,T,N]`` inputs may be strided views (the model hands over
+``[B,T,H,N]`` activations transposed), as long as they share strides and
+N is contiguous; y is allocated in the same layout, so the caller's
+transpose back is free.
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ from repro_torch.kernels.build import check, lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (16, 32, 64, 128)
+# tokens a chunk and a sub-chunk of the bf16 route (the kernel's L and SUB;
+# the CPU tests emulate the kernel at these lengths)
+CHUNK, SUB = 64, 16
 
 
 @functools.lru_cache(maxsize=None)

@@ -193,7 +193,11 @@ def test_cuda_gating_matches_plain(cuda, rng, g, t, e, k):
                                            # D off 8: element-wise gathers
                                            (2, 33, 2, 100, 10, 4),
                                            # k past one warp's lanes
-                                           (1, 5, 40, 64, 48, 8)])
+                                           (1, 5, 40, 64, 48, 8),
+                                           # several tiles a group
+                                           (4, 1024, 2, 512, 18, 160),
+                                           # T*k off the tile: 256+256+88
+                                           (2, 300, 2, 512, 18, 40)])
 def test_cuda_dispatch_combine_match_plain(cuda, rng, dtype, g, t, k, d, s,
                                            cap):
     v = _t(rng.standard_normal((g, t, d)).astype(np.float32)).to(cuda, dtype)
@@ -213,6 +217,61 @@ def test_cuda_dispatch_combine_match_plain(cuda, rng, dtype, g, t, k, d, s,
                                     impl="cuda"), y)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dispatch_one_hot_slot(cuda, rng, dtype):
+    """Training's microbatch with every assignment in one slot: 640 kept of
+    8192, the rest dropped, every other slot's rows zero."""
+    g, t, k, d, s, cap = 1, 4096, 2, 512, 18, 640
+    v = _t(rng.standard_normal((g, t, d)).astype(np.float32)).to(cuda, dtype)
+    w = _t(rng.random((g, t, k)).astype(np.float32)).to(cuda)
+    slot = torch.full((g, t, k), 7, dtype=torch.int32, device=cuda)
+    valid = torch.ones((g, t, k), dtype=torch.int32, device=cuda)
+    got = dops.dispatch(v, w, slot, valid, s, cap, impl="cuda")
+    ref = dispatch_ref(v, w, slot, valid, s, cap)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(got[4].sum()) == cap and int(got[3][0, 7]) == t * k
+
+
+@pytest.mark.cuda
+def test_cuda_combine_backward_dispatch_matches_plain(cuda, rng):
+    """Combine's backward is a dispatch of the output's cotangent weighted
+    by the routing weights (w != 1): the buffer gradient through the
+    kernels equals the plain versions' bit for bit, at the training
+    shape."""
+    g, t, k, d, s, cap = 1, 4096, 2, 512, 18, 640
+    slot = _t(rng.integers(0, 3, (g, t, k)).astype(np.int32)).to(cuda)
+    valid = torch.ones((g, t, k), dtype=torch.int32, device=cuda)
+    w = _t(rng.random((g, t, k)).astype(np.float32)).to(cuda)
+    x = _t(rng.standard_normal((g, t, d)).astype(np.float32)) \
+        .to(cuda, torch.bfloat16)
+    buf, rank, keep, _, _ = dispatch_ref(x, torch.ones_like(w), slot, valid,
+                                         s, cap)
+    g_y = _t(rng.standard_normal((g, t, d)).astype(np.float32)) \
+        .to(cuda, torch.bfloat16)
+    grads = []
+    for impl in ("cuda", "torch"):
+        b = buf.clone().requires_grad_(True)
+        y = dops.Combine.apply(b, w, slot, rank, keep, valid, impl)
+        grads.append(torch.autograd.grad(y, b, g_y)[0])
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dispatch_is_deterministic(cuda, rng, dtype):
+    """No atomics: two calls at the training shape give the same bits."""
+    g, t, k, d, s, cap = 1, 4096, 2, 512, 18, 640
+    v = _t(rng.standard_normal((g, t, d)).astype(np.float32)).to(cuda, dtype)
+    w = _t(rng.random((g, t, k)).astype(np.float32)).to(cuda)
+    slot = _t(rng.integers(0, s, (g, t, k)).astype(np.int32)).to(cuda)
+    valid = torch.ones((g, t, k), dtype=torch.int32, device=cuda)
+    a = dops.dispatch(v, w, slot, valid, s, cap, impl="cuda")
+    b = dops.dispatch(v, w, slot, valid, s, cap, impl="cuda")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def _assert_scan_close(y, ry, st, rst):
     ulp = 2.0 ** -7 if y.dtype == torch.bfloat16 else 1e-4
     y, ry = y.float(), ry.float()
@@ -227,7 +286,11 @@ def _assert_scan_close(y, ry, st, rst):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,t,n,with_s0", [
     (1, 2, 1, 16, False), (2, 3, 33, 16, True), (1, 4, 100, 64, True),
-    (2, 2, 257, 64, False), (1, 1, 40, 128, True), (1, 2, 0, 32, True)])
+    (2, 2, 257, 64, False), (1, 1, 40, 128, True), (1, 2, 0, 32, True),
+    # the rwkv6-1.6b layer, a T off the bf16 route's 64-token chunk, and
+    # one chunk and a token
+    (4, 32, 1024, 64, True), (1, 4, 1000, 64, False), (2, 3, 65, 64, True),
+    (1, 2, 300, 128, False), (1, 3, 130, 32, True)])
 def test_cuda_rwkv6_matches_plain(cuda, rng, dtype, b, h, t, n, with_s0):
     """Ragged T, every head size, model-range decays; the inputs are
     [B,T,H,N] activations seen through a transpose, as the model hands
@@ -248,6 +311,46 @@ def test_cuda_rwkv6_matches_plain(cuda, rng, dtype, b, h, t, n, with_s0):
     ry, rst = rwkv6_ref(r, k, v, w, u, s0)
     torch.cuda.synchronize()
     _assert_scan_close(y, ry, st, rst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_lo,w_hi", [(1e-6, 1e-5), (1e-6, 1.0),
+                                       (1.0, 1.0)])
+def test_cuda_rwkv6_extreme_decays(cuda, rng, w_lo, w_hi):
+    """bf16 decays down to 1e-6 (a sub-chunk's cumulative log decay near
+    -221) and exactly 1.0, at N 64 over several chunks: finite, and within
+    the scan gate of the exact recurrence."""
+    b, h, t, n = 2, 4, 200, 64
+    r, k, v = (_t((0.5 * rng.standard_normal((b, h, t, n)))
+                  .astype(np.float32)).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    w = rng.uniform(w_lo, w_hi, (b, h, t, n))
+    if w_lo < w_hi:
+        w[..., ::3] = 1.0
+    w = _t(w.astype(np.float32)).to(cuda, torch.bfloat16)
+    u = _t((0.1 * rng.standard_normal((h, n))).astype(np.float32)).to(cuda)
+    s0 = _t((0.1 * rng.standard_normal((b, h, n, n))).astype(np.float32)) \
+        .to(cuda)
+    y, st = rops.rwkv6(r, k, v, w, u, s0)
+    ry, rst = rwkv6_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    _assert_scan_close(y, ry, st, rst)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_is_deterministic(cuda, rng):
+    """No atomics: two calls at the rwkv6-1.6b layer give the same bits."""
+    b, h, t, n = 4, 32, 1024, 64
+    r, k, v = (_t((0.5 * rng.standard_normal((b, t, h, n)))
+                  .astype(np.float32)).to(cuda, torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    w = _t(rng.uniform(0.0113, 0.9997, (b, t, h, n)).astype(np.float32)) \
+        .to(cuda, torch.bfloat16).transpose(1, 2)
+    u = _t((0.1 * rng.standard_normal((h, n))).astype(np.float32)).to(cuda)
+    y1, s1 = rops.rwkv6(r, k, v, w, u)
+    y2, s2 = rops.rwkv6(r, k, v, w, u)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 def _mamba_args(dev, rng, dtype, b, h, t, p, n, with_h0, model_layout):
