@@ -11,15 +11,22 @@
 2. ``[serve]``: serves ``paper-moe-100m`` at full width (8 layers, d_model
    512, 16 experts + 2 spare slots, vocab 32000; random weights from a
    seed) with the fused gating and dispatch flags on, through
-   ``BatchedServer.generate`` and so the ``ServeEngine``: 8 prompts of mixed
-   lengths 16..128, 32 new tokens each — the MoE main path, with every
-   kernel's launch count set to 0 just before it and read just after; then
-   the same work again under a CUDA-only ``torch.profiler`` trace, for the
-   device's busy share of the untraced main path's wall time;
-3. ``[kernel]``: holds each MoE kernel against its plain torch version on
-   the card, on the inputs the main path's decode ticks gave it (integer
+   ``BatchedServer.generate`` and so the ``ServeEngine``, whose tick
+   replays a CUDA graph of the decode step (captured in a warm-up): 8
+   prompts of mixed lengths 16..128, 32 new tokens each — the MoE main
+   path, with every kernel's launch count set to 0 just before it and read
+   just after (each replay credits the launches its capture recorded, and
+   the counts must be exactly replays x that); then the same work again
+   under a CUDA-only ``torch.profiler`` trace, for the device's busy share
+   of the untraced main path's wall time;
+3. ``[graph]``: a prefill tick and a decode tick through the graphed and
+   the eager tick from the same state, logits, tokens, positions and
+   caches equal bit for bit, and both ticks' host wall;
+   ``[kernel]``: holds each MoE kernel against its plain torch version on
+   the card, on the inputs of the decode step at the serve shape (integer
    outputs equal, float outputs within the stated tolerance), and times
-   both, with CUDA-graph replay so the times are device times;
+   both, with CUDA-graph replay so the times are device times; gating also
+   at E 128, k 8 over 4096 tokens;
 4. ``[equiv]``: checks that greedy ``ServeEngine`` output equals
    ``generate_static`` token for token on a 4-row batch (4 rows never
    overflow a capacity of 4, so neither grouping drops an assignment);
@@ -52,7 +59,8 @@
    for its device time by kernel; the scan kernel against its plain
    version on one layer's inputs captured from that forward, timed like the
    MoE kernels; forward against step-by-step decode on ``[2, 128]``;
-   ``BatchedServer.generate`` on 4 prompts of 16..64 tokens; greedy
+   ``BatchedServer.generate`` on 4 prompts of 16..64 tokens (after a
+   warm-up that captures the tick's graph); greedy
    ``ServeEngine`` against ``generate_static`` on ``[4, 32] + 16``.  Each
    model is freed before the next;
 8. prints the kernels' JSON line, the card's name and power limit, and
@@ -246,6 +254,42 @@ def capture_kernel_inputs(torch, run, targets=None, clone=True):
     return out, seen
 
 
+def compare_outputs(name, got, ref, n_int, tol):
+    """The first ``n_int`` outputs equal, the rest within ``tol``; returns
+    the largest float error."""
+    for a, b in zip(got[:n_int], ref[:n_int]):
+        if not a.equal(b):
+            raise AssertionError(f"{name}: integer outputs differ")
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got[n_int:], ref[n_int:]))
+    if err > tol:
+        raise AssertionError(f"{name}: max |err| {err} > {tol}")
+    return err
+
+
+def gating_row(torch, logits, k, launches, name="moe_gating"):
+    """The gating kernel against its plain version on ``logits`` [G,T,E]:
+    ids and phi exact, weights within 1e-6 (the kernel sums the softmax
+    denominator in another order, so weights may differ by ulps); both
+    timed.  Returns the kernels JSON row."""
+    from repro_torch.kernels.moe_gating.moe_gating import gating_cuda
+    from repro_torch.kernels.moe_gating.ref import gating_ref
+    g_, t_, e_ = logits.shape
+    w, ids, cnt = gating_cuda(logits, k)
+    rw, rids, rcnt = gating_ref(logits, k)
+    err = compare_outputs(name, (ids, cnt, w), (rids, rcnt, rw), 2, 1e-6)
+    nb = 4 * (g_ * t_ * e_ + 2 * g_ * t_ * k + g_ * e_)
+    b_ms, b_by = bound_ms(nb, g_ * t_ * e_ * (5 + 2 * k))
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/moe_gating.cu",
+        replaces="src/repro/kernels/moe_gating/moe_gating.py:18",
+        launches=launches, max_abs_err=err,
+        ms=graph_ms(torch, lambda: gating_cuda(logits, k)),
+        plain_ms=graph_ms(torch, lambda: gating_ref(logits, k)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def check_kernels(torch, seen, launches):
     """Kernel vs plain version on the captured inputs; returns the rows of
     the kernels JSON line and the shapes each kernel ran at.  Raises on a
@@ -255,37 +299,11 @@ def check_kernels(torch, seen, launches):
     from repro_torch.kernels.moe_dispatch.moe_dispatch import (combine_cuda,
                                                                dispatch_cuda)
     from repro_torch.kernels.moe_dispatch.ref import combine_ref, dispatch_ref
-    from repro_torch.kernels.moe_gating.moe_gating import gating_cuda
-    from repro_torch.kernels.moe_gating.ref import gating_ref
     rows, shapes = [], {}
+    compare = compare_outputs
 
-    def compare(name, got, ref, n_int, tol):
-        for a, b in zip(got[:n_int], ref[:n_int]):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{name}: integer outputs differ")
-        err = max((a.float() - b.float()).abs().max().item()
-                  for a, b in zip(got[n_int:], ref[n_int:]))
-        if err > tol:
-            raise AssertionError(f"{name}: max |err| {err} > {tol}")
-        return err
-
-    # gating: ids and phi exact; weights within 1e-6 (the kernel sums the
-    # softmax denominator in another order, so weights may differ by ulps)
     logits, k = seen["gating_cuda"]
-    g_, t_, e_ = logits.shape
-    w, ids, cnt = gating_cuda(logits, k)
-    rw, rids, rcnt = gating_ref(logits, k)
-    err = compare("moe_gating", (ids, cnt, w), (rids, rcnt, rw), 2, 1e-6)
-    nb = 4 * (g_ * t_ * e_ + 2 * g_ * t_ * k + g_ * e_)
-    b_ms, b_by = bound_ms(nb, g_ * t_ * e_ * (5 + 2 * k))
-    rows.append(dict(
-        name="moe_gating", route="cuda",
-        source="src/repro_torch/kernels/csrc/moe_gating.cu",
-        replaces="src/repro/kernels/moe_gating/moe_gating.py:18",
-        launches=launches["moe_gating"], max_abs_err=err,
-        ms=graph_ms(torch, lambda: gating_cuda(logits, k)),
-        plain_ms=graph_ms(torch, lambda: gating_ref(logits, k)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    rows.append(gating_row(torch, logits, k, launches["moe_gating"]))
     shapes["moe_gating"] = {"logits": list(logits.shape), "k": k,
                             "tol": 1e-6}
 
@@ -620,6 +638,9 @@ def ssm_phase(torch, dev, ph, fails) -> tuple:
     del params
     prompts = [rng.integers(1, cfg.vocab, (n,)).astype(np.int32)
                for n in SSM_PROMPT_LENS]
+    # warm-up: the tick's graph is captured on the engine's first tick
+    srv.generate([p[:16] for p in prompts], 4)
+    replays0 = srv.engine()._tick.graphed.replays
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = srv.generate(prompts, SSM_NEW)
@@ -630,7 +651,9 @@ def ssm_phase(torch, dev, ph, fails) -> tuple:
     log(f"[{tag}] serve {len(prompts)} requests, prompts "
         f"{list(SSM_PROMPT_LENS)}, {SSM_NEW} new each: {wall:.4f} s, "
         f"{out.size / wall:.1f} generated tok/s, {srv.engine().tick_no} "
-        f"ticks")
+        f"ticks (warm-up included), "
+        f"{srv.engine()._tick.graphed.replays - replays0} replays of the "
+        f"tick's graph")
     batch = rng.integers(1, cfg.vocab, SSM_STATIC).astype(np.int32)
     t0 = time.perf_counter()
     ref = srv.generate_static(batch, SSM_NEW)
@@ -641,8 +664,9 @@ def ssm_phase(torch, dev, ph, fails) -> tuple:
     if not np.array_equal(got, ref):
         bad = np.argwhere(got != ref)[:5].tolist()
         fails.append(f"{tag}: ServeEngine != generate_static at {bad}")
-    log(f"[{tag}] ServeEngine vs generate_static on {list(SSM_STATIC)} + "
-        f"{SSM_NEW}: equal {np.array_equal(got, ref)}, engine "
+    log(f"[{tag}] ServeEngine (graphed tick) vs generate_static on "
+        f"{list(SSM_STATIC)} + {SSM_NEW}: equal {np.array_equal(got, ref)}, "
+        f"engine "
         f"{t_engine:.4f} s, static {t_static:.4f} s")
     return row, launches
 
@@ -700,24 +724,44 @@ def _free(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def device_trace(torch, fn):
+def device_trace(torch, fn, gaps=None):
     """Run ``fn()`` under a CUDA-only ``torch.profiler`` trace (no CPU
     activity, so the host's op dispatch is not traced).  Returns the traced
     call's wall seconds, the device time summed over the trace in µs (one
-    stream, so no overlap) and ``{kernel name: [launches, µs]}``."""
+    stream, so no overlap) and ``{kernel name: [launches, µs]}``.  A list
+    ``gaps`` receives the device's idle gaps in µs, between the first
+    traced activity and the last."""
     from torch.profiler import ProfilerActivity, profile
+
+    def settle():
+        # a kernel and a short host pause on each side of the traced work,
+        # so that no record of it is lost at the trace's edges
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        settle()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
+        settle()
+    by_name, spans = {}, []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n = by_name.setdefault(e.name, [0, 0.0])
             n[0] += 1
             n[1] += e.time_range.elapsed_us()
+            spans.append((e.time_range.start, e.time_range.end))
+    if gaps is not None:
+        spans.sort()
+        end = spans[0][1] if spans else 0
+        for a, b in spans[1:]:
+            if a > end:
+                gaps.append(a - end)
+            end = max(end, b)
     busy = sum(v[1] for v in by_name.values())
     if busy <= 0:
         raise AssertionError("the CUDA trace recorded no device time")
@@ -733,10 +777,126 @@ def log_trace(tag, by_name, top) -> None:
             log(f"[{tag}]   {us:10.1f} us {n:6d} launches  {name[:90]}")
 
 
-def moe_phase(torch, dev) -> list:
-    """The MoE serving main path, its device trace, the MoE kernels against
-    their plain versions, and engine == static.  Returns the kernels' JSON
-    rows."""
+def serve_kernel_inputs(torch, cfg, params, dev, rng):
+    """The MoE kernels' inputs at the decode tick's shapes: four eager runs
+    of the tick's own decode step over len(PROMPT_LENS) fresh slots, the
+    last call of each kernel kept (the graphed tick replays kernels that no
+    wrapper sees)."""
+    from repro_torch.engine.serve import build_decode_step
+    from repro_torch.models import lm
+    b = len(PROMPT_LENS)
+    state = lm.init_cache(cfg, b, 16, device=dev)
+    step = build_decode_step(cfg, dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+
+    @torch.no_grad()
+    def run():
+        for _ in range(4):
+            tok = torch.as_tensor(rng.integers(1, cfg.vocab, b), device=dev)
+            step(params, state["caches"], state["pos"], tok, active)
+    return capture_kernel_inputs(torch, run)[1]
+
+
+def graph_check(torch, cfg, params, dev, rng, tag, fails) -> None:
+    """One prefill tick (16 tokens: prompts of 16, 11, 7 and 1 over 8
+    slots, 2 of them idle) and one decode tick (4 tokens) through the
+    graphed and the eager tick, on two pools in the same state: every
+    step's logits, the tokens, the positions and every cache leaf must be
+    equal bit for bit.  Then both ticks' host wall per decode tick, in
+    turns."""
+    from repro_torch.engine.serve import SlotPool, SlotTick
+    b = len(PROMPT_LENS)
+    pools = [SlotPool(cfg, b, 128, dev) for _ in range(2)]
+    ticks = [SlotTick(cfg, dev, graph=g) for g in (True, False)]
+    for t in ticks:
+        t.record = []
+    temps, gens = np.zeros(b, np.float32), [None] * b
+    active = np.array([1, 1, 1, 1, 1, 1, 0, 0], bool)[:b]
+    toks = rng.integers(1, cfg.vocab, (b, 16))
+    n_given = np.array([16, 11, 7, 1, 16, 16, 1, 1])[:b]
+    outs = [t(params, p.caches, p.pos, toks, n_given, active,
+              np.ones(b, bool), temps, gens) for t, p in zip(ticks, pools)]
+    same_toks = np.array_equal(outs[0][1], outs[1][1])
+    dec = np.zeros((b, 4), np.int64)
+    dec[:, 0] = outs[0][1][:, -1]
+    outs = [t(params, p.caches, p.pos, dec, np.ones(b, np.int64), active,
+              np.zeros(b, bool), temps, gens) for t, p in zip(ticks, pools)]
+    same_toks = same_toks and np.array_equal(outs[0][1], outs[1][1])
+    same_logits = [torch.equal(a, c) for a, c in zip(*(t.record
+                                                        for t in ticks))]
+    diff = max((a - c).abs().max().item()
+               for a, c in zip(*(t.record for t in ticks)))
+    same_state = torch.equal(pools[0].pos, pools[1].pos) and all(
+        torch.equal(c, pools[1].caches[t][n])
+        for t in pools[0].caches for n, c in pools[0].caches[t].items())
+    for t in ticks:
+        t.record = None
+    walls = {True: [], False: []}
+    for _ in range(4):
+        for t, p in zip(ticks, pools):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t(params, p.caches, p.pos, dec, np.ones(b, np.int64), active,
+              np.zeros(b, bool), temps, gens)
+            torch.cuda.synchronize()
+            walls[t.graph].append(time.perf_counter() - t0)
+    g = ticks[0].graphed
+    log(f"[graph] {tag}: a prefill tick of 16 and a decode tick of 4 over "
+        f"{b} slots, graphed vs eager tick from the same state: logits "
+        f"equal bit for bit at {sum(same_logits)} of {len(same_logits)} "
+        f"steps (max |diff| {diff}), tokens equal {same_toks}, positions and "
+        f"caches equal {same_state}; {g.replays} replays, per replay the "
+        f"launches {_nonzero(g.per_replay)}; host wall of a decode tick of 4 "
+        f"(in turns, best of 4): graphed {min(walls[True]):.6f} s, eager "
+        f"{min(walls[False]):.6f} s")
+    if not (all(same_logits) and same_toks and same_state):
+        fails.append(f"{tag}: the graphed tick differs from the eager tick")
+    del pools, ticks
+
+
+def replay_spans(torch, eng, fn) -> tuple:
+    """Run ``fn()`` with CUDA events around every replay of ``eng``'s tick
+    graph (no profiler, which slows the host).  Returns seconds: the wall,
+    the device time inside replays, and the time from one replay's end to
+    the next one's start, within a tick and across ticks."""
+    graphed = eng._tick.graphed
+    real, marks = graphed.graph, []
+
+    class Timed:
+        def replay(self):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            real.replay()
+            b.record()
+            marks.append((eng.tick_no, a, b))
+
+    graphed.graph = Timed()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        graphed.graph = real
+    inside = sum(a.elapsed_time(b) for _, a, b in marks) / 1e3
+    within = across = 0.0
+    for (tick0, _, end), (tick1, start, _) in zip(marks, marks[1:]):
+        if tick0 == tick1:
+            within += end.elapsed_time(start) / 1e3
+        else:
+            across += end.elapsed_time(start) / 1e3
+    return wall, inside, within, across
+
+
+def _nonzero(counts) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def moe_phase(torch, dev, fails) -> list:
+    """The MoE serving main path, its device trace, the graphed tick
+    against the eager one, the MoE kernels against their plain versions,
+    and engine == static.  Returns the kernels' JSON rows."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
@@ -759,10 +919,11 @@ def moe_phase(torch, dev) -> list:
     prompts = [rng.integers(1, cfg.vocab, (n,)).astype(np.int32)
                for n in PROMPT_LENS]
 
-    # warm-up on the same server (first-use costs stay out of the timed
-    # run), keeping the kernels' inputs from its last decode tick
-    _, seen = capture_kernel_inputs(
-        torch, lambda: srv.generate([p[:16] for p in prompts], 4))
+    # warm-up on the same server (first-use costs, the tick's graph
+    # capture among them, stay out of the timed run)
+    srv.generate([p[:16] for p in prompts], 4)
+    graphed = srv.engine()._tick.graphed
+    replays0 = graphed.replays
 
     # the main path
     reset_launches()
@@ -772,6 +933,7 @@ def moe_phase(torch, dev) -> list:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    replays = graphed.replays - replays0
     if out.shape != (len(prompts), MAX_NEW) or out.min() < 0 or \
             out.max() >= cfg.vocab:
         raise AssertionError(f"bad serve output {out.shape}")
@@ -779,31 +941,77 @@ def moe_phase(torch, dev) -> list:
                if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    # every launch of the main path is one that a replay of the graph made
+    if launches != {k: replays * n for k, n in graphed.per_replay.items()}:
+        raise AssertionError(f"main path launches {launches} are not "
+                             f"{replays} replays of {graphed.per_replay}")
     gen_toks = out.size
     prompt_toks = sum(PROMPT_LENS)
     eng = srv.engine()
     log(f"[serve] {len(prompts)} requests, prompts {list(PROMPT_LENS)}, "
         f"{MAX_NEW} new each: {wall:.4f} s, {gen_toks / wall:.1f} "
         f"generated tok/s, {(gen_toks + prompt_toks) / wall:.1f} "
-        f"processed tok/s, {eng.tick_no} ticks, launches {launches}")
+        f"processed tok/s, {eng.tick_no} ticks; {replays} replays of the "
+        f"tick's graph, each credited {_nonzero(graphed.per_replay)}; "
+        f"launches {launches}")
 
     t_tok = {k: v for k, v in eng.engine.costs.snapshot().items()
              if k.endswith("_per_tok") and ":" not in k}
     log(f"[serve] measured per-token tick EMAs (s): {t_tok}")
 
     # the main path's work once more under a CUDA-only trace: its device
-    # time over the untraced main path's wall gives the busy share
-    ticks0 = eng.tick_no
+    # time over the untraced main path's wall gives the busy share; the
+    # trace must see the replays' kernels (one gating launch per MoE layer
+    # and replay)
+    ticks0, replays0 = eng.tick_no, graphed.replays
+    gaps = []
     wall_t, busy_us, by_name = device_trace(
-        torch, lambda: srv.generate(prompts, MAX_NEW))
+        torch, lambda: srv.generate(prompts, MAX_NEW), gaps)
     busy = busy_us / 1e6 / wall
+    traced = sum(n for name, (n, _) in by_name.items() if "gating" in name)
+    want = (graphed.replays - replays0) * graphed.per_replay["moe_gating"]
     log(f"[profile] main path's work again under a CUDA-only trace "
-        f"({eng.tick_no - ticks0} ticks, traced wall {wall_t:.4f} s): device "
-        f"busy {busy_us:.0f} us; over the untraced main path's wall "
-        f"{wall:.4f} s: busy {busy:.4f}, idle {1 - busy:.4f}")
+        f"({eng.tick_no - ticks0} ticks, {graphed.replays - replays0} "
+        f"replays, traced wall {wall_t:.4f} s): device busy {busy_us:.0f} "
+        f"us; over the untraced main path's wall {wall:.4f} s: busy "
+        f"{busy:.4f}, idle {1 - busy:.4f}; gating kernels in the trace "
+        f"{traced} (replays x per replay {want})")
+    if traced != want:
+        fails.append(f"serve: the trace saw {traced} gating kernels of the "
+                     f"replays' {want}")
+    # the device's idle gaps by length: the host's work between ticks
+    # (planning, the tick's host copy) shows as gaps of about a millisecond,
+    # one a tick; launch gaps inside a replayed step as microseconds
+    parts = []
+    for lo, hi in ((0, 20), (20, 500), (500, float("inf"))):
+        sel = [g for g in gaps if lo <= g < hi]
+        parts.append(f"[{lo}, {hi}): {len(sel)} gaps, {sum(sel) / 1e3:.3f} "
+                     f"ms, {sum(sel) / 1e6 / wall_t:.4f} of the traced wall")
+    log(f"[profile] device idle gaps in the trace, by length in us: "
+        f"{'; '.join(parts)}; {eng.tick_no - ticks0} ticks (the trace "
+        f"slows the host: its traced wall is longer)")
+    # the same work with CUDA events around every replay, untraced: where
+    # the wall goes between the graph's replays
+    ticks0 = eng.tick_no
+    wall_e, inside, within, across = replay_spans(
+        torch, eng, lambda: srv.generate(prompts, MAX_NEW))
+    log(f"[profile] the same work with events around each replay, "
+        f"untraced: wall {wall_e:.4f} s over {eng.tick_no - ticks0} ticks; "
+        f"inside replays {inside:.4f} s ({inside / wall_e:.4f} of the wall), "
+        f"between replays of one tick {within:.4f} s ({within / wall_e:.4f}),"
+        f" between ticks {across:.4f} s ({across / wall_e:.4f})")
     log_trace("profile", by_name, 8)
 
+    graph_check(torch, cfg, srv.params, dev, rng, cfg.name, fails)
+
+    seen = serve_kernel_inputs(torch, cfg, srv.params, dev, rng)
     rows, shapes = check_kernels(torch, seen, launches)
+    # gating at E 128, k 8 (qwen3-moe-235b-a22b's routing) over a
+    # microbatch of 4096 tokens; no main path runs it yet
+    wide = torch.randn((1, 4096, 128), generator=gen, device=dev)
+    rows.append(gating_row(torch, wide, 8, 0, "moe_gating@e128"))
+    shapes["moe_gating@e128"] = {"logits": list(wide.shape), "k": 8,
+                                 "tol": 1e-6}
     for r in rows:
         log(f"[kernel] {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
             f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.4f} "
@@ -823,8 +1031,8 @@ def moe_phase(torch, dev) -> list:
     if not np.array_equal(got, ref):
         bad = np.argwhere(got != ref)[:5].tolist()
         raise AssertionError(f"ServeEngine != generate_static at {bad}")
-    log(f"[equiv] ServeEngine == generate_static on [4, 64] + {MAX_NEW}: "
-        f"engine {t_engine:.4f} s, static {t_static:.4f} s")
+    log(f"[equiv] ServeEngine (graphed tick) == generate_static on [4, 64] "
+        f"+ {MAX_NEW}: engine {t_engine:.4f} s, static {t_static:.4f} s")
     return rows
 
 
@@ -1348,7 +1556,8 @@ def main() -> int:
     log(f"[build] {built} in {time.perf_counter() - t0:.2f} s")
     build_report(build)
 
-    rows, fails = moe_phase(torch, dev), []
+    fails = []
+    rows = moe_phase(torch, dev, fails)
     _free(torch)
     train_rows, train_launches = train_phase(torch, dev, fails)
     flash_rows = flash_phase(torch, dev, train_launches)

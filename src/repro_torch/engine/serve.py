@@ -25,6 +25,11 @@ row and ``moe_groups="row"``, so every slot is its own MoE group (T=1,
 ``capacity(cfg, 1)``, hashed from its own position) exactly as under the
 vmap, and inactive slots leave their cache rows and positions untouched.
 
+On the card the decode step runs as a CUDA graph (``GraphedStep``),
+captured once per engine on its first tick and replayed ``L`` times a
+tick: the port's counterpart of the reference's one jitted tick dispatch.
+A CPU pool runs the same step eagerly.
+
 Invariants (tests/test_torch_serve.py):
 
 * **Greedy bit-identicality** — greedy outputs equal the static
@@ -54,23 +59,98 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.engine.engine import Engine
 from repro_torch.engine.jobs import Job
+from repro_torch.kernels import LAUNCHES, credit_launches, launches_since
 from repro_torch.models import lm
+from repro_torch.models import moe as moe_lib
 from repro_torch.runtime.serve import serving_params
 
 
-def sample_rows(logits, temps: np.ndarray, gens: List[Any]):
-    """logits [B,V]; per-row temperature (host) and generator.  Greedy rows
-    take the argmax (ties to the lowest index); a row with temperature > 0
-    draws from its own generator, so its stream does not depend on which
-    other requests share the tick."""
-    out = torch.argmax(logits, dim=-1)
+def sample_rows(logits, greedy, temps: np.ndarray, gens: List[Any]):
+    """logits [B,V] and their argmax ``greedy`` [B] (ties to the lowest
+    index); per-row temperature (host) and generator.  Greedy rows keep
+    the argmax; a row with temperature > 0 draws from its own generator,
+    so its stream does not depend on which other requests share the tick.
+    Returns a new tensor: ``greedy`` may be a graph's static output."""
+    out = greedy.clone()
     for r in np.flatnonzero(temps > 0):
         probs = torch.softmax(logits[r] / float(temps[r]), dim=-1)
         out[r] = torch.multinomial(probs, 1, generator=gens[r])[0]
     return out
 
 
-def build_slot_tick(cfg: ArchConfig):
+def build_decode_step(cfg: ArchConfig, device):
+    """The step a tick runs ``L`` times: one ``lm.decode_step`` over every
+    slot, each slot its own MoE group (``moe_groups="row"``), then the
+    greedy argmax.  It updates the caches in place and copies the advanced
+    positions back into ``pos`` after every read of it, so a CUDA graph can
+    capture it over the pool's own tensors.  The MoE routing plan is built
+    once, here: ``decode_step`` would build one on every call."""
+    n_moe = lm.n_moe_layers(cfg)
+    plan = moe_lib.identity_plan(cfg, n_moe, device=device) if n_moe \
+        else None
+
+    def step(params, caches, pos, tok, active):
+        """tok [B] int64, active [B] bool -> (logits [B,V] f32, argmax
+        [B])."""
+        logits, st = lm.decode_step(params, {"caches": caches, "pos": pos},
+                                    tok[:, None], cfg, plan=plan,
+                                    moe_groups="row", active=active)
+        pos.copy_(st["pos"])
+        return logits, torch.argmax(logits, dim=-1)
+
+    return step
+
+
+class GraphedStep:
+    """A decode ``step`` captured once in a CUDA graph: the pool's own
+    caches and positions, and static token and active inputs ``[B]``.  A
+    call writes the token, replays the graph and returns its static logits
+    ``[B,V]`` and argmax ``[B]``, which the next call overwrites.
+
+    The graph holds the addresses of ``params``, the caches and ``pos``, so
+    none of them may be replaced after capture: the port has no hot weight
+    update yet, and one that replaces ``params`` must capture again.  A
+    failed capture raises; there is no eager fallback on the card.  The
+    kernel wrappers count their launches on the host, where a replay runs
+    no wrapper: the capture records one step's counts and every replay
+    credits them (``kernels.credit_launches``)."""
+
+    def __init__(self, step, params, caches, pos):
+        dev = pos.device
+        b = pos.shape[0]
+        self.params, self.caches, self.pos = params, caches, pos
+        self.tok = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.active = torch.zeros((b,), dtype=torch.bool, device=dev)
+        # one eager step first, on a side stream as capture wants (kernel
+        # libraries loaded, cuBLAS workspaces and the gating scratch made);
+        # every row is inactive, so no cache row or position moves
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step(params, caches, pos, self.tok, self.active)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = dict(LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits, self.greedy = step(params, caches, pos, self.tok,
+                                            self.active)
+        self.per_replay = launches_since(before)
+        LAUNCHES.update(before)              # the capture launched nothing
+        self.replays = 0
+
+    def bound_to(self, params, caches, pos) -> bool:
+        return params is self.params and caches is self.caches and \
+            pos is self.pos
+
+    def __call__(self, tok):
+        self.tok.copy_(tok)
+        self.graph.replay()
+        credit_launches(self.per_replay)
+        self.replays += 1
+        return self.logits, self.greedy
+
+
+class SlotTick:
     """The plain tick: ``L`` batched decode steps over every slot.
 
     Per slot: pos, tokens ``[L]``, ``n_given`` (how many are prompt/pending
@@ -80,36 +160,62 @@ def build_slot_tick(cfg: ArchConfig):
     is the model's continuation after consuming token ``j``.  Inactive slots
     run (the batch is rectangular) but their cache and position updates are
     masked out.  A reset slot's cache rows and position are zeroed first,
-    whether or not it takes part in this tick."""
+    whether or not it takes part in this tick.  ``pos`` is advanced in
+    place and returned.
+
+    With ``graph`` (a pool on the card) the step runs as a ``GraphedStep``,
+    captured on the first tick and replayed ``L`` times a tick; the reset
+    zeroing, the token select between steps, sampling and the tick's one
+    host copy stay outside the graph.  Without it (a CPU pool) the same
+    step runs eagerly.  ``record``, when a list, receives each step's
+    logits."""
+
+    def __init__(self, cfg: ArchConfig, device, graph: bool):
+        self.step = build_decode_step(cfg, device)
+        self.graph = graph
+        self.graphed: Optional[GraphedStep] = None
+        self.record: Optional[list] = None
+
+    @property
+    def capture_pending(self) -> bool:
+        return self.graph and self.graphed is None
+
+    def _runner(self, params, caches, pos, active_t):
+        if not self.graph:
+            return lambda tok: self.step(params, caches, pos, tok, active_t)
+        if self.graphed is None:
+            self.graphed = GraphedStep(self.step, params, caches, pos)
+        elif not self.graphed.bound_to(params, caches, pos):
+            raise ValueError("the tick's graph was captured over other "
+                             "params, caches or positions")
+        self.graphed.active.copy_(active_t)
+        return self.graphed
 
     @torch.no_grad()
-    def tick(params, caches, pos, toks, n_given, active, reset, temps,
-             gens):
+    def __call__(self, params, caches, pos, toks, n_given, active, reset,
+                 temps, gens):
         dev = pos.device
         if reset.any():
             rows = torch.as_tensor(np.flatnonzero(reset), device=dev)
             for leaves in caches.values():
                 for c in leaves.values():
                     c[:, rows] = 0
-            pos = pos.masked_fill(torch.as_tensor(reset, device=dev), 0)
+            pos.masked_fill_(torch.as_tensor(reset, device=dev), 0)
         toks = torch.as_tensor(toks, device=dev)
         n_given_t = torch.as_tensor(n_given, device=dev)
         active_t = torch.as_tensor(active, device=dev)
+        run = self._runner(params, caches, pos, active_t)
         L = toks.shape[1]
         prev = toks[:, 0]
         emitted = []
         for j in range(L):
-            tok = torch.where(j < n_given_t, toks[:, j], prev)
-            logits, st = lm.decode_step(
-                params, {"caches": caches, "pos": pos}, tok[:, None], cfg,
-                moe_groups="row", active=active_t)
-            pos = st["pos"]
-            prev = sample_rows(logits, temps, gens)
+            logits, greedy = run(torch.where(j < n_given_t, toks[:, j], prev))
+            if self.record is not None:
+                self.record.append(logits.clone())
+            prev = sample_rows(logits, greedy, temps, gens)
             emitted.append(prev)
         n_valid = np.where(active, L, 0)
         return pos, torch.stack(emitted, 1).cpu().numpy(), n_valid
-
-    return tick
 
 
 @dataclasses.dataclass
@@ -183,10 +289,11 @@ class ServeEngine:
         self.decode_chunk = decode_chunk
         self.seed = seed
         self.pool = SlotPool(cfg, slots, max_len, self.device)
-        self._tick = build_slot_tick(cfg)
+        self._tick = SlotTick(cfg, self.device,
+                              graph=self.device.type == "cuda")
         # tick lengths already run once: a first run carries one-time costs
-        # (kernel library builds and loads, allocator growth) and must not
-        # enter the cost EMAs
+        # (kernel library builds and loads, allocator growth, the graph's
+        # capture) and must not enter the cost EMAs
         self._warm: set = set()
         self.queue: Deque[Request] = deque()
         self.tick_no = 0
@@ -255,6 +362,8 @@ class ServeEngine:
                 "engine": self.engine.inspect()}
 
     def _apply_updates(self, updates: Dict[str, Any]) -> None:
+        # knobs only: the tick's graph holds ``self.params`` and the pool's
+        # tensors, so an update that replaces them must capture again
         if "max_prefill_defer" in updates:
             self.engine.max_prefill_defer = int(updates["max_prefill_defer"])
         if "decode_chunk" in updates:
@@ -331,7 +440,7 @@ class ServeEngine:
             part.append(r)
         if not part:
             return None
-        cold = L not in self._warm
+        cold = L not in self._warm or self._tick.capture_pending
         self._warm.add(L)
         kind = "serve_prefill" if mode == "prefill" else "serve_decode"
         ntok = L * len(part)

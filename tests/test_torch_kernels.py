@@ -174,13 +174,48 @@ def test_cuda_impl_refuses_cpu_tensors():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("g,t,e,k", [(8, 1, 16, 2), (1, 8, 16, 2),
-                                     (2, 300, 64, 8)])
+                                     (1, 4096, 16, 2), (3, 700, 16, 2),
+                                     (2, 300, 64, 8), (1, 513, 128, 8),
+                                     (2, 9000, 16, 2), (1, 4096, 128, 8)])
 def test_cuda_gating_matches_plain(cuda, rng, g, t, e, k):
     x = _t(rng.standard_normal((g, t, e)).astype(np.float32)).to(cuda)
     w, ids, cnt = gops.gating(x, k, impl="cuda")
     rw, rids, rcnt = gating_ref(x, k)
     assert torch.equal(ids, rids) and torch.equal(cnt, rcnt)
     assert (w - rw).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,t,e,k", [(8, 1, 16, 2), (1, 4096, 16, 2),
+                                     (3, 700, 16, 2), (1, 513, 128, 8)])
+def test_cuda_gating_one_launch_and_replays(cuda, rng, g, t, e, k):
+    """One kernel launch a call and no memset (a CUDA-only trace of one
+    call); two calls in a row, and a CUDA graph of one call replayed three
+    times, each give phi equal to the plain version's: the ticket counters
+    that the last block of a group puts back to 0 hold across launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.moe_gating.moe_gating import gating_cuda
+    x = _t(rng.standard_normal((g, t, e)).astype(np.float32)).to(cuda)
+    _, rids, rcnt = gating_ref(x, k)
+    gating_cuda(x, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gating_cuda(x, k)
+        torch.cuda.synchronize()
+    names = [e_.name for e_ in prof.events()
+             if e_.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "gating" in names[0], names
+    for _ in range(2):
+        _, ids, cnt = gating_cuda(x, k)
+        assert torch.equal(ids, rids) and torch.equal(cnt, rcnt)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, ids, cnt = gating_cuda(x, k)
+    for _ in range(3):
+        cnt.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(ids, rids) and torch.equal(cnt, rcnt)
 
 
 @pytest.mark.cuda

@@ -20,6 +20,11 @@ routing itself is held bit-equal in tests/test_torch_moe.py.
 * Inside the port, greedy ``ServeEngine`` output equals ``generate_static``
   token for token, for the MoE family and the recurrent ones (rwkv6,
   zamba2), and a reset slot leaks no recurrent state.
+* The recurrent families' greedy tokens against the reference's static loop
+  compare like the MoE family's, with the whole-model logit tolerance of
+  tests/test_torch_ssm.py (0.25) in place of 2e-2.
+* On the card (``cuda`` marker), the tick's CUDA graph gives the eager
+  tick's logits, tokens, positions and caches bit for bit.
 """
 import dataclasses
 import subprocess
@@ -42,11 +47,15 @@ from repro_torch.configs import get_arch
 from repro_torch.core import messages as M
 from repro_torch.core.breakpoints import GlobalCountBreakpoint
 from repro_torch.engine import ServeEngine
+from repro_torch.engine.serve import SlotPool, SlotTick
+from repro_torch.kernels import (LAUNCHES, credit_launches, launches_since,
+                                 reset_launches)
 from repro_torch.models import bridge, lm
-from repro_torch.runtime.serve import BatchedServer
+from repro_torch.runtime.serve import BatchedServer, serving_params
 
 ARCH = "paper-moe-100m-smoke"
 TOL = 2e-2
+SSM_TOL = 0.25          # whole-model logits, tests/test_torch_ssm.py
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -65,17 +74,17 @@ def _setup(seed=0):
 
 
 @lru_cache(maxsize=None)
-def _j_step():
-    cfg_j, _, _ = _setup()
+def _j_step(arch=ARCH):
+    cfg_j = _setup()[0] if arch == ARCH else _ssm_ref(arch)[0]
     return jax.jit(build_serve_step(cfg_j))
 
 
-def _j_static(prompts, max_new, max_len=64):
+def _j_static(prompts, max_new, max_len=64, arch=ARCH):
     """The reference static greedy loop, keeping each step's top-2 margin."""
-    _, params, _ = _setup()
-    step = _j_step()
+    cfg_j, params = _setup()[:2] if arch == ARCH else _ssm_ref(arch)
+    step = _j_step(arch)
     b, plen = prompts.shape
-    state = j_lm.init_cache(_setup()[0], b, max_len)
+    state = j_lm.init_cache(cfg_j, b, max_len)
     for i in range(plen):
         logits, state = step(params, state, jnp.asarray(prompts[:, i:i + 1]))
     toks, margins = [], []
@@ -89,12 +98,12 @@ def _j_static(prompts, max_new, max_len=64):
     return np.stack(toks, 1), np.stack(margins, 1)
 
 
-def _assert_greedy_matches(got, ref, margins):
+def _assert_greedy_matches(got, ref, margins, tol=TOL):
     compared = 0
     for r in range(ref.shape[0]):
         bad = np.flatnonzero(got[r] != ref[r])
         if bad.size:
-            assert margins[r, bad[0]] < TOL, \
+            assert margins[r, bad[0]] < tol, \
                 f"row {r} step {bad[0]}: margin {margins[r, bad[0]]}"
         compared += bad[0] if bad.size else ref.shape[1]
     assert compared >= ref.size // 2       # most of the stream is compared
@@ -186,11 +195,33 @@ def test_greedy_static_and_engine_match_reference():
 
 
 @lru_cache(maxsize=None)
+def _ssm_ref(arch):
+    """A recurrent family's reference config and weights."""
+    cfg_j = j_get_arch(arch)
+    return cfg_j, jax.jit(j_lm.init, static_argnums=0)(cfg_j,
+                                                       jax.random.PRNGKey(0))
+
+
+@lru_cache(maxsize=None)
 def _ssm_setup(arch):
     """Reference weights of a recurrent family, bridged to the port."""
-    params = jax.jit(j_lm.init, static_argnums=0)(j_get_arch(arch),
-                                                  jax.random.PRNGKey(0))
-    return bridge.from_jax(jax.tree.map(np.asarray, params), device="cpu")
+    return bridge.from_jax(jax.tree.map(np.asarray, _ssm_ref(arch)[1]),
+                           device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b-smoke", "zamba2-7b-smoke"])
+def test_recurrent_static_and_engine_match_reference(arch):
+    """The recurrent families' serving paths (the engine's tick runs its
+    decode step eagerly on a CPU pool) against the reference static loop."""
+    tp, cfg = _ssm_setup(arch), get_arch(arch)
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab, (4, 11))
+    ref, margins = _j_static(prompts, 10, arch=arch)
+    srv = BatchedServer(cfg, tp, max_len=64, slots=4, prefill_chunk=8,
+                        decode_chunk=4, device="cpu")
+    _assert_greedy_matches(srv.generate_static(prompts, 10), ref, margins,
+                           2 * SSM_TOL)
+    _assert_greedy_matches(srv.generate(prompts, 10), ref, margins,
+                           2 * SSM_TOL)
 
 
 @pytest.mark.parametrize("arch,fused", [
@@ -321,6 +352,82 @@ def test_engine_breakpoint_pauses_stream():
     assert not th.is_alive()
     assert "tok-budget" in eng.hit_breakpoints
     assert len(req.output()) == 12
+
+
+def test_graph_replays_credit_the_captured_launches():
+    """A replay runs no kernel wrapper: the counts a capture records are
+    taken back (the capture launched nothing) and credited once per
+    replay."""
+    reset_launches()
+    LAUNCHES["moe_gating"] = 5                   # earlier, eager work
+    before = dict(LAUNCHES)
+    for name in ("moe_gating", "moe_dispatch", "moe_combine"):
+        LAUNCHES[name] += 8                       # one captured step
+    delta = launches_since(before)
+    assert delta == {**{k: 0 for k in LAUNCHES}, "moe_gating": 8,
+                     "moe_dispatch": 8, "moe_combine": 8}
+    LAUNCHES.update(before)
+    for _ in range(4):                            # four replays
+        credit_launches(delta)
+    assert LAUNCHES == {**{k: 0 for k in LAUNCHES}, "moe_gating": 37,
+                        "moe_dispatch": 32, "moe_combine": 32}
+    reset_launches()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [ARCH, "rwkv6-1.6b-smoke",
+                                  "zamba2-7b-smoke"])
+def test_cuda_graphed_tick_equals_eager_tick(cuda, rng, arch):
+    """One prefill tick (prompts of 8, 5 and 3 tokens, one slot idle) and
+    one decode tick through the graphed and the eager tick, on two pools in
+    the same state: every step's logits, the tokens, the positions and
+    every cache leaf equal bit for bit; each replay credits one step's
+    kernel launches."""
+    if arch == ARCH:
+        tp, cfg = _setup()[2], _flags(get_arch(ARCH))
+    else:
+        tp, cfg = _ssm_setup(arch), get_arch(arch)
+    params = serving_params(tp, cuda)
+    pools = [SlotPool(cfg, 4, 32, cuda) for _ in range(2)]
+    ticks = [SlotTick(cfg, cuda, graph=g) for g in (True, False)]
+    for t in ticks:
+        t.record = []
+    temps, gens = np.zeros(4, np.float32), [None] * 4
+    toks = rng.integers(1, cfg.vocab, (4, 8))
+    args = [(toks, np.array([8, 5, 3, 1]), np.array([1, 1, 1, 0], bool),
+             np.ones(4, bool))]
+    outs = [t(params, p.caches, p.pos, *args[0], temps, gens)
+            for t, p in zip(ticks, pools)]
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    dec = np.zeros((4, 4), np.int64)
+    dec[:, 0] = outs[0][1][:, -1]
+    reset_launches()
+    outs = [t(params, p.caches, p.pos, dec, np.ones(4, np.int64),
+              np.array([1, 1, 1, 0], bool), np.zeros(4, bool), temps, gens)
+            for t, p in zip(ticks, pools)]
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    assert torch.equal(pools[0].pos, pools[1].pos)
+    assert pools[0].pos.tolist() == [12, 12, 12, 0]
+    assert len(ticks[0].record) == len(ticks[1].record) == 12
+    for j, (a, b) in enumerate(zip(*(t.record for t in ticks))):
+        assert torch.equal(a, b), f"step {j}"
+    for t in pools[0].caches:
+        for name, c in pools[0].caches[t].items():
+            assert torch.equal(c, pools[1].caches[t][name]), (t, name)
+    graphed = ticks[0].graphed
+    assert graphed.replays == 12
+    n_moe = lm.n_moe_layers(cfg)
+    assert graphed.per_replay["moe_gating"] == n_moe
+    # the decode tick: 4 replays credited, and the eager tick's own 4 steps
+    assert LAUNCHES["moe_gating"] == 8 * n_moe
+    reset_launches()
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
