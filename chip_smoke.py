@@ -30,7 +30,23 @@
 4. ``[equiv]``: checks that greedy ``ServeEngine`` output equals
    ``generate_static`` token for token on a 4-row batch (4 rows never
    overflow a capacity of 4, so neither grouping drops an assignment);
-5. ``[train]``: trains ``paper-moe-100m`` at full width with ``TrainLoop``
+5. on the same model at full width, 8 slots: ``[spec]`` serves 8 prompts
+   of the ``[serve]`` lengths, each repeating an 8-token motif, 32 new
+   tokens each, once per decode arm forced on every decode tick (plain,
+   ``spec:ngram``, ``spec:draft`` with the truncated self-draft and with
+   the target as its own draft) and once unforced: each equals
+   ``generate_static``, the target draft accepts every proposal, and each
+   MoE kernel's launches are exactly the replays of the tick's graph and
+   of the draft's propose graph times their per-replay counts (counts set
+   to 0 just before each run and read just after); ``[prefix]`` serves 16
+   requests sharing a 96-token prefix with the prefix cache off and on
+   (equal outputs, TTFT, seeded rows), then the same 16 again, all from
+   the result cache with no tick; ``[publish]`` publishes a second seed's
+   weights mid-stream with ``update(params=..., params_version=1)``: no
+   request drops, later requests equal a fresh engine on the new weights
+   through a graph captured again, and no version-0 answer or snapshot
+   serves;
+6. ``[train]``: trains ``paper-moe-100m`` at full width with ``TrainLoop``
    (fused gating and dispatch, ``MoEReshaper`` closing the Reshape loop,
    a skewed ``TokenStream``, global batch 8 x 1024 in 2 microbatches):
    first, from the initial state, one step through the kernels against
@@ -43,13 +59,13 @@
    what the code predicts, one more step under a CUDA-only trace, and the
    MoE kernels against their plain versions on the inputs of the warm-up
    step's last calls (dispatch and combine as each other's backward);
-6. ``[flash]``: the flash-attention forward and backward kernels against
+7. ``[flash]``: the flash-attention forward and backward kernels against
    their plain version (and an f32 oracle) at the training shape,
    ``zamba2-7b``'s shared-attention shape and a ragged length; the forward
    timed at the training and ``zamba2-7b`` shapes beside
    ``scaled_dot_product_attention``, the backward at the training shape
    beside aten's flash-attention backward, all by CUDA-graph replay;
-7. ``[rwkv6]`` and ``[zamba2]``: for ``rwkv6-1.6b`` (24 layers, d_model
+8. ``[rwkv6]`` and ``[zamba2]``: for ``rwkv6-1.6b`` (24 layers, d_model
    2048, 32 heads of 64, vocab 65536) and ``zamba2-7b`` (81 layers: 68
    Mamba2 and 13 occurrences of one shared attention block, d_model 3584,
    112 SSM heads), at full width with random bf16 weights from the seed:
@@ -63,7 +79,7 @@
    warm-up that captures the tick's graph); greedy
    ``ServeEngine`` against ``generate_static`` on ``[4, 32] + 16``.  Each
    model is freed before the next;
-8. prints the kernels' JSON line, the card's name and power limit, and
+9. prints the kernels' JSON line, the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or without
@@ -782,10 +798,9 @@ def serve_kernel_inputs(torch, cfg, params, dev, rng):
     of the tick's own decode step over len(PROMPT_LENS) fresh slots, the
     last call of each kernel kept (the graphed tick replays kernels that no
     wrapper sees)."""
-    from repro_torch.engine.serve import build_decode_step
-    from repro_torch.models import lm
+    from repro_torch.engine.serve import SlotPool, build_decode_step
     b = len(PROMPT_LENS)
-    state = lm.init_cache(cfg, b, 16, device=dev)
+    pool = SlotPool(cfg, b, 16, dev)
     step = build_decode_step(cfg, dev)
     active = torch.ones(b, dtype=torch.bool, device=dev)
 
@@ -793,7 +808,7 @@ def serve_kernel_inputs(torch, cfg, params, dev, rng):
     def run():
         for _ in range(4):
             tok = torch.as_tensor(rng.integers(1, cfg.vocab, b), device=dev)
-            step(params, state["caches"], state["pos"], tok, active)
+            step(params, None, pool, tok, active)
     return capture_kernel_inputs(torch, run)[1]
 
 
@@ -814,12 +829,12 @@ def graph_check(torch, cfg, params, dev, rng, tag, fails) -> None:
     active = np.array([1, 1, 1, 1, 1, 1, 0, 0], bool)[:b]
     toks = rng.integers(1, cfg.vocab, (b, 16))
     n_given = np.array([16, 11, 7, 1, 16, 16, 1, 1])[:b]
-    outs = [t(params, p.caches, p.pos, toks, n_given, active,
+    outs = [t(p, params, None, toks, n_given, active,
               np.ones(b, bool), temps, gens) for t, p in zip(ticks, pools)]
     same_toks = np.array_equal(outs[0][1], outs[1][1])
     dec = np.zeros((b, 4), np.int64)
     dec[:, 0] = outs[0][1][:, -1]
-    outs = [t(params, p.caches, p.pos, dec, np.ones(b, np.int64), active,
+    outs = [t(p, params, None, dec, np.ones(b, np.int64), active,
               np.zeros(b, bool), temps, gens) for t, p in zip(ticks, pools)]
     same_toks = same_toks and np.array_equal(outs[0][1], outs[1][1])
     same_logits = [torch.equal(a, c) for a, c in zip(*(t.record
@@ -827,8 +842,8 @@ def graph_check(torch, cfg, params, dev, rng, tag, fails) -> None:
     diff = max((a - c).abs().max().item()
                for a, c in zip(*(t.record for t in ticks)))
     same_state = torch.equal(pools[0].pos, pools[1].pos) and all(
-        torch.equal(c, pools[1].caches[t][n])
-        for t in pools[0].caches for n, c in pools[0].caches[t].items())
+        torch.equal(a, c) for (_, a, _), (_, c, _) in zip(
+            pools[0].row_leaves(), pools[1].row_leaves()))
     for t in ticks:
         t.record = None
     walls = {True: [], False: []}
@@ -836,7 +851,7 @@ def graph_check(torch, cfg, params, dev, rng, tag, fails) -> None:
         for t, p in zip(ticks, pools):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            t(params, p.caches, p.pos, dec, np.ones(b, np.int64), active,
+            t(p, params, None, dec, np.ones(b, np.int64), active,
               np.zeros(b, bool), temps, gens)
             torch.cuda.synchronize()
             walls[t.graph].append(time.perf_counter() - t0)
@@ -897,14 +912,11 @@ def moe_phase(torch, dev, fails) -> list:
     """The MoE serving main path, its device trace, the graphed tick
     against the eager one, the MoE kernels against their plain versions,
     and engine == static.  Returns the kernels' JSON rows."""
-    from repro_torch.configs import get_arch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
     from repro_torch.runtime.serve import BatchedServer
 
-    base = get_arch("paper-moe-100m")
-    cfg = dataclasses.replace(base, moe=dataclasses.replace(
-        base.moe, fused_gating=True, fused_dispatch=True))
+    cfg = moe_cfg()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = lm.init(cfg, gen, device=dev)
     n_params = sum(p.numel() for p in _leaves(params))
@@ -1034,6 +1046,316 @@ def moe_phase(torch, dev, fails) -> list:
     log(f"[equiv] ServeEngine (graphed tick) == generate_static on [4, 64] "
         f"+ {MAX_NEW}: engine {t_engine:.4f} s, static {t_static:.4f} s")
     return rows
+
+
+# [spec], [prefix], [publish]: the serve engine's speculative arms, its
+# prefix and result cache and the hot weight publish, on paper-moe-100m at
+# full width (the [serve] model, 8 slots, random weights from SEED)
+SERVE_SLOTS = len(PROMPT_LENS)
+SERVE_MAX_LEN = max(PROMPT_LENS) + MAX_NEW + 32
+MOTIF = 8                       # [spec] prompts repeat a motif of 8 tokens
+# [prefix]: 16 requests share a 96-token prefix, each with its own suffix
+# (4 of each length, so the static oracle runs 4 drop-free batches of 4)
+PREFIX_LEN, PREFIX_SUFFIXES, PREFIX_REQS, PREFIX_NEW = 96, (8, 16, 24, 32), \
+    16, 16
+
+
+def moe_cfg():
+    """paper-moe-100m with the fused gating and dispatch flags on."""
+    from repro_torch.configs import get_arch
+    base = get_arch("paper-moe-100m")
+    return dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, fused_gating=True, fused_dispatch=True))
+
+
+def force_arm(eng, arm) -> None:
+    """Pin every decode tick of ``eng`` to ``arm``, past the engine's cost
+    decision (as tests/test_serve_differential.py forces it)."""
+    orig = eng.engine.choose_serve_tick
+
+    def forced(*a, **k):
+        mode = orig(*a, **k)
+        return arm if mode.startswith(("decode", "spec")) \
+            and k.get("spec_len", 0) > 1 else mode
+
+    eng.engine.choose_serve_tick = forced
+
+
+def graph_launches(graphs, since) -> dict:
+    """The kernel launches that the replays of ``graphs`` ({name:
+    GraphedStep}) credited since ``since`` ({name: replays})."""
+    from repro_torch.kernels import LAUNCHES
+    want = dict.fromkeys(LAUNCHES, 0)
+    for name, g in graphs.items():
+        for k, n in g.per_replay.items():
+            want[k] += (g.replays - since.get(name, 0)) * n
+    return want
+
+
+def serve_engine(cfg, params, dev, **kw):
+    from repro_torch.engine import ServeEngine
+    return ServeEngine(cfg, params, max_len=SERVE_MAX_LEN,
+                       slots=SERVE_SLOTS, prefill_chunk=16, decode_chunk=4,
+                       device=dev, **kw)
+
+
+def timed_generate(torch, eng, prompts, max_new):
+    """Serve ``prompts`` with the launch counts set to 0 just before and
+    read just after: (requests, wall seconds, launches)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0, dict(LAUNCHES)
+
+
+def spec_phase(torch, dev, cfg, srv, fails) -> None:
+    """The decode arms, each forced on every decode tick of its own engine
+    (after a warm-up that captures its graphs): plain, spec:ngram,
+    spec:draft with the truncated self-draft, and spec:draft with the
+    target as its own draft; then one unforced serve and the arms the
+    engine chose.  Each serves the 8 [serve]-length motif prompts on 8
+    slots: its launches are exactly the replays of both graphs times their
+    per-replay counts, and its output equals generate_static's.  The
+    oracle runs each prompt as a batch of 4 copies: cuBLAS rounds a
+    one-row product (a GEMV) differently from a product of 4 or 8 rows,
+    which leads to near-tie flips at full depth, and 4 copies of a token
+    fill one expert slot's capacity of 4 exactly, so nothing drops.  The
+    target as draft accepts every proposal."""
+    from collections import Counter
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [np.tile(rng.integers(1, cfg.vocab, MOTIF),
+                       -(-n // MOTIF))[:n].astype(np.int32)
+               for n in PROMPT_LENS]
+    t0 = time.perf_counter()
+    oracle = np.stack([srv.generate_static(np.repeat(p[None], 4, 0),
+                                           MAX_NEW)[0] for p in prompts])
+    log(f"[spec] oracle: generate_static on 4 copies of each prompt, "
+        f"{time.perf_counter() - t0:.4f} s")
+    arms = (("plain", None, {}), ("ngram", "spec:ngram", {}),
+            ("self-draft", "spec:draft", {"draft": "self"}),
+            ("target-draft", "spec:draft",
+             {"draft_cfg": cfg, "draft_params": srv.params}),
+            ("unforced", None, {"draft": "self"}))
+    for name, arm, kw in arms:
+        eng = serve_engine(cfg, srv.params, dev,
+                           spec_decode=name != "plain", **kw)
+        if arm:
+            force_arm(eng, arm)
+        eng.generate([p[:16] for p in prompts], 8)     # captures the graphs
+        graphs = dict(eng._tick.graphs)
+        since = {n: g.replays for n, g in graphs.items()}
+        spec0 = {a: dict(c) for a, c in eng.spec_arms.items()}
+        n_dec = len(eng.engine.decisions)
+        reqs, wall, launches = timed_generate(torch, eng, prompts, MAX_NEW)
+        out = np.stack([r.output() for r in reqs])
+        if not np.array_equal(out, oracle):
+            bad = np.argwhere(out != oracle)[:5].tolist()
+            fails.append(f"spec {name}: output != generate_static at {bad}")
+        if eng._tick.graphs != graphs or eng._tick.captures != len(graphs):
+            fails.append(f"spec {name}: a graph was captured in the run")
+        want = graph_launches(graphs, since)
+        if launches != want:
+            fails.append(f"spec {name}: launches {launches} are not the "
+                         f"graphs' replays' {want}")
+        if not all(launches[k] for k in ("moe_gating", "moe_dispatch",
+                                         "moe_combine")):
+            fails.append(f"spec {name}: an MoE kernel never launched")
+        acc = {}
+        for a, c in eng.spec_arms.items():
+            c0 = spec0.get(a, {})
+            acc[a] = {k: v - c0.get(k, 0) for k, v in c.items()}
+        if name == "target-draft" and not (
+                acc["draft"]["proposed"] and
+                acc["draft"]["accepted"] == acc["draft"]["proposed"]):
+            fails.append(f"spec {name}: the target as draft accepted "
+                         f"{acc['draft']}")
+        if arm and not acc.get(arm.split(":")[1], {}).get("proposed"):
+            fails.append(f"spec {name}: no speculative tick ran")
+        rates = {a: f"{c['accepted']}/{c['proposed']} accepted over "
+                    f"{c['ticks']} ticks" for a, c in acc.items()
+                 if c["ticks"]}
+        log(f"[spec] {name}: {out.size / wall:.1f} generated tok/s "
+            f"({wall:.4f} s, {eng.tick_no} ticks in all); speculation "
+            f"{rates or 'none'}; replays "
+            f"{ {n: g.replays - since[n] for n, g in graphs.items()} }, per "
+            f"replay { {n: _nonzero(g.per_replay) for n, g in graphs.items()} }"
+            f"; launches {_nonzero(launches)} (replays x per replay: "
+            f"{'equal' if launches == want else want}); equals "
+            f"generate_static {np.array_equal(out, oracle)}")
+        if name == "unforced":
+            chose = Counter(
+                f"{d['decision']}={d['choice']}"
+                for d in list(eng.engine.decisions)[n_dec:])
+            log(f"[spec] unforced: the engine's choices in the run "
+                f"{dict(sorted(chose.items()))}")
+        del eng
+        _free(torch)
+
+
+def prefix_phase(torch, dev, cfg, srv, fails) -> None:
+    """16 greedy requests sharing a 96-token prefix, served with the prefix
+    cache off and on (each engine warmed up on an unrelated prompt): the
+    outputs equal each other and generate_static, TTFT in both runs; then
+    the same 16 again, every one answered from the result cache with no
+    tick and no launch."""
+    rng = np.random.default_rng(SEED + 2)
+    shared = rng.integers(1, cfg.vocab, PREFIX_LEN)
+    lens = [PREFIX_SUFFIXES[i % len(PREFIX_SUFFIXES)]
+            for i in range(PREFIX_REQS)]
+    prompts = [np.concatenate([shared, rng.integers(1, cfg.vocab, n)])
+               .astype(np.int32) for n in lens]
+    oracle = np.zeros((PREFIX_REQS, PREFIX_NEW), np.int32)
+    for n in PREFIX_SUFFIXES:
+        idx = [i for i, m in enumerate(lens) if m == n]
+        oracle[idx] = srv.generate_static(np.stack([prompts[i] for i in idx]),
+                                          PREFIX_NEW)
+    warm = rng.integers(1, cfg.vocab, (1, 40)).astype(np.int32)
+    runs = {}
+    for on in (False, True):
+        eng = serve_engine(cfg, srv.params, dev, prefix_cache=on)
+        eng.generate(warm, 4)
+        graphs = dict(eng._tick.graphs)
+        since = {n: g.replays for n, g in graphs.items()}
+        reqs, wall, launches = timed_generate(torch, eng, prompts,
+                                              PREFIX_NEW)
+        want = graph_launches(graphs, since)
+        if launches != want or eng._tick.graphs != graphs:
+            fails.append(f"prefix {on}: launches {launches} are not the "
+                         f"graph's replays' {want}")
+        out = np.stack([r.output() for r in reqs])
+        ttft = np.array([r.t_first - r.t_submit for r in reqs])
+        runs[on] = (eng, out)
+        st = eng.prefix.stats() if on else {}
+        log(f"[prefix] cache {'on' if on else 'off'}: {PREFIX_REQS} "
+            f"requests ({PREFIX_LEN}-token shared prefix, suffixes "
+            f"{list(PREFIX_SUFFIXES)}), {PREFIX_NEW} new each: {wall:.4f} s, "
+            f"{out.size / wall:.1f} generated tok/s, TTFT median "
+            f"{np.median(ttft):.6f} s, largest {ttft.max():.6f} s; "
+            f"{eng.tick_no} ticks; seeded {st.get('seeded')}, tokens "
+            f"avoided {st.get('tokens_avoided')}, snapshots "
+            f"{st.get('snapshots')}; launches {_nonzero(launches)} "
+            f"({sum(g.replays - since[n] for n, g in graphs.items())} "
+            f"replays); equals generate_static {np.array_equal(out, oracle)}")
+    eng = runs[True][0]
+    if not (np.array_equal(runs[False][1], oracle)
+            and np.array_equal(runs[True][1], oracle)):
+        fails.append("prefix: outputs differ from generate_static")
+    if not eng.prefix.seeded:
+        fails.append("prefix: no request was seeded")
+    from repro_torch.kernels import LAUNCHES
+    ticks0, hits0 = eng.tick_no, eng.prefix.result_hits
+    reqs, wall, launches = timed_generate(torch, eng, prompts, PREFIX_NEW)
+    out = np.stack([r.output() for r in reqs])
+    hits = eng.prefix.result_hits - hits0
+    ok = np.array_equal(out, oracle) and hits == PREFIX_REQS and \
+        eng.tick_no == ticks0 and not any(LAUNCHES.values())
+    log(f"[prefix] the same {PREFIX_REQS} again: {hits} result-cache hits, "
+        f"{eng.tick_no - ticks0} ticks, launches {_nonzero(launches)}, "
+        f"{wall:.6f} s; equal outputs {np.array_equal(out, oracle)}")
+    if not ok:
+        fails.append("prefix: the repeats were not all answered from the "
+                     "result cache without a tick")
+    del runs, eng
+    _free(torch)
+
+
+def publish_phase(torch, dev, cfg, srv, fails) -> None:
+    """A weight publish mid-stream: ``update(params=<seed SEED+1's weights
+    as host numpy>, params_version=1)`` while 3 requests are in flight; no
+    request drops, requests admitted after the boundary equal a fresh
+    engine on the new weights and run through the graph captured again on
+    the new weights, and neither a version-0 answer nor a version-0
+    snapshot serves after the bump."""
+    from repro_torch.models import lm
+    rng = np.random.default_rng(SEED + 3)
+    p2 = lm.init(cfg, torch.Generator(device=dev).manual_seed(SEED + 1),
+                 device=dev)
+    host = {k: {n: v.cpu().numpy() for n, v in t.items()}
+            if isinstance(t, dict) else t.cpu().numpy()
+            for k, t in p2.items()}
+    fresh = serve_engine(cfg, p2, dev)
+    del p2
+    shared = rng.integers(1, cfg.vocab, 32)
+    first = [np.concatenate([shared, rng.integers(1, cfg.vocab, n)])
+             .astype(np.int32) for n in (8, 24, 40, 56)]
+    post = [np.concatenate([shared, rng.integers(1, cfg.vocab, n)])
+            .astype(np.int32) for n in (16, 32, 48)]
+    eng = serve_engine(cfg, srv.params, dev, prefix_cache=True)
+    eng.generate(rng.integers(1, cfg.vocab, (1, 40)).astype(np.int32), 4)
+    pre = eng.submit(first[0], 16)      # its answer is stored at version 0
+    eng.run_until_done()
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    g0, caps0 = eng._tick.graphed, eng._tick.captures
+    since = g0.replays
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    straddlers = [eng.submit(p, MAX_NEW) for p in first[1:]]
+    for _ in range(3):
+        eng.tick()
+    in_flight = sum(not r.done.is_set() for r in straddlers)
+    eng.update(params=host, params_version=1)
+    hits0 = eng.prefix.result_hits
+    late = [eng.submit(p, 16) for p in post + [first[0]]]
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    g1 = eng._tick.graphed
+    # each replay credits its capture's counts, and the capture on the new
+    # weights ran one eager warm-up step of the same launches
+    recaptured = eng._tick.captures - caps0
+    want = {k: n * (g0.replays - since + g1.replays + recaptured)
+            for k, n in g0.per_replay.items()}
+    want_out = fresh.generate(post + [first[0]], 16)
+    out = np.stack([r.output() for r in late])
+    stale = [n.version for n in eng.prefix._snapshot_nodes()
+             if n.version != 1]
+    dropped = [r.rid for r in [pre] + straddlers + late
+               if not (r.done.is_set() and len(r.tokens) >= r.max_new)]
+    log(f"[publish] {in_flight} requests in flight at the publish, "
+        f"{len(late)} admitted after it ({wall:.4f} s in all): params "
+        f"version {eng.params_version}; the tick's graph captured again "
+        f"{recaptured} time(s) on the new weights (the weights are rebound, "
+        f"not copied into), {g1.replays} replays after it; launches "
+        f"{_nonzero(launches)} ({'equal to' if launches == want else 'not'}"
+        f" the replays and the capture's warm-up x per replay); dropped "
+        f"{dropped}; after the boundary equal to a fresh engine on the new "
+        f"weights {np.array_equal(out, want_out)}; result hits after the "
+        f"bump {eng.prefix.result_hits - hits0}; snapshots of another "
+        f"version {len(stale)} of {eng.prefix.snapshots}")
+    if dropped or in_flight == 0:
+        fails.append(f"publish: dropped {dropped}, in flight {in_flight}")
+    if not np.array_equal(out, want_out):
+        fails.append("publish: requests after the boundary differ from a "
+                     "fresh engine on the new weights")
+    if recaptured != 1 or g1 is g0 or not g1.replays or launches != want:
+        fails.append(f"publish: graph recaptured {recaptured}, replays "
+                     f"{g1.replays}, launches {launches} vs {want}")
+    if eng.prefix.result_hits != hits0 or stale or \
+            eng.params_version != 1:
+        fails.append("publish: a version-0 answer or snapshot survived")
+    del eng, fresh
+    _free(torch)
+
+
+def serve_features_phase(torch, dev, fails) -> None:
+    """[spec], [prefix] and [publish] on one full-width model."""
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve import BatchedServer
+    cfg = moe_cfg()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev)
+    srv = BatchedServer(cfg, params, max_len=SERVE_MAX_LEN,
+                        slots=SERVE_SLOTS, device=dev)
+    del params
+    spec_phase(torch, dev, cfg, srv, fails)
+    prefix_phase(torch, dev, cfg, srv, fails)
+    publish_phase(torch, dev, cfg, srv, fails)
 
 
 # [train]: paper-moe-100m at full width, trained by TrainLoop with the
@@ -1419,7 +1741,6 @@ def train_phase(torch, dev, fails):
     width through the kernels, with the Reshape loop closed.  Returns
     (the MoE kernels' JSON rows at training shapes, the main path's launch
     counts)."""
-    from repro_torch.configs import get_arch
     from repro_torch.core.reshape_moe import MoEReshaper
     from repro_torch.core.skew import SkewParams
     from repro_torch.data.synthetic import TokenStream
@@ -1428,9 +1749,7 @@ def train_phase(torch, dev, fails):
     from repro_torch.runtime.loop import LoopConfig, TrainLoop
     from repro_torch.runtime.train import TrainHyper
 
-    base = get_arch("paper-moe-100m")
-    cfg = dataclasses.replace(base, moe=dataclasses.replace(
-        base.moe, fused_gating=True, fused_dispatch=True))
+    cfg = moe_cfg()
     nl = lm.n_moe_layers(cfg)
     stream = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                          global_batch=TRAIN_BATCH, seed=SEED,
@@ -1558,6 +1877,8 @@ def main() -> int:
 
     fails = []
     rows = moe_phase(torch, dev, fails)
+    _free(torch)
+    serve_features_phase(torch, dev, fails)
     _free(torch)
     train_rows, train_launches = train_phase(torch, dev, fails)
     flash_rows = flash_phase(torch, dev, train_launches)

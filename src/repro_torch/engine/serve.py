@@ -1,9 +1,10 @@
-"""ServeEngine: continuous batching under the Amber control plane (plain
-decode arm, one slot pool, the default traffic class).
+"""ServeEngine: continuous batching under the Amber control plane, on one
+slot pool of the default traffic class, with speculative decoding, a
+cross-request prefix and result cache, and hot weight updates.
 
 Serving runs as engine jobs over a fixed pool of *slots*, each slot holding
-one request's KV cache rows at its own sequence position.  A **tick**
-advances every participating slot by ``L`` positions, one batched
+one request's cache rows at its own sequence position.  A **tick** advances
+every participating slot by ``L`` positions, one batched
 ``lm.decode_step`` over all slots per position:
 
 * a *prefill* slot consumes up to ``L`` prompt tokens (chunked batched
@@ -15,34 +16,78 @@ advances every participating slot by ``L`` positions, one batched
 
 Between ticks the engine polls the controller mailbox, so Pause / Inspect /
 Update land at tick granularity and Inspect keeps answering while paused.
-Tick *composition* (decode-only vs prefill) is the Maestro min-FRT choice
-``Engine.choose_serve_tick`` over the two candidate region workflows
-(``jobs.serve_tick_workflow``), costed from measured tick times.
+Tick *composition* (decode-only vs prefill, and plain vs speculative
+decode) is the Maestro choice ``Engine.choose_serve_tick`` over the
+candidate region workflows (``jobs.serve_tick_workflow``), costed from
+measured tick times and acceptance rates.
+
+**Speculative decoding** (``spec_decode=True``): a *proposer*
+(:class:`Proposer`) drafts up to ``spec_len`` tokens per decode tick and
+the target verifies the chain one ``decode_step`` per token, with a
+``valid`` mask that freezes a row at its first mismatch, so greedy outputs
+equal plain decode by construction: an accepted draft IS the token greedy
+decode would have fed.  Two proposers:
+
+* ``ngram`` — a per-slot n-gram suffix-hash table (``ng``) and its context
+  window (``ctx``), int32 tensors in the slot pool that every tick learns
+  from each token it feeds (prompt and generated alike, on every arm);
+* ``draft`` — a second, smaller parameter set (a truncated *self*-draft
+  sliced from the serve model, or an independent ``draft_cfg`` +
+  ``draft_params``, ``engine.draft``) whose cache rows live in the pool and
+  which every step of every arm advances by the token the target consumes,
+  so its state is always the committed stream.  Its propose steps run on
+  scratch copies of those rows; a wrong, stale or hot-swapped draft can
+  only lower acceptance, never change outputs.
+
+The speculative arms are host-gated to all-greedy participants: verifying a
+sampled continuation greedily would change its distribution.
+
+**Prefix cache + result cache** (``prefix_cache=True``): at prefill tick
+boundaries a still-prefilling slot's pool row — every cache leaf, its
+n-gram table and window, its draft rows, at the frozen position — is
+snapshotted (to host tensors) into a radix tree keyed by the consumed
+prefix (``engine.prefix_cache``); a joining greedy request that shares a
+cached prefix *seeds* its slot from the snapshot with one batched in-place
+row write and prefills only the unshared suffix, and an exact repeat of a
+finished greedy request is answered from the result cache without taking a
+slot.  Whether a match is used is ``Engine.choose_prefix_admission``.
+Seeded state equals recomputation: the tick consumes tokens one
+``decode_step`` at a time, so the state after P tokens does not depend on
+chunking or on which slot ran them.
+
+**Hot updates** (``update(...)``, applied at the next tick boundary):
+knobs, the speculative switches, the prefix cache toggle, a draft
+republish, and the weight publish ``update(params=..., params_version=...)``
+(``TrainLoop(publish_to=engine)`` calls it).  ``params_version`` keys the
+result cache and the snapshots: a request that joined under an older
+version stores neither.
 
 The reference vmaps a batch-1 ``decode_step`` over its slots; here the
 batch dimension is written out: ``lm.decode_step`` takes one position per
 row and ``moe_groups="row"``, so every slot is its own MoE group (T=1,
 ``capacity(cfg, 1)``, hashed from its own position) exactly as under the
-vmap, and inactive slots leave their cache rows and positions untouched.
+vmap, and inactive rows leave their cache rows and positions untouched.
 
-On the card the decode step runs as a CUDA graph (``GraphedStep``),
-captured once per engine on its first tick and replayed ``L`` times a
-tick: the port's counterpart of the reference's one jitted tick dispatch.
-A CPU pool runs the same step eagerly.
+On the card the tick's step — the n-gram learn, the draft's feed and the
+target's ``decode_step`` — runs as one CUDA graph (``GraphedStep``),
+captured on the engine's first tick and replayed once per step; the
+draft's propose step is a second graph over the scratch rows.  A CPU pool
+runs the same steps eagerly.
 
-Invariants (tests/test_torch_serve.py):
+Invariants (tests/test_torch_serve.py, test_torch_spec.py,
+test_torch_prefix_cache.py, test_torch_draft.py):
 
 * **Greedy bit-identicality** — greedy outputs equal the static
   ``BatchedServer.generate_static`` oracle token for token on batches where
-  neither grouping drops an assignment.  Scheduling reorders work; it must
-  never change results.
+  neither grouping drops an assignment, under every arm and with prefix
+  seeding.  Scheduling reorders work; it must never change results.
 * **Reset-mask join** — a request joins a slot by flagging the row for
   zeroing at the start of the next tick instead of eager per-join writes;
-  no stale cache or position state leaks between occupants of a slot.
+  no stale cache, n-gram, draft or position state leaks between occupants
+  of a slot.
 
-Speculative arms, the prefix/result cache, drafts, several pools with
-priority classes, device placements and hot weight updates are later
-slices of the port.
+Several pools with priority classes, device placements, compact decode and
+the knob autotuner are later slices of the port.
 """
 from __future__ import annotations
 
@@ -57,12 +102,51 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import messages as M
+from repro_torch.engine.draft import slice_draft_params, truncated_draft_cfg
 from repro_torch.engine.engine import Engine
-from repro_torch.engine.jobs import Job
+from repro_torch.engine.jobs import Job, pool_kind, spec_kind
+from repro_torch.engine.prefix_cache import (PrefixAnalyzer, PrefixCache,
+                                             to_host)
 from repro_torch.kernels import LAUNCHES, credit_launches, launches_since
 from repro_torch.models import lm
 from repro_torch.models import moe as moe_lib
 from repro_torch.runtime.serve import serving_params
+
+# xxhash/murmur-style odd multipliers, one per n-gram context position (the
+# reference's, so that the tables are bit-identical)
+_NG_MULTS = (0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
+
+
+def ng_hash(ctx, table: int):
+    """Table index of each context window ``ctx`` [..., n_ctx] (int32
+    tokens): the reference's uint32 hash — multiply by a per-position odd
+    constant, XOR, keep ``table - 1``'s bits — in int64.  The products of
+    tokens under 2**31 fit in int64, and the low 32 bits of a product, of a
+    XOR and of a mask do not depend on the bits above them, so masking only
+    once, with ``table - 1`` (a power of two), keeps the reference's bits."""
+    c = ctx.long()
+    h = c[..., 0] * _NG_MULTS[0]
+    for i in range(1, ctx.shape[-1]):
+        h = h ^ (c[..., i] * _NG_MULTS[i])
+    return h & (table - 1)
+
+
+def ng_push(ctx, tok):
+    """The window ``ctx`` [B, n_ctx] with ``tok`` [B] (of ``ctx``'s dtype)
+    shifted in."""
+    return torch.cat([ctx[:, 1:], tok[:, None]], dim=1)
+
+
+def ng_learn(ng, ctx, tok, active) -> None:
+    """In place, on the rows ``active`` [B] selects: write ``tok`` into the
+    table ``ng`` [B, T] under the hash of the row's window, then push it
+    into the window ``ctx``."""
+    tok = tok.to(ng.dtype)
+    idx = ng_hash(ctx, ng.shape[1])[:, None]
+    ng.scatter_(1, idx, torch.where(active, tok, ng.gather(1, idx)[:, 0])
+                [:, None])
+    ctx.copy_(torch.where(active[:, None], ng_push(ctx, tok), ctx))
 
 
 def sample_rows(logits, greedy, temps: np.ndarray, gens: List[Any]):
@@ -78,144 +162,276 @@ def sample_rows(logits, greedy, temps: np.ndarray, gens: List[Any]):
     return out
 
 
-def build_decode_step(cfg: ArchConfig, device):
-    """The step a tick runs ``L`` times: one ``lm.decode_step`` over every
-    slot, each slot its own MoE group (``moe_groups="row"``), then the
-    greedy argmax.  It updates the caches in place and copies the advanced
-    positions back into ``pos`` after every read of it, so a CUDA graph can
-    capture it over the pool's own tensors.  The MoE routing plan is built
-    once, here: ``decode_step`` would build one on every call."""
+def _plan(cfg: ArchConfig, device):
     n_moe = lm.n_moe_layers(cfg)
-    plan = moe_lib.identity_plan(cfg, n_moe, device=device) if n_moe \
+    return moe_lib.identity_plan(cfg, n_moe, device=device) if n_moe \
         else None
 
-    def step(params, caches, pos, tok, active):
+
+def build_decode_step(cfg: ArchConfig, device,
+                      draft_cfg: Optional[ArchConfig] = None):
+    """The step a tick runs once per position, over every slot of ``pool``
+    (a :class:`SlotPool`): the n-gram learn, the draft's feed (with a
+    draft) and the target's ``lm.decode_step``, each slot its own MoE group
+    (``moe_groups="row"``), then the greedy argmax.  It updates the pool's
+    tensors in place — the draft reads ``pos`` before the target's advanced
+    positions are copied back into it — so a CUDA graph can capture it over
+    them.  The MoE routing plans are built once, here: ``decode_step``
+    would build one on every call."""
+    plan = _plan(cfg, device)
+    dplan = _plan(draft_cfg, device) if draft_cfg is not None else None
+
+    def step(params, dparams, pool, tok, active):
         """tok [B] int64, active [B] bool -> (logits [B,V] f32, argmax
         [B])."""
-        logits, st = lm.decode_step(params, {"caches": caches, "pos": pos},
+        ng_learn(pool.ng, pool.ctx, tok, active)
+        if draft_cfg is not None:
+            lm.decode_step(dparams, {"caches": pool.draft, "pos": pool.pos},
+                           tok[:, None], draft_cfg, plan=dplan,
+                           moe_groups="row", active=active)
+        logits, st = lm.decode_step(params, {"caches": pool.caches,
+                                             "pos": pool.pos},
                                     tok[:, None], cfg, plan=plan,
                                     moe_groups="row", active=active)
-        pos.copy_(st["pos"])
+        pool.pos.copy_(st["pos"])
+        return logits, torch.argmax(logits, dim=-1)
+
+    return step
+
+
+def build_propose_step(draft_cfg: ArchConfig, device):
+    """The draft's propose step: one greedy ``decode_step`` of the draft
+    over the pool's scratch rows (``pool.scratch``, copies of its draft
+    rows and positions), which it advances in place."""
+    dplan = _plan(draft_cfg, device)
+
+    def step(dparams, pool, tok, active):
+        sc = pool.scratch
+        logits, st = lm.decode_step(dparams, sc, tok[:, None], draft_cfg,
+                                    plan=dplan, moe_groups="row",
+                                    active=active)
+        sc["pos"].copy_(st["pos"])
         return logits, torch.argmax(logits, dim=-1)
 
     return step
 
 
 class GraphedStep:
-    """A decode ``step`` captured once in a CUDA graph: the pool's own
-    caches and positions, and static token and active inputs ``[B]``.  A
-    call writes the token, replays the graph and returns its static logits
-    ``[B,V]`` and argmax ``[B]``, which the next call overwrites.
+    """A ``step(*state, tok, active)`` captured once in a CUDA graph over
+    ``state`` (weights and a :class:`SlotPool`, last) with static token and
+    active inputs ``[B]``.  A call writes them, replays the graph and
+    returns its static logits ``[B,V]`` and argmax ``[B]``, which the next
+    call overwrites.
 
-    The graph holds the addresses of ``params``, the caches and ``pos``, so
-    none of them may be replaced after capture: the port has no hot weight
-    update yet, and one that replaces ``params`` must capture again.  A
-    failed capture raises; there is no eager fallback on the card.  The
-    kernel wrappers count their launches on the host, where a replay runs
-    no wrapper: the capture records one step's counts and every replay
-    credits them (``kernels.credit_launches``)."""
+    The graph holds the addresses of every tensor in ``state``, so none may
+    be replaced after capture: the pool writes its rows in place, and a
+    weight publish drops the graph for a new capture
+    (``SlotTick.release``).  A failed capture raises; there is no eager
+    fallback on the card.  The kernel wrappers count their launches on the
+    host, where a replay runs no wrapper: the capture records one step's
+    counts and every replay credits them (``kernels.credit_launches``)."""
 
-    def __init__(self, step, params, caches, pos):
-        dev = pos.device
-        b = pos.shape[0]
-        self.params, self.caches, self.pos = params, caches, pos
+    def __init__(self, step, *state):
+        pool = state[-1]
+        dev = pool.pos.device
+        b = pool.pos.shape[0]
+        self.state = state
         self.tok = torch.zeros((b,), dtype=torch.long, device=dev)
         self.active = torch.zeros((b,), dtype=torch.bool, device=dev)
         # one eager step first, on a side stream as capture wants (kernel
         # libraries loaded, cuBLAS workspaces and the gating scratch made);
-        # every row is inactive, so no cache row or position moves
+        # every row is inactive, so no pool row or position moves
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            step(params, caches, pos, self.tok, self.active)
+            step(*state, self.tok, self.active)
         torch.cuda.current_stream(dev).wait_stream(side)
         before = dict(LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            self.logits, self.greedy = step(params, caches, pos, self.tok,
-                                            self.active)
+            self.logits, self.greedy = step(*state, self.tok, self.active)
         self.per_replay = launches_since(before)
         LAUNCHES.update(before)              # the capture launched nothing
         self.replays = 0
 
-    def bound_to(self, params, caches, pos) -> bool:
-        return params is self.params and caches is self.caches and \
-            pos is self.pos
+    def bound_to(self, *state) -> bool:
+        return len(state) == len(self.state) and \
+            all(a is b for a, b in zip(state, self.state))
 
-    def __call__(self, tok):
+    def __call__(self, tok, active):
         self.tok.copy_(tok)
+        self.active.copy_(active)
         self.graph.replay()
         credit_launches(self.per_replay)
         self.replays += 1
         return self.logits, self.greedy
 
 
+class Proposer:
+    """One speculative-proposer arm: the source of the draft chain the
+    target verifies.  ``propose(tick, pool, dparams, first, active, L)``
+    returns ``[B, L]`` device tokens, ``first`` (each row's pending
+    committed token) then ``L-1`` proposals, and changes **no persistent
+    pool state**: the verify re-feeds every token through the pool under
+    the valid mask, so a proposer can only affect *acceptance*."""
+
+    name: str = ""
+
+    @staticmethod
+    def propose(tick, pool, dparams, first, active, L):
+        raise NotImplementedError
+
+
+class NgramProposer(Proposer):
+    """Successor lookups from the slot's n-gram suffix table, on a copy of
+    its window."""
+
+    name = "ngram"
+
+    @staticmethod
+    def propose(tick, pool, dparams, first, active, L):
+        win, tok, chain = pool.ctx, first.to(pool.ctx.dtype), [first]
+        for _ in range(L - 1):
+            win = ng_push(win, tok)
+            tok = pool.ng.gather(1, ng_hash(win, pool.ng.shape[1])[:, None]
+                                 )[:, 0]
+            chain.append(tok.long())
+        return torch.stack(chain, 1)
+
+
+class DraftProposer(Proposer):
+    """Greedy decode of the draft model, ``L-1`` steps ahead of the
+    committed stream, from scratch copies of the slot's draft rows and
+    position: the overshoot a partly rejected chain leaves behind is
+    dropped with them, and the verify advances the persistent rows by
+    exactly the committed tokens instead."""
+
+    name = "draft"
+
+    @staticmethod
+    def propose(tick, pool, dparams, first, active, L):
+        for leaves, src in zip(pool.scratch["caches"].values(),
+                               pool.draft.values()):
+            for k, c in leaves.items():
+                c.copy_(src[k])
+        pool.scratch["pos"].copy_(pool.pos)
+        run = tick.runner("propose", dparams, pool)
+        tok, chain = first, [first]
+        for _ in range(L - 1):
+            _, greedy = run(tok, active)
+            tok = greedy.clone()
+            chain.append(tok)
+        return torch.stack(chain, 1)
+
+
+PROPOSERS = {p.name: p for p in (NgramProposer, DraftProposer)}
+
+
 class SlotTick:
-    """The plain tick: ``L`` batched decode steps over every slot.
+    """A tick: ``L`` batched steps over every slot of a pool.
 
-    Per slot: pos, tokens ``[L]``, ``n_given`` (how many are prompt/pending
+    Per slot: tokens ``[L]``, ``n_given`` (how many are prompt/pending
     tokens — the rest are sampled on the device), active mask, reset flag,
-    temperature and generator.  Emits the ``[slots, L]`` sampled tokens plus
-    ``n_valid`` (L for active slots, 0 otherwise); position ``j``'s emission
-    is the model's continuation after consuming token ``j``.  Inactive slots
-    run (the batch is rectangular) but their cache and position updates are
-    masked out.  A reset slot's cache rows and position are zeroed first,
-    whether or not it takes part in this tick.  ``pos`` is advanced in
-    place and returned.
+    temperature and generator.  Emits the ``[slots, L]`` tokens and
+    ``n_valid``, the count each row committed: position ``j``'s emission is
+    the model's continuation after consuming token ``j``.  Inactive rows
+    run (the batch is rectangular) but their pool rows and positions stay
+    untouched.  A reset row's pool state and position are zeroed first,
+    whether or not it takes part in this tick.
 
-    With ``graph`` (a pool on the card) the step runs as a ``GraphedStep``,
-    captured on the first tick and replayed ``L`` times a tick; the reset
-    zeroing, the token select between steps, sampling and the tick's one
+    ``arm`` (``"ngram"`` or ``"draft"``: decode-only, greedy rows) runs the
+    speculative tick: the proposer's chain is verified one step per token
+    with ``active & valid`` as the step's row mask, and ``valid`` turns
+    off at each row's first mismatch, all on the device; ``n_valid`` is
+    each row's count of valid steps.  Otherwise every active row commits
+    ``L``.
+
+    With ``graph`` (a pool on the card) each step runs as a
+    ``GraphedStep``, captured on first use; the reset zeroing, the token
+    select and the valid mask between steps, sampling and the tick's one
     host copy stay outside the graph.  Without it (a CPU pool) the same
-    step runs eagerly.  ``record``, when a list, receives each step's
+    steps run eagerly.  ``record``, when a list, receives each step's
     logits."""
 
-    def __init__(self, cfg: ArchConfig, device, graph: bool):
-        self.step = build_decode_step(cfg, device)
+    def __init__(self, cfg: ArchConfig, device, graph: bool,
+                 draft_cfg: Optional[ArchConfig] = None):
+        self.steps = {"step": build_decode_step(cfg, device, draft_cfg)}
+        if draft_cfg is not None:
+            self.steps["propose"] = build_propose_step(draft_cfg, device)
         self.graph = graph
-        self.graphed: Optional[GraphedStep] = None
+        self.graphs: Dict[str, GraphedStep] = {}
+        self.captures = 0
         self.record: Optional[list] = None
 
     @property
-    def capture_pending(self) -> bool:
-        return self.graph and self.graphed is None
+    def graphed(self) -> Optional[GraphedStep]:
+        """The target step's graph (None before the first tick)."""
+        return self.graphs.get("step")
 
-    def _runner(self, params, caches, pos, active_t):
+    def capture_pending(self, arm: str = "") -> bool:
+        need = ("step", "propose") if arm == "draft" else ("step",)
+        return self.graph and any(n not in self.graphs for n in need)
+
+    def release(self) -> None:
+        """Drop every graph: the next tick captures again (a weight publish
+        rebinds the weights the graphs hold)."""
+        self.graphs.clear()
+
+    def runner(self, name: str, *state):
+        """``fn(tok, active) -> (logits, argmax)`` of step ``name`` over
+        ``state``: its graph on the card (captured on first use), the step
+        itself on the CPU."""
+        step = self.steps[name]
         if not self.graph:
-            return lambda tok: self.step(params, caches, pos, tok, active_t)
-        if self.graphed is None:
-            self.graphed = GraphedStep(self.step, params, caches, pos)
-        elif not self.graphed.bound_to(params, caches, pos):
-            raise ValueError("the tick's graph was captured over other "
-                             "params, caches or positions")
-        self.graphed.active.copy_(active_t)
-        return self.graphed
+            return lambda tok, active: step(*state, tok, active)
+        g = self.graphs.get(name)
+        if g is None:
+            g = self.graphs[name] = GraphedStep(step, *state)
+            self.captures += 1
+        elif not g.bound_to(*state):
+            raise ValueError(f"the tick's {name} graph was captured over "
+                             "other weights or another pool")
+        return g
 
     @torch.no_grad()
-    def __call__(self, params, caches, pos, toks, n_given, active, reset,
-                 temps, gens):
-        dev = pos.device
+    def __call__(self, pool, params, dparams, toks, n_given, active, reset,
+                 temps, gens, arm: str = ""):
+        dev = pool.pos.device
         if reset.any():
-            rows = torch.as_tensor(np.flatnonzero(reset), device=dev)
-            for leaves in caches.values():
-                for c in leaves.values():
-                    c[:, rows] = 0
-            pos.masked_fill_(torch.as_tensor(reset, device=dev), 0)
+            pool.zero_rows(torch.as_tensor(np.flatnonzero(reset),
+                                           device=dev))
         toks = torch.as_tensor(toks, device=dev)
-        n_given_t = torch.as_tensor(n_given, device=dev)
         active_t = torch.as_tensor(active, device=dev)
-        run = self._runner(params, caches, pos, active_t)
+        run = self.runner("step", params, dparams, pool)
         L = toks.shape[1]
+        if arm:
+            chain = PROPOSERS[arm].propose(self, pool, dparams, toks[:, 0],
+                                           active_t, L)
+            valid = active_t
+            n_valid = torch.zeros_like(toks[:, 0])
+            emitted = []
+            for j in range(L):
+                logits, greedy = run(chain[:, j], valid)
+                if self.record is not None:
+                    self.record.append(logits.clone())
+                emitted.append(greedy.clone())
+                n_valid += valid
+                if j + 1 < L:
+                    valid = valid & (chain[:, j + 1] == greedy)
+            out = torch.stack(emitted + [n_valid], 1).cpu().numpy()
+            return pool.pos, out[:, :L], out[:, L]
+        n_given_t = torch.as_tensor(n_given, device=dev)
         prev = toks[:, 0]
         emitted = []
         for j in range(L):
-            logits, greedy = run(torch.where(j < n_given_t, toks[:, j], prev))
+            logits, greedy = run(torch.where(j < n_given_t, toks[:, j], prev),
+                                 active_t)
             if self.record is not None:
                 self.record.append(logits.clone())
             prev = sample_rows(logits, greedy, temps, gens)
             emitted.append(prev)
         n_valid = np.where(active, L, 0)
-        return pos, torch.stack(emitted, 1).cpu().numpy(), n_valid
+        return pool.pos, torch.stack(emitted, 1).cpu().numpy(), n_valid
 
 
 @dataclasses.dataclass
@@ -225,10 +441,16 @@ class Request:
     max_new: int
     temperature: float = 0.0
     seed: int = 0                        # private sampling stream
+    joined_version: int = 0              # params_version at admission: a
+    #                                      request straddling a weight swap
+    #                                      stores neither results nor
+    #                                      snapshots
     tokens: List[int] = dataclasses.field(default_factory=list)
     slot: int = -1                       # slot joined (-1: queued)
     prompt_off: int = 0
     pending_tok: int = -1                # emitted but not yet fed back
+    seed_node: Any = None                # prefix-cache node this slot seeded
+    #                                      from (ref held until eviction)
     # wall-clock marks for first-token and completion latency
     t_submit: float = 0.0
     t_first: Optional[float] = None
@@ -246,15 +468,30 @@ class Request:
 
 class SlotPool:
     """The slot pool the tick mutates: cache rows ``[n, slots, Smax, ...]``
-    per block type, per-slot positions (on the device, with a host copy
-    that needs no device sync), the reset mask, and per-slot sampling
-    generators."""
+    per block type, the n-gram tables ``ng [slots, spec_table]`` and their
+    windows ``ctx [slots, spec_ctx]`` (int32), with a draft its cache rows
+    (``draft``, same layout) and their scratch copies for proposing
+    (``scratch``), per-slot positions (on the device, with a host copy that
+    needs no device sync), the reset mask, and per-slot sampling
+    generators.  Every write is in place: a CUDA graph holds the tensors'
+    addresses."""
 
-    def __init__(self, cfg: ArchConfig, slots: int, max_len: int, device):
+    def __init__(self, cfg: ArchConfig, slots: int, max_len: int, device,
+                 draft_cfg: Optional[ArchConfig] = None):
         self.slots = slots
         state = lm.init_cache(cfg, slots, max_len, device=device)
         self.caches = state["caches"]
         self.pos = state["pos"]
+        self.ng = torch.zeros((slots, cfg.serve.spec_table),
+                              dtype=torch.int32, device=device)
+        self.ctx = torch.zeros((slots, cfg.serve.spec_ctx),
+                               dtype=torch.int32, device=device)
+        self.draft = self.scratch = None
+        if draft_cfg is not None:
+            self.draft = lm.init_cache(draft_cfg, slots, max_len,
+                                       device=device)["caches"]
+            self.scratch = lm.init_cache(draft_cfg, slots, max_len,
+                                         device=device)
         self.pos_host = np.zeros((slots,), np.int64)
         self.reset = np.zeros((slots,), bool)
         self.gens: List[Optional[torch.Generator]] = [None] * slots
@@ -263,15 +500,65 @@ class SlotPool:
     def free_slots(self) -> int:
         return sum(r is None for r in self.active)
 
+    def row_leaves(self):
+        """``(path, tensor, slot dim)`` of every per-slot leaf a snapshot
+        holds: the caches and draft rows have the slot at dim 1, the n-gram
+        table and window at dim 0."""
+        out = [(("ng",), self.ng, 0), (("ctx",), self.ctx, 0)]
+        for top, caches in (("caches", self.caches), ("draft", self.draft)):
+            for t, leaves in (caches or {}).items():
+                for k, c in leaves.items():
+                    out.append(((top, t, k), c, 1))
+        return out
+
+    def zero_rows(self, rows) -> None:
+        """Zero the pool state and positions of ``rows`` (a device index
+        tensor), in place."""
+        for _, c, dim in self.row_leaves():
+            c.index_fill_(dim, rows, 0)
+        self.pos.index_fill_(0, rows, 0)
+
+    def snapshot(self, slot: int) -> Dict[str, Any]:
+        """Slot ``slot``'s whole row as host tensors, nested as
+        ``{"caches": {type: {leaf}}, "ng", "ctx"[, "draft"]}``."""
+        row: Dict[str, Any] = {}
+        for path, c, dim in self.row_leaves():
+            node = row
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = c.select(dim, slot)
+        return to_host(row)
+
+    def seed_rows(self, slots: List[int], rows: List[Dict[str, Any]],
+                  pos: List[int]) -> None:
+        """Write snapshot ``rows`` into ``slots`` and set their positions,
+        one batched in-place copy per leaf.  Writing the whole row subsumes
+        the reset zeroing: a seeded slot starts from the snapshot state as
+        a reset slot starts from zeros."""
+        dev = self.pos.device
+        idx = torch.as_tensor(slots, device=dev)
+        for path, c, dim in self.row_leaves():
+            vals = []
+            for r in rows:
+                for key in path:
+                    r = r[key]
+                vals.append(r)
+            c.index_copy_(dim, idx, torch.stack(vals, dim).to(dev))
+        self.pos.index_copy_(0, idx, torch.as_tensor(pos, device=dev))
+
 
 @dataclasses.dataclass
 class _TickPlan:
-    """One planned tick: resolved length, participants and job record
-    plus the dispatch thunk that runs it."""
+    """One planned tick: resolved arm, length, participants and job
+    records plus the dispatch thunk that runs it."""
+    mode: str
+    spec: bool
+    arm: str
     L: int
     part: List[Request]
     n_given: np.ndarray
     job: Job
+    extras: tuple
     dispatch: Any
 
 
@@ -279,7 +566,11 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, max_len: int = 128,
                  slots: int = 4, prefill_chunk: int = 16,
                  decode_chunk: int = 4, engine: Optional[Engine] = None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, spec_decode: bool = False,
+                 prefix_cache: bool = False, params_version: int = 0,
+                 draft: Optional[str] = None,
+                 draft_cfg: Optional[ArchConfig] = None, draft_params=None,
+                 device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = serving_params(params, self.device)
@@ -288,13 +579,58 @@ class ServeEngine:
         self.prefill_chunk = prefill_chunk
         self.decode_chunk = decode_chunk
         self.seed = seed
-        self.pool = SlotPool(cfg, slots, max_len, self.device)
+        # the live speculative draft length (hot-updatable; _tick_len caps a
+        # tick by every participant's cache headroom, so a larger value
+        # mid-stream only shrinks ticks that cannot host it)
+        self.spec_len = int(cfg.serve.spec_len)
+        self.spec_decode = spec_decode
+        self.spec_ticks = 0
+        self.spec_proposed = 0      # draft tokens offered for verification
+        self.spec_accepted = 0      # draft tokens committed
+        # per-arm speculative counters ({"ngram": {...}, "draft": {...}})
+        self.spec_arms: Dict[str, Dict[str, int]] = {}
+        # draft="self" slices a truncated self-draft out of the serve
+        # params (cfg.serve.draft_layers blocks + shared head) and re-slices
+        # it on every weight publish; an independent draft arrives as
+        # draft_cfg + draft_params and is republished with draft_params
+        self._self_draft = draft == "self"
+        self.draft_cfg: Optional[ArchConfig] = None
+        self.draft_params = None
+        if draft is not None:
+            if draft != "self":
+                raise ValueError(f"unknown draft mode {draft!r}")
+            if draft_cfg is not None or draft_params is not None:
+                raise ValueError("draft='self' derives the draft from the "
+                                 "serve params")
+            self.draft_cfg = truncated_draft_cfg(cfg)
+            self.draft_params = slice_draft_params(self.params, cfg,
+                                                   self.draft_cfg)
+        elif draft_cfg is not None:
+            if draft_params is None:
+                raise ValueError("an independent draft_cfg needs "
+                                 "draft_params")
+            self.draft_cfg = draft_cfg
+            self.draft_params = serving_params(draft_params, self.device)
+        self.pool = SlotPool(cfg, slots, max_len, self.device, self.draft_cfg)
         self._tick = SlotTick(cfg, self.device,
-                              graph=self.device.type == "cuda")
-        # tick lengths already run once: a first run carries one-time costs
-        # (kernel library builds and loads, allocator growth, the graph's
-        # capture) and must not enter the cost EMAs
+                              graph=self.device.type == "cuda",
+                              draft_cfg=self.draft_cfg)
+        # tick shapes (arm, L) and row copies already run once: a first run
+        # carries one-time costs (kernel library builds and loads,
+        # allocator growth, a graph's capture) and must not enter the cost
+        # EMAs
         self._warm: set = set()
+        # ``params_version`` keys the result cache and the snapshots: a hot
+        # weight swap bumps it so stale answers and states cannot serve
+        sc = cfg.serve
+        self.params_version = params_version
+        self.prefix: Optional[PrefixCache] = PrefixCache(
+            sc.prefix_cache_nodes, sc.prefix_min_len,
+            sc.result_cache_entries) if prefix_cache else None
+        self._analyzer = PrefixAnalyzer(sc.prefix_min_len,
+                                        sc.prefix_pin_count,
+                                        sc.prefix_history)
+        self._n_submitted = 0
         self.queue: Deque[Request] = deque()
         self.tick_no = 0
         self.tokens_out = 0
@@ -310,8 +646,9 @@ class ServeEngine:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
-        need = prompt.size + max_new + max(self.prefill_chunk,
-                                           self.decode_chunk)
+        need = prompt.size + max_new + max(
+            self.prefill_chunk, self.decode_chunk,
+            self.spec_len if self.spec_decode else 0)
         if need > self.max_len:
             raise ValueError(f"prompt+max_new+chunk={need} exceeds "
                              f"max_len={self.max_len}")
@@ -320,56 +657,242 @@ class ServeEngine:
                       seed=_stream_seed(self.seed, rid) if seed is None
                       else seed,
                       t_submit=time.perf_counter())
+        if self.prefix is not None:
+            # workload analyzer: count this prompt's grid prefixes and
+            # periodically pin the hottest ones against LRU eviction
+            self._analyzer.record(prompt)
+            self._n_submitted += 1
+            if self._n_submitted % 32 == 0:
+                for p in self._analyzer.hot_prefixes()[:8]:
+                    self.prefix.pin(p)
         self.queue.append(req)
         return req
 
     def _evict(self, req: Request) -> None:
-        self.pool.active[req.slot] = None
-        self.pool.gens[req.slot] = None
+        sp = self.pool
+        # a request that straddled a weight swap ran partly on old weights:
+        # its slot state and its output belong to neither version
+        fresh = req.joined_version == self.params_version
+        if self.prefix is not None:
+            if self.cfg.serve.snapshot_on_evict and fresh:
+                # "commit extends the tree": snapshot the slot's committed
+                # path (prompt + generated) for follow-ups that extend it
+                path = np.concatenate(
+                    [req.prompt, np.asarray(req.tokens, np.int32)]
+                )[:int(sp.pos_host[req.slot])]
+                if len(path) >= self.prefix.min_len and not (
+                        (n := self.prefix.lookup(path)) is not None
+                        and n.snapshot is not None
+                        and n.version == self.params_version):
+                    self._snapshot_slot(req.slot, path)
+            if req.seed_node is not None:
+                self.prefix.release(req.seed_node)
+                req.seed_node = None
+            # finished greedy outputs become exact-hit answers for repeats
+            if fresh:
+                self.prefix.result_store(req.prompt, req.max_new,
+                                         req.temperature,
+                                         self.params_version, req.output())
+        sp.active[req.slot] = None
+        sp.gens[req.slot] = None
         req.slot = -1
         req.t_done = time.perf_counter()
         req.done.set()
 
+    def _finish_from_cache(self, req: Request, tokens: List[int]) -> None:
+        """Answer a request straight from the result cache: no slot, no
+        prefill, no decode — the first and last token land together."""
+        req.tokens = list(tokens)
+        now = time.perf_counter()
+        req.t_first = req.t_first or now
+        req.t_done = now
+        self.tokens_out += len(req.tokens)
+        req.done.set()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _row_job(self, kind: str, tokens: int, fn):
+        """Run a row copy (snapshot or seed write) as a measured job, also
+        under the pool's kind (the engine's prefix-admission decision reads
+        both)."""
+        cold = kind not in self._warm
+        self._warm.add(kind)
+        job = Job(kind, tokens=tokens, meta={"cold": cold})
+        pjob = Job(pool_kind(kind, 0), tokens=tokens, meta={"cold": cold})
+
+        def thunk():
+            out = fn()
+            self._sync()
+            return out
+
+        return self.engine.run_job(job, thunk, extra=(pjob,))
+
+    def _snapshot_slot(self, slot: int, path) -> None:
+        """Capture one slot's pool row (to host tensors) and commit it into
+        the radix tree under ``path`` — the token prefix the slot has
+        consumed so far."""
+        row = self._row_job("serve_snapshot", len(path),
+                            lambda: self.pool.snapshot(slot))
+        self.prefix.insert(path, snapshot=row, version=self.params_version)
+
     def _admit(self) -> None:
-        """Join queued requests into free slots, in order.  The cache-row
-        zeroing and position reset are deferred into the next tick (the
-        ``reset`` mask); only the slot's sampling generator is set here."""
+        """Join queued requests into free slots, in order.  The row zeroing
+        and position reset are deferred into the next tick (the ``reset``
+        mask); only the slot's sampling generator is set here.
+
+        Prefix cache (when enabled): an exact result-cache hit answers the
+        request here — it never takes a slot.  Otherwise a greedy request
+        looks up its longest snapshotted prompt prefix under the current
+        params version, and if ``Engine.choose_prefix_admission`` picks the
+        seed path the slot starts from the snapshot: ``prompt_off``/``pos``
+        begin at the cached depth and ``reset`` stays False (the seed write
+        replaces the whole row).  Sampled requests never seed and never
+        hit: their tokens are draws, not facts.  All seed rows land in ONE
+        batched write."""
         sp = self.pool
-        while self.queue and sp.free_slots():
-            req = self.queue.popleft()
+        seeds: List[tuple] = []
+        remaining: Deque[Request] = deque()
+        for req in self.queue:
+            if (self.prefix is not None and req.temperature <= 0
+                    and (out := self.prefix.result_lookup(
+                        req.prompt, req.max_new, req.temperature,
+                        self.params_version)) is not None):
+                self._finish_from_cache(req, out)
+                continue
+            if not sp.free_slots():
+                remaining.append(req)
+                continue
             slot = next(s for s in range(sp.slots) if sp.active[s] is None)
             req.slot = slot
+            req.joined_version = self.params_version
             sp.active[slot] = req
-            sp.reset[slot] = True
-            sp.pos_host[slot] = 0
+            node = None
+            if self.prefix is not None and req.temperature <= 0:
+                # >= 1 prompt token must remain to produce the first logits
+                node = self.prefix.longest_match(
+                    req.prompt, limit=len(req.prompt) - 1,
+                    version=self.params_version)
+            if node is not None and self.engine.choose_prefix_admission(
+                    node.depth, len(req.prompt) - node.depth,
+                    pool_id=0) == "seed":
+                self.prefix.acquire(node)
+                req.seed_node = node
+                req.prompt_off = node.depth
+                sp.reset[slot] = False
+                sp.pos_host[slot] = node.depth
+                seeds.append((slot, node))
+                self.prefix.seeded += 1
+                self.prefix.tokens_avoided += node.depth
+            else:
+                if node is not None:
+                    self.prefix.seed_declined += 1
+                sp.reset[slot] = True
+                sp.pos_host[slot] = 0
             if req.temperature > 0:
                 sp.gens[slot] = torch.Generator(
                     device=self.device).manual_seed(req.seed)
+        self.queue = remaining
+        if seeds:
+            self._row_job("serve_seed", sum(n.depth for _, n in seeds),
+                          lambda: sp.seed_rows([s for s, _ in seeds],
+                                               [n.snapshot for _, n in seeds],
+                                               [n.pos for _, n in seeds]))
 
     # -------------------------------------------------------------- control
     def _inspect(self, what: str) -> Dict[str, Any]:
         return {"tick": self.tick_no, "queue_depth": len(self.queue),
                 "tokens_out": self.tokens_out,
                 "paused": self.engine.controller.paused,
+                "spec": {"enabled": self.spec_decode,
+                         "ticks": self.spec_ticks,
+                         "proposed": self.spec_proposed,
+                         "accepted": self.spec_accepted,
+                         "draft": None if self.draft_cfg is None
+                         else self.draft_cfg.name,
+                         "arms": {a: dict(c)
+                                  for a, c in self.spec_arms.items()}},
                 "decisions": list(self.engine.decisions),
+                "prefix_cache": (self.prefix.stats()
+                                 if self.prefix is not None
+                                 else {"enabled": False}),
                 "slots": [None if r is None else
                           {"rid": r.rid, "prompt_off": r.prompt_off,
                            "plen": len(r.prompt), "out": len(r.tokens),
                            "max_new": r.max_new}
                           for r in self.pool.active],
-                "knobs": {"prefill_chunk": self.prefill_chunk,
+                "knobs": {"spec_len": self.spec_len,
+                          "prefill_chunk": self.prefill_chunk,
                           "decode_chunk": self.decode_chunk},
                 "engine": self.engine.inspect()}
 
     def _apply_updates(self, updates: Dict[str, Any]) -> None:
-        # knobs only: the tick's graph holds ``self.params`` and the pool's
-        # tensors, so an update that replaces them must capture again
         if "max_prefill_defer" in updates:
             self.engine.max_prefill_defer = int(updates["max_prefill_defer"])
         if "decode_chunk" in updates:
             self.decode_chunk = int(updates["decode_chunk"])
         if "prefill_chunk" in updates:
             self.prefill_chunk = int(updates["prefill_chunk"])
+        if "spec_decode" in updates:
+            self.spec_decode = bool(updates["spec_decode"])
+        if "spec_len" in updates:
+            self.spec_len = max(int(updates["spec_len"]), 0)
+        if "draft_params" in updates and self.draft_cfg is not None:
+            # a draft is acceptance-only state: the swap needs no drain and
+            # no re-seed.  Ignored without a draft configured at
+            # construction (enabling one would need the pool's draft rows)
+            self.draft_params = serving_params(updates["draft_params"],
+                                               self.device)
+            self._tick.release()
+        if "prefix_cache" in updates:
+            on = bool(updates["prefix_cache"])
+            if on and self.prefix is None:
+                sc = self.cfg.serve
+                self.prefix = PrefixCache(sc.prefix_cache_nodes,
+                                          sc.prefix_min_len,
+                                          sc.result_cache_entries)
+            elif not on and self.prefix is not None:
+                # in-flight seeded requests keep their (host) refs on the
+                # dropped tree; nothing reads it again
+                self.prefix = None
+        if "params" in updates:
+            # the weight publish: the incoming tree (numpy or tensors) is
+            # converted once and rebound, and the tick's graphs, which hold
+            # the old weights' addresses, are dropped for a capture on the
+            # next tick.  Rebinding never writes into the old tensors,
+            # which the caller may share (BatchedServer hands its own).
+            self.params = serving_params(updates["params"], self.device)
+            if self._self_draft:
+                self.draft_params = slice_draft_params(
+                    self.params, self.cfg, self.draft_cfg)
+            self._tick.release()
+            # an explicit params_version in the same update wins; a bare
+            # params swap auto-bumps so stale results can never serve
+            self._bump_version(int(updates.get(
+                "params_version", self.params_version + 1)))
+        elif "params_version" in updates:
+            self._bump_version(int(updates["params_version"]))
+
+    def _bump_version(self, version: int) -> None:
+        """Move to a new params version: snapshots captured under any other
+        version are flushed from the radix tree (``longest_match`` would
+        never return them again) unless
+        ``serve.flush_prefix_on_publish`` is off.  The result cache needs no
+        flush: its keys carry the version."""
+        if version == self.params_version:
+            return
+        self.params_version = int(version)
+        if self.prefix is not None and self.cfg.serve.flush_prefix_on_publish:
+            self.prefix.flush_versions(self.params_version)
+
+    def update(self, **updates) -> None:
+        """Queue a hot update through the controller mailbox, applied at
+        the next tick boundary.  ``update(params=..., params_version=...)``
+        is the weight-publish entry point (``TrainLoop``'s publish hook
+        calls it): requests admitted after the boundary see the new
+        weights, and no request drops."""
+        self.engine.controller.send(M.update(**updates))
 
     def _poll(self) -> bool:
         r = self.engine.poll(self.tick_no, 0, self._inspect)
@@ -412,12 +935,36 @@ class ServeEngine:
             L //= 2
         return L
 
+    def _pool_spec_arms(self, act: List[Request]) -> tuple:
+        """The proposer arms a decode tick may run, by name: none unless
+        speculation is on and every decode participant is greedy
+        (verifying sampled continuations greedily would change their
+        distribution); ``draft`` only with a draft model loaded."""
+        dec = [r for r in act if not r.prefilling]
+        if not (self.spec_decode and self.spec_len > 1 and dec
+                and all(r.temperature <= 0 for r in dec)):
+            return ()
+        return ("ngram", "draft") if self.draft_cfg is not None \
+            else ("ngram",)
+
     def _plan_tick(self, act: List[Request], mode: str) -> Optional[_TickPlan]:
-        """Resolve the tick length, participants and job records, and close
-        over the dispatch thunk."""
+        """Resolve the speculative arm, tick length, participants and job
+        records, and close over the dispatch thunk."""
         sp = self.pool
-        chunk = self.prefill_chunk if mode == "prefill" else self.decode_chunk
-        L = self._tick_len(act, mode, chunk)
+        if mode == "spec":
+            # a bare "spec" maps to the strongest proposer this engine has
+            mode = "spec:draft" if self.draft_cfg is not None \
+                else "spec:ngram"
+        spec = mode.startswith("spec:")
+        arm = mode.split(":", 1)[1] if spec else ""
+        if spec:
+            L = self._tick_len(act, mode, self.spec_len)
+            if L < 2:
+                mode, spec, arm = "decode", False, ""  # nothing to draft
+        if not spec:
+            chunk = self.prefill_chunk if mode == "prefill" \
+                else self.decode_chunk
+            L = self._tick_len(act, mode, chunk)
         toks = np.zeros((sp.slots, L), np.int64)
         n_given = np.ones((sp.slots,), np.int64)
         active = np.zeros((sp.slots,), bool)
@@ -440,27 +987,42 @@ class ServeEngine:
             part.append(r)
         if not part:
             return None
-        cold = L not in self._warm or self._tick.capture_pending
-        self._warm.add(L)
-        kind = "serve_prefill" if mode == "prefill" else "serve_decode"
+        cold = (arm, L) not in self._warm or \
+            self._tick.capture_pending(arm)
+        self._warm.add((arm, L))
+        kind = "serve_prefill" if mode == "prefill" \
+            else spec_kind(arm) if spec else "serve_decode"
         ntok = L * len(part)
         job = Job(kind, tokens=ntok, meta={"cold": cold})
+        # the same measurement under the pool's kind, and for a speculative
+        # tick the arm-agnostic aggregate: the inputs the engine's arm and
+        # admission decisions read
+        extras = [Job(pool_kind(kind, 0), tokens=ntok, meta={"cold": cold})]
+        if spec:
+            extras.append(Job("serve_spec_decode", tokens=ntok,
+                              meta={"cold": cold}))
         reset = sp.reset.copy()
 
         def dispatch():
-            return self._tick(self.params, sp.caches, sp.pos, toks, n_given,
-                              active, reset, temps, sp.gens)
+            return self._tick(sp, self.params, self.draft_params, toks,
+                              n_given, active, reset, temps, sp.gens,
+                              arm=arm)
 
-        return _TickPlan(L=L, part=part, n_given=n_given, job=job,
+        return _TickPlan(mode=mode, spec=spec, arm=arm, L=L, part=part,
+                         n_given=n_given, job=job, extras=tuple(extras),
                          dispatch=dispatch)
 
     def _commit_tick(self, plan: _TickPlan, outs) -> int:
-        """Write a tick's results back: positions (device and host view),
-        token commits and evictions.  Returns the new tokens emitted."""
+        """Write a tick's results back: the host position view, token
+        commits, evictions, prefill snapshots and speculative counters.
+        Returns the new tokens emitted."""
         sp, L, part, n_given = self.pool, plan.L, plan.part, plan.n_given
-        sp.pos, em, nv = outs
+        _, em, nv = outs
         sp.reset[:] = False                  # zeroing landed in the tick
+        # how far each slot really advanced: L for every active slot on the
+        # plain arms, the committed prefix under speculation
         sp.pos_host += nv
+        part_slots = [r.slot for r in part]
         n_new = 0
         now = time.perf_counter()
         for r in part:
@@ -470,7 +1032,8 @@ class ServeEngine:
                 if r.prefilling:
                     continue                  # prompt continues next tick
             need = r.max_new - len(r.tokens)
-            outs_r = em[s, g - 1:L][:need]
+            last = int(nv[s]) if plan.spec else L
+            outs_r = em[s, g - 1:last][:need]
             if outs_r.size and r.t_first is None:
                 r.t_first = now               # first-token latency mark
             r.tokens.extend(int(t) for t in outs_r)
@@ -478,7 +1041,37 @@ class ServeEngine:
             if len(r.tokens) >= r.max_new:
                 self._evict(r)
             else:
-                r.pending_tok = int(em[s, L - 1])
+                r.pending_tok = int(em[s, last - 1])
+        if self.prefix is not None and plan.mode == "prefill":
+            # a prefill tick boundary where the slot has consumed exactly a
+            # prompt prefix (no decode output fed back yet, joined under the
+            # current weights) is a reusable state: commit it into the tree
+            # unless that path already owns a current snapshot
+            for r in part:
+                if (r.slot < 0 or r.prompt_off < self.prefix.min_len
+                        or int(sp.pos_host[r.slot]) != r.prompt_off
+                        or r.joined_version != self.params_version):
+                    continue
+                path = r.prompt[:r.prompt_off]
+                n = self.prefix.lookup(path)
+                if n is not None and n.snapshot is not None \
+                        and n.version == self.params_version:
+                    continue
+                self._snapshot_slot(r.slot, path)
+        if plan.spec:
+            proposed = (L - 1) * len(part)
+            accepted = int(sum(int(nv[s]) - 1 for s in part_slots))
+            self.spec_ticks += 1
+            self.spec_proposed += proposed
+            self.spec_accepted += accepted
+            st = self.spec_arms.setdefault(
+                plan.arm, {"ticks": 0, "proposed": 0, "accepted": 0})
+            st["ticks"] += 1
+            st["proposed"] += proposed
+            st["accepted"] += accepted
+            if proposed:
+                self.engine.observe_accept(0, accepted / proposed,
+                                           arm=plan.arm)
         return n_new
 
     def tick(self) -> bool:
@@ -494,13 +1087,16 @@ class ServeEngine:
         n_pre = sum(r.prefilling for r in act)
         pre_toks = sum(len(r.prompt) - r.prompt_off
                        for r in act if r.prefilling)
+        arms = self._pool_spec_arms(act)
         mode = self.engine.choose_serve_tick(
             len(act) - n_pre, n_pre, pre_toks, self.decode_chunk,
-            self.prefill_chunk, spec_len=0, arms=())
+            self.prefill_chunk, spec_len=self.spec_len if arms else 0,
+            pool_id=0, arms=arms)
         plan = self._plan_tick(act, mode)
         if plan is None:
             return True
-        outs = self.engine.run_job(plan.job, plan.dispatch)
+        outs = self.engine.run_job(plan.job, plan.dispatch,
+                                   extra=plan.extras)
         n_new = self._commit_tick(plan, outs)
         self.tokens_out += n_new
         self._check_breakpoints(n_new)

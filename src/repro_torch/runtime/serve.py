@@ -28,8 +28,10 @@ def serving_params(params, device):
     except the leaves a block reads in f32 (``BLOCKS[t]["f32"]``), which
     keep their dtype.  Every other use of a weight casts it to the bf16
     activations first, so this is exact and halves the bytes read per
-    step."""
+    step.  Leaves may be tensors or numpy arrays (a published host tree);
+    a tensor already on ``device`` in its serving dtype is kept as is."""
     def leaf(p, keep_dtype):
+        p = torch.as_tensor(p)
         return p.to(device=device,
                     dtype=p.dtype if keep_dtype else torch.bfloat16)
 
@@ -61,11 +63,21 @@ def sample(logits, temperature: float = 0.8,
 
 class BatchedServer:
     """Serving front door for examples, tests and the chip smoke run: a thin
-    client of the engine layer (one slot pool, the default class)."""
+    client of the engine layer (one slot pool, the default class).
+
+    ``spec_decode`` offers the engine the speculative decode arms;
+    ``draft="self"`` slices a truncated self-draft from the params, or an
+    independent ``draft_cfg`` + ``draft_params`` (e.g. from
+    ``engine.draft.distill_draft``) gives the draft arm its model;
+    ``prefix_cache`` turns on the cross-request prefix and result cache.
+    Greedy outputs are the same with any of them."""
 
     def __init__(self, cfg: ArchConfig, params, max_len: int = 128,
                  slots: int = 4, prefill_chunk: int = 16,
-                 decode_chunk: int = 4, device="cuda"):
+                 decode_chunk: int = 4, spec_decode: bool = False,
+                 prefix_cache: bool = False, draft: Optional[str] = None,
+                 draft_cfg: Optional[ArchConfig] = None, draft_params=None,
+                 device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = serving_params(params, self.device)
@@ -73,6 +85,11 @@ class BatchedServer:
         self.slots = slots
         self.prefill_chunk = prefill_chunk
         self.decode_chunk = decode_chunk
+        self.spec_decode = spec_decode
+        self.prefix_cache = prefix_cache
+        self.draft = draft
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
         self._step = build_serve_step(cfg)
         self._engine = None
 
@@ -83,6 +100,9 @@ class BatchedServer:
                 self.cfg, self.params, max_len=self.max_len,
                 slots=self.slots, prefill_chunk=self.prefill_chunk,
                 decode_chunk=self.decode_chunk, seed=seed,
+                spec_decode=self.spec_decode,
+                prefix_cache=self.prefix_cache, draft=self.draft,
+                draft_cfg=self.draft_cfg, draft_params=self.draft_params,
                 device=self.device)
         return self._engine
 

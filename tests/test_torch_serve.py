@@ -287,7 +287,7 @@ def test_engine_reset_slot_leaks_no_recurrent_state(rng, arch):
     assert any(c.any() for leaves in sp.caches.values()
                for c in leaves.values())
     pos, _, n_valid = eng._tick(
-        eng.params, sp.caches, sp.pos, np.zeros((2, 1), np.int64),
+        sp, eng.params, None, np.zeros((2, 1), np.int64),
         np.ones(2, np.int64), np.zeros(2, bool), np.ones(2, bool),
         np.zeros(2, np.float32), sp.gens)
     assert pos.tolist() == [0, 0] and n_valid.tolist() == [0, 0]
@@ -403,13 +403,13 @@ def test_cuda_graphed_tick_equals_eager_tick(cuda, rng, arch):
     toks = rng.integers(1, cfg.vocab, (4, 8))
     args = [(toks, np.array([8, 5, 3, 1]), np.array([1, 1, 1, 0], bool),
              np.ones(4, bool))]
-    outs = [t(params, p.caches, p.pos, *args[0], temps, gens)
+    outs = [t(p, params, None, *args[0], temps, gens)
             for t, p in zip(ticks, pools)]
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
     dec = np.zeros((4, 4), np.int64)
     dec[:, 0] = outs[0][1][:, -1]
     reset_launches()
-    outs = [t(params, p.caches, p.pos, dec, np.ones(4, np.int64),
+    outs = [t(p, params, None, dec, np.ones(4, np.int64),
               np.array([1, 1, 1, 0], bool), np.zeros(4, bool), temps, gens)
             for t, p in zip(ticks, pools)]
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
