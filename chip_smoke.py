@@ -5,9 +5,10 @@
 
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together), prints each kernel's
-   registers and spills, and fails unless every bf16 flash, Mamba2 SSD and
-   RWKV6 chunk kernel issues tensor-core instructions (HMMA in its SASS)
-   and spills nothing;
+   registers and spills, and fails unless every bf16 flash (12 kernels:
+   forward, dK/dV and dQ at each of head dims 64, 112, 128 and 256),
+   Mamba2 SSD and RWKV6 chunk kernel issues tensor-core instructions (HMMA
+   in its SASS) and spills nothing;
 2. ``[serve]``: serves ``paper-moe-100m`` at full width (8 layers, d_model
    512, 16 experts + 2 spare slots, vocab 32000; random weights from a
    seed) with the fused gating and dispatch flags on, through
@@ -61,7 +62,8 @@
    step's last calls (dispatch and combine as each other's backward);
 7. ``[flash]``: the flash-attention forward and backward kernels against
    their plain version (and an f32 oracle) at the training shape,
-   ``zamba2-7b``'s shared-attention shape and a ragged length; the forward
+   ``zamba2-7b``'s shared-attention shape, a ragged length and head dim 256
+   over a window of 1024 (``gemma3-1b``'s local attention); the forward
    timed at the training and ``zamba2-7b`` shapes beside
    ``scaled_dot_product_attention``, the backward at the training shape
    beside aten's flash-attention backward, all by CUDA-graph replay;
@@ -79,8 +81,27 @@
    warm-up that captures the tick's graph); greedy
    ``ServeEngine`` against ``generate_static`` on ``[4, 32] + 16``.  Each
    model is freed before the next;
-9. prints the kernels' JSON line, the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+9. ``[gemma3]``: ``gemma3-1b`` at full width (26 layers: 22 ``local``
+   over a sliding window of 1024 keys with a rolling decode cache and 4
+   ``attn``; d_model 1152, 4 heads of 256 with one KV head, d_ff 6912, a
+   tied vocab of 262144; about 1.0 B parameters, random bf16 weights from
+   the seed): a. ``lm.forward`` on ``[2, 2048]`` tokens, the main path,
+   exactly 26 ``flash_fwd`` launches (counts set to 0 just before and read
+   just after), then under a CUDA-only trace; b. the hd-256 flash forward
+   and backward against their plain version on the last local layer's
+   inputs captured from that forward, timed by graph replay beside
+   ``scaled_dot_product_attention`` with the window as a boolean mask (and,
+   for the record, causal only); c. forward vs step-by-step decode on
+   ``[2, 128]``; d. each block type's last layer, forward vs decode at 1100
+   tokens, so the ring wraps; e. ``BatchedServer.generate`` on 4 prompts
+   of 16..1040 tokens after a warm-up that captures the tick's graph; f.
+   greedy ``ServeEngine`` against ``generate_static`` on ``[2, 1040] +
+   16``; g. ``TrainLoop``: one microbatch through the kernels against the
+   plain versions, then 3 steps of 2 x 2048 tokens in 2 microbatches, each
+   step launching 52 ``flash_fwd`` and 52 ``flash_bwd``.  Each step and
+   each phase logs its wall time;
+10. prints the kernels' JSON line, the card's name and power limit, and
+    last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the repository's ``src/`` beside it.
@@ -126,6 +147,23 @@ SSM_PROMPT_LENS = (16, 29, 45, 64)
 SSM_NEW = 16
 SSM_STATIC = (4, 32)            # greedy engine vs static loop, + SSM_NEW
 
+# [gemma3]: gemma3-1b at full width.  The forward's [B, S] (twice the
+# window, so the window masks); forward vs decode; the block check's length
+# (past the window, so the rolling cache wraps); the served prompts (one
+# past the window) and their new tokens; engine vs static on prompts that
+# cross the window (as many rows as the engine has slots: cuBLAS rounds a
+# product by its row count); training's global batch, sequence and
+# microbatches (each microbatch [1, 2048]) and steps; the logit tolerance of
+# tests/test_serve_consistency.py for gemma3
+GEMMA_FWD = (2, 2048)
+GEMMA_BLOCK_LEN = 1100
+GEMMA_PROMPT_LENS = (16, 200, 600, 1040)
+GEMMA_NEW = 16
+GEMMA_STATIC = (2, 1040)
+GEMMA_TRAIN = (2, 2048, 2)
+GEMMA_STEPS = 3
+GEMMA_ATOL = 0.08
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -159,7 +197,7 @@ def _kernel_name(mangled: str) -> str:
 # SASS), by library: the names that mark them and how many there are (one
 # per head dim or state size); none of them may spill
 TENSOR_CORE_KERNELS = {
-    "flash_attention": (("_mma_kernel",), 9),
+    "flash_attention": (("_mma_kernel",), 12),
     "mamba2_ssd": (("mamba2_ssd_state_kernel", "mamba2_ssd_scan_kernel"),
                    8),
     "rwkv6_scan": (("rwkv6_scan_chunk_kernel",), 4)}
@@ -254,10 +292,10 @@ def capture_kernel_inputs(torch, run, targets=None, clone=True):
     originals = [getattr(m, n) for m, n in targets]
 
     def recorder(name, fn):
-        def wrapped(*args):
+        def wrapped(*args, **kwargs):
             seen[name] = tuple(a.clone() if clone and torch.is_tensor(a)
                                else a for a in args)
-            return fn(*args)
+            return fn(*args, **kwargs)
         return wrapped
 
     for (m, n), fn in zip(targets, originals):
@@ -602,50 +640,10 @@ def ssm_phase(torch, dev, ph, fails) -> tuple:
                          tag)
         del seen
 
-        # forward == step-by-step decode.  With random weights the full
-        # bf16 stack amplifies rounding layer by layer, so the whole
-        # model's argmax is held only where the decode's top-2 margin
-        # exceeds twice the larger of the reference's tolerance and the
-        # logit change that the scan's summation order alone causes (the
-        # forward through the plain scan against the forward through the
-        # kernel); each block type on its own, which is well conditioned,
-        # is held within BLOCK_TOL
-        b, s = EQUIV_FWD
-        toks = tokens(b, s)
-        fwd, _ = lm.forward(params, {"tokens": toks}, cfg)
-        again, _ = lm.forward(params, {"tokens": toks}, cfg)
-        plain, _ = lm.forward(params, {"tokens": toks}, cfg, impl="torch")
-        noise = (plain - fwd).abs().max().item()
-        state = lm.init_cache(cfg, b, s, device=dev)
-        t0 = time.perf_counter()
-        dec = []
-        for i in range(s):
-            lg, state = lm.decode_step(params, state, toks[:, i:i + 1], cfg)
-            dec.append(lg)
-        dec = torch.stack(dec, 1)
-        t_dec = time.perf_counter() - t0
-        del state
-        top2 = dec.topk(2, dim=-1).values
-        margin_tol = 2 * max(ph["atol"], noise)
-        sure = (top2[..., 0] - top2[..., 1]) > margin_tol
-        differ = dec.argmax(-1) != fwd.argmax(-1)
-        diff = (dec - fwd).abs().max().item()
-        log(f"[{tag}] forward vs decode on {list(EQUIV_FWD)}: max |logit "
-            f"diff| {diff} (max |logit| {fwd.abs().max().item()}); the "
-            f"forward through the plain scan differs from the kernel's by "
-            f"{noise}; argmax equal at {int((~differ).sum())} of "
-            f"{differ.numel()} positions, {int((sure & differ).sum())} "
-            f"differ of the {int(sure.sum())} whose decode top-2 margin "
-            f"exceeds {margin_tol} (twice the larger of that and "
-            f"{ph['atol']}); a second kernel forward equal bit for "
-            f"bit: {torch.equal(again, fwd)}; decode {t_dec:.4f} s "
-            f"({s} steps)")
-        if (sure & differ).any() or not torch.isfinite(dec).all() or \
-                not torch.equal(again, fwd):
-            fails.append(f"{tag}: step-by-step decode does not reproduce "
-                         f"the forward")
+        toks = tokens(*EQUIV_FWD)
+        forward_decode_check(torch, cfg, params, toks, tag, ph["atol"],
+                             "scan", fails)
         block_decode_check(torch, cfg, params, toks, tag, fails)
-        del fwd, again, plain, dec
 
     # serving through the engine, and engine == static
     max_len = max(SSM_PROMPT_LENS) + SSM_NEW + 16
@@ -687,12 +685,58 @@ def ssm_phase(torch, dev, ph, fails) -> tuple:
     return row, launches
 
 
+def forward_decode_check(torch, cfg, params, toks, tag, atol, kernel,
+                         fails) -> None:
+    """Forward == step-by-step decode on ``toks``.  With random weights the
+    full bf16 stack amplifies rounding layer by layer, so the whole model's
+    argmax is held only where the decode's top-2 margin exceeds twice the
+    larger of the reference's tolerance ``atol`` and the logit change that
+    the ``kernel``'s summation order alone causes (the forward through its
+    plain version against the forward through the kernel); each block type
+    on its own, which is well conditioned, is held within BLOCK_TOL
+    (``block_decode_check``)."""
+    from repro_torch.models import lm
+    b, s = toks.shape
+    fwd, _ = lm.forward(params, {"tokens": toks}, cfg)
+    again, _ = lm.forward(params, {"tokens": toks}, cfg)
+    plain, _ = lm.forward(params, {"tokens": toks}, cfg, impl="torch")
+    noise = (plain - fwd).abs().max().item()
+    state = lm.init_cache(cfg, b, s, device=toks.device)
+    t0 = time.perf_counter()
+    dec = []
+    for i in range(s):
+        lg, state = lm.decode_step(params, state, toks[:, i:i + 1], cfg)
+        dec.append(lg)
+    dec = torch.stack(dec, 1)
+    t_dec = time.perf_counter() - t0
+    del state
+    top2 = dec.topk(2, dim=-1).values
+    margin_tol = 2 * max(atol, noise)
+    sure = (top2[..., 0] - top2[..., 1]) > margin_tol
+    differ = dec.argmax(-1) != fwd.argmax(-1)
+    diff = (dec - fwd).abs().max().item()
+    log(f"[{tag}] forward vs decode on {list(toks.shape)}: max |logit "
+        f"diff| {diff} (max |logit| {fwd.abs().max().item()}); the "
+        f"forward through the plain {kernel} differs from the kernel's by "
+        f"{noise}; argmax equal at {int((~differ).sum())} of "
+        f"{differ.numel()} positions, {int((sure & differ).sum())} "
+        f"differ of the {int(sure.sum())} whose decode top-2 margin "
+        f"exceeds {margin_tol} (twice the larger of that and "
+        f"{atol}); a second kernel forward equal bit for "
+        f"bit: {torch.equal(again, fwd)}; decode {t_dec:.4f} s "
+        f"({s} steps)")
+    if (sure & differ).any() or not torch.isfinite(dec).all() or \
+            not torch.equal(again, fwd):
+        fails.append(f"{tag}: step-by-step decode does not reproduce "
+                     f"the forward")
+
+
 def block_decode_check(torch, cfg, params, toks, tag, fails) -> None:
     """For each block type, its last layer on the hidden states the forward
-    feeds it: the full-sequence apply (the scan kernel) against the block's
-    step-by-step decode from an empty cache, every output within BLOCK_TOL
-    of the output's scale plus BLOCK_TOL relative (bf16 rounds at other
-    points in the two paths)."""
+    feeds it: the full-sequence apply (through the kernels) against the
+    block's step-by-step decode from an empty cache, every output within
+    BLOCK_TOL of the output's scale plus BLOCK_TOL relative (bf16 rounds at
+    other points in the two paths)."""
     from repro_torch.models import lm
     from repro_torch.models.blocks import BLOCKS
     inputs, applies = {}, {t: BLOCKS[t]["apply"] for t in lm.type_counts(cfg)}
@@ -1372,16 +1416,25 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-3, 5e-2
 # of at most this many bf16 ulps of the token's largest |logit|
 FLIP_MARGIN_ULPS = 4
 
-# [flash]: (tag, [B, S, H, hd]) in the model's layout, bf16, causal: the
-# training shape, zamba2-7b's shared attention, and a ragged length
-FLASH_CASES = (("train", (4, 1024, 8, 64)), ("zamba2", (2, 1024, 32, 112)),
-               ("ragged", (4, 1000, 8, 64)))
+# [flash]: (tag, [B, S, H, hd] in the model's layout, window), bf16,
+# causal: the training shape, zamba2-7b's shared attention, a ragged length
+# and gemma3-1b's local attention at head dim 256 (its window of 1024 over
+# 1100 rows, so the window masks)
+FLASH_CASES = (("train", (4, 1024, 8, 64), None),
+               ("zamba2", (2, 1024, 32, 112), None),
+               ("ragged", (4, 1000, 8, 64), None),
+               ("hd256", (2, 1100, 4, 256), 1024))
 # kernel vs plain version (both bf16, each rounding its results at other
 # points and after sums in another order), by relative L2 error: over the
 # whole tensor within FLASH_RTOL, and within FLASH_TILE_RTOL in every tile
 # of FLASH_TILE sequence rows of one head (query rows for o and dq, key
 # rows for dk and dv), so that a fault confined to late rows or late KV
-# tiles, where the values are small, shows
+# tiles, where the values are small, shows.  Where the plain version is
+# itself farther from the f32 oracle than the kernel (its bf16 P takes
+# P's gradient through a plain cast, as the reference's does, so each
+# row's rounding residue reaches the running max and lands on the row's
+# argmax key: dK on a model's inputs), the kernel is held to the oracle
+# by the same bounds instead.
 FLASH_RTOL, FLASH_TILE_RTOL, FLASH_TILE = 5e-3, 1e-2, 64
 
 
@@ -1404,16 +1457,25 @@ def event_ms(torch, fn, reps: int = 10) -> float:
     return best
 
 
-def flash_bound(b, s, h, hd, es, backward):
-    """Causal attention over [B, S, H, hd] inputs of ``es`` bytes: (bound
-    ms, by).  Operations: 2·hd per (q, k) pair a product, 2 products in the
-    forward (QK^T, PV) and 5 in the backward (QK^T, dO·V^T, P^T·dO,
-    dS^T·Q, dS·K), at the bf16 tensor-core rate; bytes: q, k, v, o (and
-    dO, dq, dk, dv) once, and the f32 log-sum-exp."""
-    pairs = b * h * s * (s + 1) // 2
+def flash_work(b, s, h, hd, es, backward, window=None):
+    """Causal attention over [B, S, H, hd] inputs of ``es`` bytes, over a
+    sliding ``window`` when one is given: (bytes, operations).  Operations:
+    2·hd per visible (q, k) pair a product, 2 products in the forward
+    (QK^T, PV) and 5 in the backward (QK^T, dO·V^T, P^T·dO, dS^T·Q, dS·K);
+    bytes: q, k, v, o (and dO, dq, dk, dv) once, and the f32
+    log-sum-exp."""
+    w = s if window is None else min(window, s)
+    # row i sees min(i + 1, w) keys
+    pairs = b * h * (w * (w + 1) // 2 + (s - w) * w)
     n = 8 if backward else 4
-    return bound_ms(n * b * s * h * hd * es + 4 * b * h * s,
-                    (10 if backward else 4) * hd * pairs, BF16_FLOP_PER_S)
+    return (n * b * s * h * hd * es + 4 * b * h * s,
+            (10 if backward else 4) * hd * pairs)
+
+
+def flash_bound(b, s, h, hd, es, backward, window=None):
+    """(bound ms, by) of ``flash_work`` at the bf16 tensor-core rate."""
+    return bound_ms(*flash_work(b, s, h, hd, es, backward, window),
+                    BF16_FLOP_PER_S)
 
 
 def sdpa_backward(torch, q, k, v, do):
@@ -1425,6 +1487,106 @@ def sdpa_backward(torch, q, k, v, do):
         aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True)[:8]
     return lambda: aten._scaled_dot_product_flash_attention_backward(
         do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+
+def flash_check(torch, tag, case, q, k, v, do, window=None):
+    """The flash kernels on q, k, v [B, S, H, hd] bf16 (causal, over
+    ``window`` when one is given) and dO, forward and backward, against
+    their plain version (chunked attention in bf16, differentiated by
+    autograd), with an f32 materialised oracle beside both: o, dq, dk and
+    dv within FLASH_RTOL relative L2 and FLASH_TILE_RTOL in every tile of
+    the plain version, or of the oracle where the plain version is farther
+    from it than the kernel; and the forward's f32 o rounding to its o bit
+    for bit.  Raises on a mismatch; returns (o, the f32 o, lse, {output:
+    max abs error}, the plain output, the plain version's inputs) for
+    timing."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_bwd_cuda, flash_fwd_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.attention import chunked_attention
+    o, lse, o32 = flash_fwd_cuda(q, k, v, window=window, keep_f32=True)
+    grads = flash_bwd_cuda(q, k, v, o32, lse, do, window=window)
+    if not torch.equal(o32.to(o.dtype), o):
+        raise AssertionError(f"{tag} flash {case}: the f32 o does not round "
+                             f"to o")
+    ps = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    po = chunked_attention(*ps, window=window)
+    pgrads = torch.autograd.grad(po, ps, do, retain_graph=True)
+    fs = [x.float().requires_grad_(True) for x in (q, k, v)]
+    fo = attention_ref(*(x.transpose(1, 2) for x in fs),
+                       window=window).transpose(1, 2)
+    fgrads = torch.autograd.grad(fo, fs, do.float())
+    torch.cuda.synchronize()
+    errs, out = {}, []
+    for name, got, plain, oracle in zip(
+            ("o", "dq", "dk", "dv"), (o,) + grads, (po,) + pgrads,
+            (fo,) + fgrads):
+        errs[name] = (got.float() - plain.float()).abs().max().item()
+        rel = _rel_l2(torch, got, plain)
+        tile = _tile_rel_l2(torch, got, plain)
+        k_rel, p_rel = (_rel_l2(torch, x, oracle) for x in (got, plain))
+        k_or, p_or = (_tile_rel_l2(torch, x, oracle) for x in (got, plain))
+        held = "plain"
+        if not (rel <= FLASH_RTOL and tile <= FLASH_TILE_RTOL):
+            held = "f32 oracle, the plain farther from it"
+            if not (k_rel < p_rel and k_rel <= FLASH_RTOL and
+                    k_or <= FLASH_TILE_RTOL):
+                raise AssertionError(
+                    f"{tag} flash {case}: {name} kernel vs plain rel L2 "
+                    f"{rel}, worst tile {tile} > {FLASH_RTOL}, "
+                    f"{FLASH_TILE_RTOL}; vs the f32 oracle {k_rel}, worst "
+                    f"tile {k_or} (the plain's {p_rel}, {p_or})")
+        out.append(f"{name} {rel:.4g}, worst tile {tile:.4g} (vs f32: "
+                   f"kernel {k_rel:.4g}, worst tile {k_or:.4g}; plain "
+                   f"{p_rel:.4g}, worst tile {p_or:.4g}; max abs "
+                   f"{errs[name]:.4g} of "
+                   f"{plain.float().abs().max().item():.4g}; held to the "
+                   f"{held})")
+    log(f"[{tag}] {case} q,k,v,dO {list(q.shape)} bf16 causal, window "
+        f"{window}, kernel vs plain rel L2: {'; '.join(out)}; tolerance "
+        f"{FLASH_RTOL}, {FLASH_TILE_RTOL} in every {FLASH_TILE}-row tile of "
+        f"a head")
+    return o, o32, lse, errs, po, ps
+
+
+def delta_residue(torch, q, k, v, do, o, window=None) -> str:
+    """What the backward's delta_i = sum_j P_ij dP_ij would cost if it
+    were taken as dO_i · o_i, o the bf16 output ``o`` or the output in f32
+    before that rounding (P still rounded to bf16 where it meets V; the
+    backward kernel sums this one): on q,
+    k, v [B, S, H, hd] bf16 (causal, over ``window``) and dO, the change
+    that each makes in dq and dk, as a relative L2 error of the exact
+    gradients and their worst FLASH_TILE-row tile (everything in f64 on
+    the card)."""
+    s, hd = q.shape[1], q.shape[3]
+    scale = hd ** -0.5
+    qs = (q * scale).to(q.dtype).double().transpose(1, 2)   # [B, H, S, hd]
+    kk, vv, g = (x.double().transpose(1, 2) for x in (k, v, do))
+    pos = torch.arange(s, device=q.device)
+    seen = pos[None, :] <= pos[:, None]
+    if window is not None:
+        seen = seen & (pos[None, :] > pos[:, None] - window)
+    logits = (qs @ kk.transpose(-1, -2)).masked_fill(~seen, float("-inf"))
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    o32 = (e.to(q.dtype).double() @ vv) / e.sum(-1, keepdim=True)
+    dp = g @ vv.transpose(-1, -2)
+    exact = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - exact)
+    out = []
+    for what, oo in (("the bf16 o", o.double().transpose(1, 2)),
+                     ("the f32 o (the kernel's)", o32)):
+        moved = p * (exact - (g * oo).sum(-1, keepdim=True))  # dS's change
+        errs = []
+        for name, ref, d in (
+                ("dq", ds @ kk, moved @ kk),
+                ("dk", ds.transpose(-1, -2) @ qs,
+                 moved.transpose(-1, -2) @ qs)):
+            ref, d = ref.transpose(1, 2), d.transpose(1, 2)
+            errs.append(f"{name} {_rel_l2(torch, ref + d, ref):.4g} (worst "
+                        f"tile {_tile_rel_l2(torch, ref + d, ref):.4g})")
+        out.append(f"{what}: {', '.join(errs)}")
+    return "; ".join(out)
 
 
 def flash_phase(torch, dev, launches) -> list:
@@ -1439,49 +1601,22 @@ def flash_phase(torch, dev, launches) -> list:
 
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_bwd_cuda, flash_fwd_cuda)
-    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models.attention import chunked_attention
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for tag, (b, s, h, hd) in FLASH_CASES:
+    for tag, (b, s, h, hd), window in FLASH_CASES:
         q, k, v, do = (torch.randn((b, s, h, hd), generator=gen, device=dev)
                        .to(torch.bfloat16) for _ in range(4))
-        o, lse = flash_fwd_cuda(q, k, v)
-        grads = flash_bwd_cuda(q, k, v, o, lse, do)
-        ps = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        po = chunked_attention(*ps)
-        pgrads = torch.autograd.grad(po, ps, do, retain_graph=True)
-        fs = [x.float().requires_grad_(True) for x in (q, k, v)]
-        fo = attention_ref(*(x.transpose(1, 2) for x in fs)).transpose(1, 2)
-        fgrads = torch.autograd.grad(fo, fs, do.float())
-        torch.cuda.synchronize()
-        errs, out = {}, []
-        for name, got, plain, oracle in zip(
-                ("o", "dq", "dk", "dv"), (o,) + grads, (po,) + pgrads,
-                (fo,) + fgrads):
-            errs[name] = (got.float() - plain.float()).abs().max().item()
-            rel = _rel_l2(torch, got, plain)
-            tile = _tile_rel_l2(torch, got, plain)
-            k_or = _tile_rel_l2(torch, got, oracle)
-            p_or = _tile_rel_l2(torch, plain, oracle)
-            out.append(f"{name} {rel:.4g}, worst tile {tile:.4g} (worst "
-                       f"tile vs f32: kernel {k_or:.4g}, plain {p_or:.4g}; "
-                       f"max abs {errs[name]:.4g} of "
-                       f"{plain.float().abs().max().item():.4g})")
-            if not (rel <= FLASH_RTOL and tile <= FLASH_TILE_RTOL):
-                raise AssertionError(
-                    f"flash {tag}: {name} kernel vs plain rel L2 {rel}, "
-                    f"worst tile {tile} > {FLASH_RTOL}, {FLASH_TILE_RTOL}")
-        log(f"[flash] {tag} q,k,v,dO {[b, s, h, hd]} bf16 causal, kernel "
-            f"vs plain rel L2: {'; '.join(out)}; tolerance {FLASH_RTOL}, "
-            f"{FLASH_TILE_RTOL} in every {FLASH_TILE}-row tile of a head")
+        _, o32, lse, errs, po, ps = flash_check(torch, "flash", tag, q, k,
+                                                v, do, window)
         if tag in ("train", "zamba2"):
             qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
                                for x in (q, k, v, do))
             with torch.no_grad():
+                # as its main path calls it: training keeps the f32 o
                 timed = [("flash_fwd", False, errs["o"], dict(
-                    ms=graph_ms(torch, lambda: flash_fwd_cuda(q, k, v),
-                                reps=10),
+                    ms=graph_ms(torch, lambda: flash_fwd_cuda(
+                        q, k, v, keep_f32=tag == "train"), reps=10),
                     plain_ms=graph_ms(torch, lambda: chunked_attention(
                         q, k, v), reps=10),
                     library_ms=graph_ms(
@@ -1491,7 +1626,7 @@ def flash_phase(torch, dev, launches) -> list:
                     timed.append(("flash_bwd", True, max(
                         errs["dq"], errs["dk"], errs["dv"]), dict(
                         ms=graph_ms(torch, lambda: flash_bwd_cuda(
-                            q, k, v, o, lse, do), reps=10),
+                            q, k, v, o32, lse, do), reps=10),
                         library_ms=graph_ms(torch, sdpa_backward(
                             torch, qh, kh, vh, doh), reps=10))))
             if tag == "train":
@@ -1512,13 +1647,21 @@ def flash_phase(torch, dev, launches) -> list:
                     library_ms=t["library_ms"]))
                 lib = "aten flash backward" if bwd else \
                     "scaled_dot_product_attention"
-                log(f"[flash] {name} at {[b, s, h, hd]}: {t['ms']:.4f} ms "
-                    f"(plain {t['plain_ms']:.4f} ms, {lib} "
+                f32_o = ", writing the f32 o as training does" \
+                    if tag == "train" and not bwd else ""
+                log(f"[flash] {name} at {[b, s, h, hd]}{f32_o}: "
+                    f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, {lib} "
                     f"{t['library_ms']:.4f} ms, bound {b_ms:.5f} ms by "
                     f"{b_by}; all by CUDA-graph replay but the plain "
                     f"backward, timed between events)")
+            if tag == "train":
+                with torch.no_grad():
+                    bare = graph_ms(torch, lambda: flash_fwd_cuda(q, k, v),
+                                    reps=10)
+                log(f"[flash] flash_fwd at {[b, s, h, hd]} without the f32 "
+                    f"o (inference): {bare:.4f} ms")
             del qh, kh, vh, doh
-        del q, k, v, do, o, lse, grads, ps, po, pgrads, fs, fo, fgrads
+        del q, k, v, do, o32, lse, ps, po
         _free(torch)
     return rows
 
@@ -1777,9 +1920,16 @@ def train_phase(torch, dev, fails):
     _free(torch)
 
     # warm-up step (first-use costs stay out of the main path), keeping the
-    # MoE kernels' inputs from its last calls: gating's last forward, and
-    # dispatch and combine as each other's backward
-    _, seen = capture_kernel_inputs(torch, lambda: loop.run(1))
+    # kernels' inputs from their last calls: gating's last forward,
+    # dispatch and combine as each other's backward, and the first layer's
+    # flash backward
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.moe_dispatch import ops as dops
+    from repro_torch.kernels.moe_gating import ops as gops
+    _, seen = capture_kernel_inputs(
+        torch, lambda: loop.run(1),
+        [(gops, "gating_cuda"), (dops, "dispatch_cuda"),
+         (dops, "combine_cuda"), (fa, "flash_bwd_cuda")])
     # what the code launches per step: per MoE layer and microbatch, the
     # forward's attention, gating, dispatch and combine, and the backward's
     # attention, combine (dispatch's gradient) and dispatch (combine's)
@@ -1852,7 +2002,297 @@ def train_phase(torch, dev, fails):
             f"us by {r['bound_by']}), integer outputs equal, max |err| "
             f"{r['max_abs_err']}, shapes and tolerance "
             f"{shapes[r['name'][:-6]]}")
+    # the flash kernels on a layer's own inputs, and what a delta from the
+    # bf16 o would cost there
+    q, k, v, o32, _, do, _, window, _ = seen.pop("flash_bwd_cuda")
+    flash_check(torch, "train", "flash on the first layer's inputs", q, k, v,
+                do, window)
+    o = o32.to(q.dtype)
+    log(f"[train] on those inputs, a delta dO·o in place of sum P·dP "
+        f"would move, from {delta_residue(torch, q, k, v, do, o, window)} "
+        f"(of the exact f64 gradients)")
     return rows, launches
+
+
+def gemma3_phase(torch, dev, fails) -> list:
+    """gemma3-1b at full width (26 layers: 22 ``local`` over a window of
+    1024 keys with a rolling decode cache, 4 ``attn``; d_model 1152, 4
+    heads of 256 with one KV head, d_ff 6912, a tied vocab of 262144),
+    random weights from the seed: a. ``lm.forward`` on GEMMA_FWD tokens,
+    the main path (one ``flash_fwd`` launch a layer, counts set to 0 just
+    before and read just after), then again under a CUDA-only trace; b. the
+    flash kernels forward and backward against their plain version on the
+    last ``local`` layer's inputs captured from that forward, timed beside
+    ``scaled_dot_product_attention``; c. forward vs step-by-step decode; d.
+    each block type's last layer, forward vs decode past the window (the
+    ring wraps); e. ``BatchedServer.generate`` on GEMMA_PROMPT_LENS prompts
+    (one past the window) after a warm-up that captures the tick's graph;
+    f. greedy ``ServeEngine`` vs ``generate_static`` on prompts crossing the
+    window; g. ``TrainLoop`` with f32 master weights: one microbatch through
+    the kernels against the plain versions, a warm-up step, then
+    GEMMA_STEPS steps of the main path, each step's flash launches checked.
+    Returns the JSON rows flash_fwd@gemma3 and flash_bwd@gemma3."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+    from repro_torch.runtime.serve import BatchedServer
+    from repro_torch.runtime.train import TrainHyper, build_grad_step
+
+    tag = "gemma3"
+    cfg = get_arch("gemma3-1b")
+    n_layers = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = lm.init(cfg, gen, dtype=torch.bfloat16, device=dev)
+    log(f"[{tag}] {cfg.name}: {n_layers} layers {lm.type_counts(cfg)}, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} with "
+        f"{cfg.n_kv_heads} KV head, window {cfg.window}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab} (tied), "
+        f"{sum(p.numel() for p in _leaves(params))} params (bf16)")
+    rng = np.random.default_rng(SEED)
+
+    def tokens(b, s):
+        return torch.as_tensor(rng.integers(1, cfg.vocab, (b, s)),
+                               dtype=torch.long, device=dev)
+
+    def step_time(name, t0):
+        log(f"[{tag}] {name}: {time.perf_counter() - t0:.1f} s")
+        return time.perf_counter()
+
+    t_step = time.perf_counter()
+    # a. the forward: a warm-up at the main path's shape, then the main
+    # path, keeping the last flash call's inputs (the last layer, a local
+    # one; fresh tensors, never written again)
+    with torch.no_grad():
+        lm.forward(params, {"tokens": tokens(*GEMMA_FWD)}, cfg)
+        toks = tokens(*GEMMA_FWD)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, _), seen = capture_kernel_inputs(
+            torch, lambda: lm.forward(params, {"tokens": toks}, cfg),
+            [(fa, "flash_fwd_cuda")], clone=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd_launches = dict(LAUNCHES)
+        if fwd_launches["flash_fwd"] != n_layers:
+            fails.append(f"{tag}: {fwd_launches['flash_fwd']} flash_fwd "
+                         f"launches in the forward, expected {n_layers}")
+        if tuple(logits.shape) != GEMMA_FWD + (cfg.vocab,) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{tag}: bad forward logits")
+        n_tok = GEMMA_FWD[0] * GEMMA_FWD[1]
+        log(f"[{tag}] forward {list(GEMMA_FWD)}: {wall:.4f} s, "
+            f"{n_tok / wall:.1f} tok/s, launches {_nonzero(fwd_launches)}")
+        del logits
+        wall_t, busy_us, by_name = device_trace(
+            torch, lambda: lm.forward(params, {"tokens": toks}, cfg))
+        busy = busy_us / 1e6 / wall
+        log(f"[{tag}] forward again under a CUDA-only trace (traced wall "
+            f"{wall_t:.4f} s): device busy {busy_us:.0f} us; over the "
+            f"untraced forward's wall {wall:.4f} s: busy {busy:.4f}, idle "
+            f"{1 - busy:.4f}")
+        log_trace(tag, by_name, 8)
+        n_k = sum(v[0] for k, v in by_name.items()
+                  if "flash_fwd_mma_kernel<256>" in k)
+        if n_k != n_layers:
+            fails.append(f"{tag}: {n_k} flash_fwd_mma_kernel<256> launches "
+                         f"in the traced forward, expected {n_layers}")
+    t_step = step_time("a. forward", t_step)
+
+    # b. the flash kernels on the last local layer's inputs
+    q, k, v, _, window, _ = seen["flash_fwd_cuda"]
+    del seen, toks
+    if window != cfg.window:
+        fails.append(f"{tag}: the last layer's flash ran with window "
+                     f"{window}, expected {cfg.window}")
+    do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    o, o32, lse, errs, po, ps = flash_check(
+        torch, tag, "flash on the last local layer's inputs", q, k, v, do,
+        window)
+    log(f"[{tag}] on those inputs, a delta dO·o in place of sum P·dP "
+        f"would move, from {delta_residue(torch, q, k, v, do, o, window)} "
+        f"(of the exact f64 gradients)")
+    b, s, h, hd = q.shape
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & \
+        (pos[None, :] > pos[:, None] - window)
+    with torch.no_grad():
+        fwd_t = dict(
+            ms=graph_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, True,
+                                                         window), reps=10),
+            plain_ms=graph_ms(torch, lambda: chunked_attention(
+                q, k, v, window=window), reps=10),
+            library_ms=graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask), reps=10))
+        causal_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), reps=10)
+        bwd_t = dict(ms=graph_ms(torch, lambda: fa.flash_bwd_cuda(
+            q, k, v, o32, lse, do, True, window), reps=10))
+    bwd_t["plain_ms"] = event_ms(torch, lambda: torch.autograd.grad(
+        po, ps, do, retain_graph=True))
+    ls = [x.clone().requires_grad_(True) for x in (qh, kh, vh)]
+    lo = F.scaled_dot_product_attention(*ls, attn_mask=mask)
+    bwd_t["library_ms"] = event_ms(torch, lambda: torch.autograd.grad(
+        lo, ls, doh, retain_graph=True))
+    rows = []
+    for name, bwd, err, t in (
+            ("flash_fwd", False, errs["o"], fwd_t),
+            ("flash_bwd", True, max(errs["dq"], errs["dk"], errs["dv"]),
+             bwd_t)):
+        b_ms, b_by = flash_bound(b, s, h, hd, 2, bwd, window)
+        nbytes, flops = flash_work(b, s, h, hd, 2, bwd, window)
+        lib = ", its backward by autograd" if bwd else ""
+        rows.append(dict(
+            name=f"{name}@{tag}", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/flash_attention.py:58",
+            launches=fwd_launches[name], max_abs_err=err, ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=t["library_ms"]))
+        log(f"[{tag}] {name} at {[b, s, h, hd]}, window {window}: "
+            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.5f} ms by {b_by}: {nbytes} bytes, "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, {flops} operations, "
+            f"{flops / BF16_FLOP_PER_S * 1e3:.5f} ms; "
+            f"scaled_dot_product_attention with the "
+            f"window as a boolean mask{lib}: {t['library_ms']:.4f} ms; by "
+            f"CUDA-graph replay but the plain and the library backward, "
+            f"timed between events)")
+    log(f"[{tag}] scaled_dot_product_attention causal only (no window, so "
+        f"more work than the function): {causal_ms:.4f} ms")
+    del q, k, v, do, o, o32, lse, po, ps, qh, kh, vh, doh, mask, ls, lo
+    _free(torch)
+    t_step = step_time("b. flash", t_step)
+
+    with torch.no_grad():
+        # c. forward == step-by-step decode; d. each block type past the
+        # window
+        forward_decode_check(torch, cfg, params, tokens(*EQUIV_FWD), tag,
+                             GEMMA_ATOL, "attention", fails)
+        t_step = step_time("c. forward vs decode", t_step)
+        block_decode_check(torch, cfg, params, tokens(1, GEMMA_BLOCK_LEN),
+                           tag, fails)
+        t_step = step_time("d. blocks past the window", t_step)
+
+    # e. serving, one prompt past the window
+    srv = BatchedServer(cfg, params, max_len=max(GEMMA_PROMPT_LENS) +
+                        GEMMA_NEW + 16, slots=len(GEMMA_PROMPT_LENS),
+                        prefill_chunk=16, decode_chunk=4, device=dev)
+    prompts = [rng.integers(1, cfg.vocab, (n,)).astype(np.int32)
+               for n in GEMMA_PROMPT_LENS]
+    srv.generate([p[:16] for p in prompts], 4)      # captures the graph
+    eng = srv.engine()
+    replays0 = eng._tick.graphed.replays
+    reqs, wall, launches = timed_generate(torch, eng, prompts, GEMMA_NEW)
+    out = np.stack([r.output() for r in reqs])
+    if out.shape != (len(prompts), GEMMA_NEW) or out.min() < 0 or \
+            out.max() >= cfg.vocab:
+        raise AssertionError(f"{tag}: bad serve output {out.shape}")
+    log(f"[{tag}] serve {len(prompts)} requests, prompts "
+        f"{list(GEMMA_PROMPT_LENS)}, {GEMMA_NEW} new each: {wall:.4f} s, "
+        f"{out.size / wall:.1f} generated tok/s "
+        f"({sum(GEMMA_PROMPT_LENS) / wall:.1f} prompt tok/s), "
+        f"{eng._tick.graphed.replays - replays0} replays of the tick's graph, "
+        f"{eng._tick.captures} capture; launches {_nonzero(launches)} "
+        f"(decode attention runs the plain step)")
+    del srv, eng, reqs
+    _free(torch)
+    t_step = step_time("e. serve", t_step)
+
+    # f. engine == static on equal-length prompts crossing the window
+    srv = BatchedServer(cfg, params, max_len=GEMMA_STATIC[1] + GEMMA_NEW +
+                        16, slots=GEMMA_STATIC[0], prefill_chunk=16,
+                        decode_chunk=4, device=dev)
+    batch = rng.integers(1, cfg.vocab, GEMMA_STATIC).astype(np.int32)
+    t0 = time.perf_counter()
+    ref = srv.generate_static(batch, GEMMA_NEW)
+    t_static = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = srv.generate(batch, GEMMA_NEW)
+    t_engine = time.perf_counter() - t0
+    if not np.array_equal(got, ref):
+        bad = np.argwhere(got != ref)[:5].tolist()
+        fails.append(f"{tag}: ServeEngine != generate_static at {bad}")
+    log(f"[{tag}] ServeEngine (graphed tick) vs generate_static on "
+        f"{list(GEMMA_STATIC)} + {GEMMA_NEW} (past the window of "
+        f"{cfg.window}): equal {np.array_equal(got, ref)}, engine "
+        f"{t_engine:.4f} s, static {t_static:.4f} s")
+    del srv, params
+    _free(torch)
+    t_step = step_time("f. engine vs static", t_step)
+
+    # g. training
+    gb, seq, n_mb = GEMMA_TRAIN
+    mb = gb // n_mb
+    hyper = TrainHyper()
+    loop = TrainLoop(cfg, TokenStream(vocab=cfg.vocab, seq_len=seq,
+                                      global_batch=gb, seed=SEED), hyper,
+                     LoopConfig(microbatches=n_mb, device=str(dev)),
+                     seed=SEED)
+    first = torch.as_tensor(TokenStream(
+        vocab=cfg.vocab, seq_len=seq, global_batch=gb,
+        seed=SEED).next()["tokens"][:mb], device=dev)
+    # one microbatch from the initial state through the kernels and
+    # through the plain versions
+    res = {impl: build_grad_step(cfg, hyper, impl)[0](
+        loop.state["params"], {"tokens": first}, None, None, 0)
+        for impl in ("auto", "torch")}
+    (gk, mk), (gp, mp) = res["auto"], res["torch"]
+    loss_k, loss_p = mk["loss"].item(), mp["loss"].item()
+    worst = max(_rel_l2(torch, a, c) for a, c in
+                zip(tree_leaves(gk), tree_leaves(gp)))
+    log(f"[{tag}] train: one microbatch {list(first.shape)}, kernels vs "
+        f"plain versions: loss {loss_k:.7f} vs {loss_p:.7f} (rel "
+        f"{abs(loss_k - loss_p) / loss_p:.3g}, tolerance "
+        f"{TRAIN_LOSS_RTOL}); gradient leaves worst rel L2 {worst:.4g} "
+        f"(tolerance {TRAIN_GRAD_RTOL})")
+    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * loss_p or \
+            worst > TRAIN_GRAD_RTOL:
+        fails.append(f"{tag}: the kernel training step differs from the "
+                     f"plain one")
+    del res, gk, mk, gp, mp
+    _free(torch)
+    loop.run(1)                                 # warm-up
+    per_step = {"flash_fwd": n_layers * n_mb, "flash_bwd": n_layers * n_mb}
+    reset_launches()
+    prev, walls = dict(LAUNCHES), []
+    for _ in range(GEMMA_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = loop.run(1)[-1]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        now = dict(LAUNCHES)
+        delta = {key: now[key] - prev[key] for key in per_step}
+        prev = now
+        if delta != per_step:
+            fails.append(f"{tag}: train step {hist['step']} launched "
+                         f"{delta}, the code predicts {per_step}")
+        if not np.isfinite(hist["loss"]):
+            fails.append(f"{tag}: train step {hist['step']} loss "
+                         f"{hist['loss']}")
+        log(f"[{tag}] train step {hist['step']}: loss {hist['loss']:.6f} "
+            f"grad_norm {hist['grad_norm']:.6f}; {walls[-1]:.4f} s, "
+            f"{gb * seq / walls[-1]:.1f} training tok/s; launches {delta}")
+    train_launches = dict(LAUNCHES)
+    wall = sum(walls) / len(walls)
+    log(f"[{tag}] train {GEMMA_STEPS} steps of {gb} x {seq} in {n_mb} "
+        f"microbatches: mean {wall:.4f} s a step, {gb * seq / wall:.1f} "
+        f"training tok/s; launches {_nonzero(train_launches)}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    rows[1]["launches"] = train_launches["flash_bwd"]
+    del loop
+    _free(torch)
+    step_time("g. train", t_step)
+    return rows
 
 
 def main() -> int:
@@ -1876,13 +2316,26 @@ def main() -> int:
     build_report(build)
 
     fails = []
+    t_all = t_phase = time.perf_counter()
+
+    def phase_time(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"[time] {name}: {now - t_phase:.1f} s (run so far "
+            f"{now - t_all:.1f} s)")
+        t_phase = now
+
     rows = moe_phase(torch, dev, fails)
     _free(torch)
+    phase_time("serve, graph, kernel, equiv")
     serve_features_phase(torch, dev, fails)
     _free(torch)
+    phase_time("spec, prefix, publish")
     train_rows, train_launches = train_phase(torch, dev, fails)
+    phase_time("train")
     flash_rows = flash_phase(torch, dev, train_launches)
     rows += flash_rows + train_rows
+    phase_time("flash")
     for ph in SSM_PHASES:
         _free(torch)
         row, launches = ssm_phase(torch, dev, ph, fails)
@@ -1890,6 +2343,10 @@ def main() -> int:
         for r in flash_rows:
             if r["name"] == f"flash_fwd@{ph['tag']}":
                 r["launches"] = launches["flash_fwd"]
+        phase_time(ph["tag"])
+    _free(torch)
+    rows += gemma3_phase(torch, dev, fails)
+    phase_time("gemma3")
     if fails:
         raise AssertionError("; ".join(fails))
 

@@ -7,6 +7,7 @@ import importlib
 from repro_torch.configs.base import ArchConfig, reduced
 
 _MODULES = {
+    "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "paper-moe-100m": "repro_torch.configs.paper_moe_100m",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",

@@ -10,14 +10,21 @@
 // (batch, head) and loops over 64-row KV tiles, so any Sq, Sk works: rows
 // and keys past the end load as zeros and are masked.  The reference has no
 // backward kernel (JAX differentiates its chunked jnp form); the backward
-// here is the usual recomputing one, in three launches: a prep pass (delta_i
-// = sum_d dO·O per row, and the scaled q), then dK and dV with one block per
-// KV tile (a single writer per row: it loops over the query tiles that see
-// it), then dQ with one block per query tile (a single writer: it loops over
-// the KV tiles), so no atomics are used and the gradients are the same bits
-// in every run.  The price is seven products per visible (q, k) pair and
-// head dim where the minimal backward does five: S and dP are computed once
-// in the dK/dV kernel (as S^T and dP^T) and again in the dQ kernel.
+// here is a recomputing one, in three launches: a prep pass (each row's
+// delta_i = sum_d dO·O, and in bf16 the scaled q), then dK and dV with one
+// block per KV tile (a single writer per row: it loops over the query
+// tiles that see it), then dQ with one block per query tile.  No atomics
+// are used, so the gradients are the same bits in every run.  The price is
+// seven products per visible (q, k) pair and head dim where the minimal
+// backward does five: S and dP are computed in both kernels.
+//
+// delta is summed from O in f32, before its rounding to the output dtype:
+// the bf16 forward writes that f32 copy of O beside its output when a
+// backward will follow (the autograd Function asks for it).  With O
+// rounded to bf16, each row of dS keeps a residue of O's rounding, which
+// dS·K multiplies by the keys' common component: on gemma3-1b's layer
+// inputs (one KV head) that moved dq 1.2e-2 from the exact gradients,
+// against 1.1e-3 with the f32 O (chip_smoke.py, delta_residue).
 //
 // bf16 route (the model's): the tensor cores.
 // - Products: `mma.sync.m16n8k16` (bf16 in, f32 accumulators in
@@ -29,9 +36,22 @@
 // - Tiles: Q, K, V (and dO) are bf16 in shared memory, each row's 16-byte
 //   chunks XOR-swizzled by (row & 7) (the 128-byte swizzle), so the eight
 //   row addresses of an `ldmatrix` hit eight distinct bank groups.  A row
-//   holds HDP = 64, 112 or 128 columns (hd % 8 == 0, zero-padded up to
-//   HDP), so zamba2's hd 112 takes 7 k-steps, not 8; the row pitch is
+//   holds HDP = 64, 112, 128 or 256 columns (hd % 8 == 0, zero-padded up
+//   to HDP), so zamba2's hd 112 takes 7 k-steps, not 8; the row pitch is
 //   rounded up to 8 chunks so that the swizzle stays inside the row.
+// - Head dim 256 (gemma3-1b): a warp's 16 x 256 f32 accumulator alone is
+//   128 registers a thread, so what the narrower kernels hold in registers
+//   does not fit in 255 beside it.  The forward re-loads the warp's Q
+//   fragments from shared memory at every k-step (`ldmatrix`, as K's)
+//   instead of holding all 16 for the whole loop (64 more registers).  The
+//   dK/dV kernel would hold two such accumulators (256 registers), so its
+//   grid has a third axis of two column halves: each block recomputes P^T
+//   and dS^T over the whole head dim and accumulates one half of dK and
+//   dV's columns (six products per visible pair where one block would do
+//   four; nine in the whole backward, seven at the narrower heads).  The
+//   dQ kernel holds its one accumulator.  The tiles are 512-byte rows: the
+//   forward's shared memory is Q 32 KB + 2 stages x (K + V) 128 KB, the dQ
+//   kernel's 192 KB, one block an SM.
 // - Copies: KV tiles (query and dO tiles in the dK/dV kernel) are double
 //   buffered with `cp.async`: tile j + 1 loads while tile j is multiplied,
 //   with one barrier per tile for the hand-over of the buffers.
@@ -42,8 +62,10 @@
 //   P·V.  The mask is applied only on tiles that straddle it; tiles no row
 //   can see are skipped.  Query tiles start longest causal rows first.
 // f32 route: the first design, f32 FMAs out of shared memory in 4x4
-// register tiles (the `*_fma_kernel`s), any hd <= 128.  Tensor cores would
-// make it TF32; it stays as a second check of the masks on the card.
+// register tiles (the `*_fma_kernel`s), any hd <= 128 (its backward's f32
+// tiles would not fit in shared memory at 256; wider heads raise).  Tensor
+// cores would make it TF32; it stays as a second check of the masks on the
+// card.
 //
 // Numerics follow the plain version (models/attention.py
 // chunked_attention): q is scaled by 1/sqrt(hd) and rounded to its dtype,
@@ -52,7 +74,12 @@
 // dV), and the output is rounded once to q's dtype.  The straight-through
 // gradient of q's rounding is the scale, so dq = scale * dS K.  On the bf16
 // route dS is rounded to bf16 where it meets K and q (the tensor cores'
-// operand type); the f32 route keeps it in f32.
+// operand type); the f32 route keeps it in f32.  One difference stays: the
+// plain version's bf16 P takes P's gradient through a plain cast, as the
+// reference's does, so each row's rounding residue reaches the running max
+// and lands on the row's argmax key; here the max is a constant, as in the
+// exact softmax gradient, so dK can sit nearer the f32 result than the
+// plain version's (chip_smoke.py holds it to an f32 oracle where so).
 //
 // Masks: key j of query row i (absolute position q_offset + i) is visible
 // when j < Sk, i < Sq, (not causal or j <= q_offset + i) and (window <= 0
@@ -62,10 +89,11 @@
 // layout, so no transpose is made on either side); lse and delta
 // [B,H,Sq] f32.
 //
-// Bound: at training shapes (Sq = Sk = 1024, hd 64, causal) the function
-// does 4·hd operations per visible (q, k) pair in the forward and 10 in
-// the backward, against 8·S·hd bytes per head: far above the bf16 ridge
-// (about 295 operations a byte), so it is bound by the tensor cores' rate.
+// Bound: at training shapes (Sq = Sk = 1024, hd 64, causal; and gemma3-1b's
+// Sq = Sk = 2048, hd 256, window 1024) the function does 4·hd operations
+// per visible (q, k) pair in the forward and 10 in the backward, against
+// 8·S·hd bytes per head: far above the bf16 ridge (about 295 operations a
+// byte), so it is bound by the tensor cores' rate.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -208,16 +236,19 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
 // - bk: the B operand from rows = k (16 rows) x two 8-wide n-tiles of
 //   columns, with .trans (registers 0-1: n-tile 2 dp, 2-3: 2 dp + 1).
 // Every row a lane addresses has (row & 7) == (lane & 7), and chunk 2 ks + b
-// (b = 0, 1) swizzles to (b ^ (row & 7)) ^ 2 ks.  Tiles start on 256-byte
-// boundaries and rows are 128 or 256 bytes, so the address at k-step ks is
-// the k-step-0 address XOR 32 ks: one logic operation, shared by the n-tiles
-// (which add immediates), and no table of addresses held in registers.
+// (b = 0, 1) swizzles to (b ^ (row & 7)) ^ 2 ks.  Tiles start on 512-byte
+// boundaries and rows are 128, 256 or 512 bytes, so the address at k-step
+// ks is the k-step-0 address XOR 32 ks: one logic operation, shared by the
+// n-tiles (which add immediates), and no table of addresses held in
+// registers.
 struct Lanes {
   uint32_t a, bn, bk;
 };
 template <int HDP>
 __device__ __forceinline__ Lanes lane_offsets(int lane) {
-  static_assert(pitch<HDP>() == 8 || pitch<HDP>() == 16, "row bytes");
+  static_assert(pitch<HDP>() == 8 || pitch<HDP>() == 16 ||
+                    pitch<HDP>() == 32,
+                "row bytes");
   const int x = lane & 7;
   return {swz<HDP>(lane & 15, lane >> 4),
           swz<HDP>(x + ((lane >> 4) << 3), (lane >> 3) & 1),
@@ -247,11 +278,12 @@ __device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], uint32_t a,
   }
 }
 
-// out[HDP/8][4] (16 rows x HDP) += P · B, P (16 rows x K) given as f32
+// out[N/8][4] (16 rows x N columns) += P · B, P (16 rows x K) given as f32
 // accumulator fragments and rounded to bf16; b: the bk address of B's K
-// rows
-template <int HDP, int K>
-__device__ __forceinline__ void mma_pb(float (&out)[HDP / 8][4],
+// rows, XOR 32 c0 / 16 for B's columns c0 .. c0 + N (c0 a multiple of N,
+// a power of two)
+template <int HDP, int K, int N = HDP>
+__device__ __forceinline__ void mma_pb(float (&out)[N / 8][4],
                                        const float (&pf)[K / 8][4],
                                        uint32_t b) {
 #pragma unroll
@@ -259,7 +291,7 @@ __device__ __forceinline__ void mma_pb(float (&out)[HDP / 8][4],
     uint32_t af[4];
     acc_to_a(af, pf[2 * kk], pf[2 * kk + 1]);
 #pragma unroll
-    for (int dp = 0; dp < HDP / 16; ++dp) {
+    for (int dp = 0; dp < N / 16; ++dp) {
       uint32_t bf[4];
       ldsm4t(bf, (b ^ (32u * dp)) + kk * 16 * row_bytes<HDP>());
       mma(out[2 * dp], af, bf[0], bf[1]);
@@ -292,33 +324,42 @@ __device__ __forceinline__ void load_async(uint32_t dst, const bf16* head,
   }
 }
 
-// store a warp's 16 rows (row0 ..) x HDP accumulator, times mul, as bf16
-template <int HDP>
-__device__ __forceinline__ void store_rows(bf16* head, int row0, int S,
-                                           const float (&acc)[HDP / 8][4],
+__device__ __forceinline__ void store2(bf16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+// store a warp's 16 rows (row0 ..) x N accumulator (columns col0 ..),
+// times mul, as bf16 or f32
+template <int N, typename T>
+__device__ __forceinline__ void store_rows(T* head, int row0, int S,
+                                           const float (&acc)[N / 8][4],
                                            const float (&mul)[2],
-                                           const Shape& p, int lane) {
+                                           const Shape& p, int lane,
+                                           int col0 = 0) {
   const size_t stride = (size_t)p.H * p.hd;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < HDP / 8; ++nt) {
-    if (nt * 8 >= p.hd) continue;
+  for (int nt = 0; nt < N / 8; ++nt) {
+    const int col = col0 + nt * 8;
+    if (col >= p.hd) continue;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int s = row0 + g + 8 * r;
       if (s < S)
-        *reinterpret_cast<uint32_t*>(head + (size_t)s * stride + nt * 8 +
-                                     2 * t) =
-            pack_bf16(acc[nt][2 * r] * mul[r], acc[nt][2 * r + 1] * mul[r]);
+        store2(head + (size_t)s * stride + col + 2 * t,
+               acc[nt][2 * r] * mul[r], acc[nt][2 * r + 1] * mul[r]);
     }
   }
 }
 
-// dynamic shared memory, its start rounded up to 256 bytes (the XOR
+// dynamic shared memory, its start rounded up to 512 bytes (the XOR
 // addressing above needs it; SMEM_SLACK more bytes are asked for)
-constexpr uint32_t SMEM_SLACK = 256;
+constexpr uint32_t SMEM_SLACK = 512;
 __device__ __forceinline__ uint32_t smem_base(const uint8_t* smem) {
-  return (smem_u32(smem) + 255u) & ~255u;
+  return (smem_u32(smem) + 511u) & ~511u;
 }
 
 template <int HDP>
@@ -330,7 +371,8 @@ template <int HDP>
 __global__ void __launch_bounds__(MT)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, Shape p) {
+                     float* __restrict__ o32, float* __restrict__ lse,
+                     Shape p) {
   constexpr int NCH = HDP / 8, KS = HDP / 16;
   constexpr uint32_t TB = tile_bytes<HDP>(BK), RB = row_bytes<HDP>();
   extern __shared__ uint8_t smem[];
@@ -371,10 +413,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     *reinterpret_cast<uint4*>(q_tile + swz<HDP>(r, c)) = x;
   }
   __syncthreads();
-  uint32_t qf[KS][4];
+  // up to hd 128 the warp's Q fragments stay in registers for the whole
+  // loop; at 256 they are re-loaded at each k-step (see the note above)
+  constexpr bool HOLD_Q = HDP <= 128;
+  uint32_t qf[HOLD_Q ? KS : 1][4];
   const uint32_t qa = Qs + 16 * warp * RB + ln.a;
+  if constexpr (HOLD_Q) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) ldsm4(qf[ks], qa ^ (32u * ks));
+    for (int ks = 0; ks < KS; ++ks) ldsm4(qf[ks], qa ^ (32u * ks));
+  }
 
   const int row_a = q0 + 16 * warp + g;    // this thread's rows: +0, +8
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -394,15 +441,19 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     float s[BK / 8][4];
     zero(s);
+    if constexpr (HOLD_Q) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t bf[4];
-        ldsm4(bf, ((Kt + ln.bn) ^ (32u * ks)) + np * 16 * RB);
-        mma(s[2 * np], qf[ks], bf[0], bf[1]);
-        mma(s[2 * np + 1], qf[ks], bf[2], bf[3]);
-      }
+        for (int np = 0; np < BK / 16; ++np) {
+          uint32_t bf[4];
+          ldsm4(bf, ((Kt + ln.bn) ^ (32u * ks)) + np * 16 * RB);
+          mma(s[2 * np], qf[ks], bf[0], bf[1]);
+          mma(s[2 * np + 1], qf[ks], bf[2], bf[3]);
+        }
+    } else {
+      mma_abt<HDP, BK>(s, qa, Kt + ln.bn);
+    }
     if (straddles(p, q0, BQ, k0, BK)) {
 #pragma unroll
       for (int nt = 0; nt < BK / 8; ++nt)
@@ -454,8 +505,11 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lse[(size_t)bh * p.Sq + i] = l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  store_rows<HDP>(o + ((size_t)b * p.Sq * p.H + h) * p.hd, q0 + 16 * warp,
-                  p.Sq, acc, inv, p, lane);
+  const size_t ooff = ((size_t)b * p.Sq * p.H + h) * p.hd;
+  store_rows<HDP>(o + ooff, q0 + 16 * warp, p.Sq, acc, inv, p, lane);
+  // the unrounded O, for the backward's delta
+  if (o32 != nullptr)
+    store_rows<HDP>(o32 + ooff, q0 + 16 * warp, p.Sq, acc, inv, p, lane);
 }
 
 // Query rows per step of the dK/dV kernel and keys per step of the dQ
@@ -465,6 +519,11 @@ template <int HDP>
 __host__ __device__ constexpr int bwd_step() {
   return HDP <= 64 ? 64 : 32;
 }
+// column halves of dK and dV (the dK/dV grid's z axis): two at hd 256
+template <int HDP>
+__host__ __device__ constexpr int dkdv_parts() {
+  return HDP <= 128 ? 1 : 2;
+}
 template <int HDP>
 constexpr size_t dkdv_mma_smem() {
   return SMEM_SLACK + 2 * tile_bytes<HDP>(BK) +
@@ -472,8 +531,9 @@ constexpr size_t dkdv_mma_smem() {
          4 * bwd_step<HDP>() * sizeof(float);
 }
 
-// dK, dV of one KV tile: the block loops over the query tiles that see it;
-// warp w owns keys 16 w .. 16 w + 15.  qs is the scaled q (the prep pass's).
+// dK, dV of one KV tile (columns: part blockIdx.z of dkdv_parts): the block
+// loops over the query tiles that see it; warp w owns keys 16 w .. 16 w +
+// 15.  qs is the scaled q (the prep pass's).
 // Both backward kernels set their register ceiling to the maximum: under
 // __launch_bounds__ alone ptxas caps them at 168 registers (three blocks an
 // SM) and spills a few bytes.
@@ -487,10 +547,14 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ qs,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
                           Shape p) {
-  constexpr int QB = bwd_step<HDP>();
+  constexpr int QB = bwd_step<HDP>(), NC = HDP / dkdv_parts<HDP>();
   constexpr uint32_t TQ = tile_bytes<HDP>(QB), RB = row_bytes<HDP>();
   extern __shared__ uint8_t smem[];
   const uint32_t Ks = smem_base(smem), Vs = Ks + tile_bytes<HDP>(BK);
+  // this block's columns c0 .. c0 + NC of dK and dV, and the XOR that moves
+  // a bk address to them (NC / 16 k-steps of 32 bytes each)
+  const int c0 = blockIdx.z * NC;
+  const uint32_t cx = 32u * (c0 / 16);
   const uint32_t QGs = Vs + tile_bytes<HDP>(BK);    // [2 stages][q_s, dO]
   const uint32_t stats_s = QGs + 4 * TQ;            // [2 stages][lse, delta]
   const float* stats =
@@ -535,7 +599,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ qs,
   const uint32_t ka = Ks + 16 * warp * RB + ln.a;
   const uint32_t va = Vs + 16 * warp * RB + ln.a;
   const int key_a = k0 + 16 * warp + g;    // this thread's keys: +0, +8
-  float dka[HDP / 8][4], dva[HDP / 8][4];
+  float dka[NC / 8][4], dva[NC / 8][4];
   zero(dka);
   zero(dva);
   for (int j = 0; j < n_tiles; ++j) {
@@ -562,7 +626,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ qs,
         if (mask && !visible(p, q0 + c, key_a + 8 * (e >> 1))) x = 0.f;
         pt[nt][e] = x;
       }
-    mma_pb<HDP, QB>(dva, pt, Gt + ln.bk);   // dV += P^T dO, P in bf16
+    mma_pb<HDP, QB, NC>(dva, pt, (Gt + ln.bk) ^ cx);   // dV += P^T dO
     // dS^T = P^T (V dO^T - delta), rounded to bf16 where it meets q_s
     float ds[QB / 8][4];
     zero(ds);
@@ -572,12 +636,12 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ qs,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         ds[nt][e] = pt[nt][e] * (ds[nt][e] - dl_t[8 * nt + 2 * t + (e & 1)]);
-    mma_pb<HDP, QB>(dka, ds, Qt + ln.bk);   // dK += dS^T q_s
+    mma_pb<HDP, QB, NC>(dka, ds, (Qt + ln.bk) ^ cx);   // dK += dS^T q_s
   }
   cp_wait_all();
   const float one[2] = {1.f, 1.f};
-  store_rows<HDP>(dk + koff, k0 + 16 * warp, p.Sk, dka, one, p, lane);
-  store_rows<HDP>(dv + koff, k0 + 16 * warp, p.Sk, dva, one, p, lane);
+  store_rows<NC>(dk + koff, k0 + 16 * warp, p.Sk, dka, one, p, lane, c0);
+  store_rows<NC>(dv + koff, k0 + 16 * warp, p.Sk, dva, one, p, lane, c0);
 }
 
 template <int HDP>
@@ -1048,10 +1112,11 @@ __device__ __forceinline__ void from_f32(float x, bf16* y) {
   *y = __float2bfloat16_rn(x);
 }
 
-// delta[b,h,s] = sum_d dO·O, one warp per row; with qs, also the scaled q
-// rounded to its dtype (the operand of the bf16 backward's products)
+// delta[b,h,s] = sum_d dO·O, one warp per row, O in f32 (the forward's
+// unrounded output); with qs, also the scaled q rounded to its dtype (the
+// operand of the bf16 backward's products)
 template <typename T>
-__global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
+__global__ void flash_bwd_prep_kernel(const float* __restrict__ o,
                                       const T* __restrict__ dout,
                                       const T* __restrict__ q,
                                       float* __restrict__ delta,
@@ -1063,7 +1128,7 @@ __global__ void flash_bwd_prep_kernel(const T* __restrict__ o,
   const size_t off = (((size_t)b * p.Sq + s) * p.H + h) * p.hd;
   float acc = 0.f;
   for (int d = lane; d < p.hd; d += 32) {
-    acc = fmaf(to_f32(o[off + d]), to_f32(dout[off + d]), acc);
+    acc = fmaf(o[off + d], to_f32(dout[off + d]), acc);
     if (qs != nullptr) from_f32(to_f32(q[off + d]) * p.scale, qs + off + d);
   }
   for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
@@ -1090,16 +1155,16 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
 }
 
 template <int HDP>
-int fwd_mma(const void* q, const void* k, const void* v, void* o, void* lse,
-            const Shape& p, cudaStream_t st) {
+int fwd_mma(const void* q, const void* k, const void* v, void* o, void* o32,
+            void* lse, const Shape& p, cudaStream_t st) {
   static bool smem_set = false;
   const size_t smem = fwd_mma_smem<HDP>();
   cudaError_t e = allow_smem(flash_fwd_mma_kernel<HDP>, smem, &smem_set);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(p.B * p.H, (p.Sq + BQ - 1) / BQ);
   flash_fwd_mma_kernel<HDP><<<grid, MT, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-      p);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)o32,
+      (float*)lse, p);
   return (int)cudaGetLastError();
 }
 
@@ -1122,7 +1187,8 @@ int bwd_prep(const void* o, const void* dout, const void* q, void* delta,
              void* qs, const Shape& p, cudaStream_t st) {
   const int rows = p.B * p.H * p.Sq;
   flash_bwd_prep_kernel<T><<<(rows + 7) / 8, 256, 0, st>>>(
-      (const T*)o, (const T*)dout, (const T*)q, (float*)delta, (T*)qs, p);
+      (const float*)o, (const T*)dout, (const T*)q, (float*)delta, (T*)qs,
+      p);
   return (int)cudaGetLastError();
 }
 
@@ -1138,7 +1204,7 @@ int bwd_mma(const void* q, const void* k, const void* v, const void* o,
   if (e != cudaSuccess) return (int)e;
   e = allow_smem(flash_bwd_dq_mma_kernel<HDP>, dq_mma_smem<HDP>(), &dq_set);
   if (e != cudaSuccess) return (int)e;
-  dim3 gk(p.B * p.H, (p.Sk + BK - 1) / BK);
+  dim3 gk(p.B * p.H, (p.Sk + BK - 1) / BK, dkdv_parts<HDP>());
   flash_bwd_dkdv_mma_kernel<HDP><<<gk, MT, dkdv_mma_smem<HDP>(), st>>>(
       (const bf16*)qs, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, p);
@@ -1177,10 +1243,11 @@ int bwd_fma(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// hd: any of 1..128 for f32; a multiple of 8 up to 128 for bf16.  The grid
+// hd: any of 1..128 for f32; a multiple of 8 up to 256 for bf16.  The grid
 // holds B*H and the tile count on its axes (65535 blocks at most on y).
 bool bad_shape(int B, int H, int Sq, int Sk, int hd, int dtype) {
-  if (hd < 1 || hd > 128 || (dtype == 1 && hd % 8 != 0)) return true;
+  if (hd < 1 || hd > (dtype == 1 ? 256 : 128) || (dtype == 1 && hd % 8 != 0))
+    return true;
   if (dtype == 0) return B * H > 65535;
   return (Sq + BQ - 1) / BQ > 65535 || (Sk + BK - 1) / BK > 65535;
 }
@@ -1188,16 +1255,19 @@ bool bad_shape(int B, int H, int Sq, int Sk, int hd, int dtype) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o share it).  q [B,Sq,H,hd],
-// k/v [B,Sk,H,hd] -> o [B,Sq,H,hd], lse [B,H,Sq] f32.  window <= 0 means
-// none.  bf16 pointers must be 16-byte aligned.  Returns the launch's
-// cudaError_t.
+// k/v [B,Sk,H,hd] -> o [B,Sq,H,hd], lse [B,H,Sq] f32, and in bf16, where
+// o32 is not null, O before its rounding, [B,Sq,H,hd] f32 (the backward's
+// o; the f32 route's o is that already, and o32 must be null).  window <= 0
+// means none.  bf16 pointers must be 16-byte aligned.  Returns the
+// launch's cudaError_t.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* o, void* lse, int B, int H, int Sq,
-                                int Sk, int hd, int causal, int window,
-                                int q_offset, float scale, int dtype,
-                                void* stream) {
+                                void* o, void* o32, void* lse, int B, int H,
+                                int Sq, int Sk, int hd, int causal,
+                                int window, int q_offset, float scale,
+                                int dtype, void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
-  if ((dtype != 0 && dtype != 1) || bad_shape(B, H, Sq, Sk, hd, dtype))
+  if ((dtype != 0 && dtype != 1) || bad_shape(B, H, Sq, Sk, hd, dtype) ||
+      (dtype == 0 && o32 != nullptr))
     return (int)cudaErrorInvalidValue;
   const Shape p = make_shape(B, H, Sq, Sk, hd, causal, window, q_offset,
                              scale);
@@ -1205,13 +1275,15 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return hd <= 64 ? fwd_fma<64>(q, k, v, o, lse, p, st)
                     : fwd_fma<128>(q, k, v, o, lse, p, st);
-  if (hd <= 64) return fwd_mma<64>(q, k, v, o, lse, p, st);
-  if (hd <= 112) return fwd_mma<112>(q, k, v, o, lse, p, st);
-  return fwd_mma<128>(q, k, v, o, lse, p, st);
+  if (hd <= 64) return fwd_mma<64>(q, k, v, o, o32, lse, p, st);
+  if (hd <= 112) return fwd_mma<112>(q, k, v, o, o32, lse, p, st);
+  if (hd <= 128) return fwd_mma<128>(q, k, v, o, o32, lse, p, st);
+  return fwd_mma<256>(q, k, v, o, o32, lse, p, st);
 }
 
-// The backward of flash_fwd_launch: dO [B,Sq,H,hd] and the forward's o and
-// lse -> dq [B,Sq,H,hd], dk/dv [B,Sk,H,hd] (every element written; rows
+// The backward of flash_fwd_launch: dO [B,Sq,H,hd] and the forward's lse
+// and unrounded O (o: [B,Sq,H,hd] f32 in both dtypes, the bf16 forward's
+// o32) -> dq [B,Sq,H,hd], dk/dv [B,Sk,H,hd] (every element written; rows
 // no query sees get zeros); delta is [B,H,Sq] f32 scratch, qs scratch
 // shaped like q (bf16 only; null for f32).
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
@@ -1237,5 +1309,7 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
     return bwd_mma<64>(q, k, v, o, dout, lse, delta, qs, dq, dk, dv, p, st);
   if (hd <= 112)
     return bwd_mma<112>(q, k, v, o, dout, lse, delta, qs, dq, dk, dv, p, st);
-  return bwd_mma<128>(q, k, v, o, dout, lse, delta, qs, dq, dk, dv, p, st);
+  if (hd <= 128)
+    return bwd_mma<128>(q, k, v, o, dout, lse, delta, qs, dq, dk, dv, p, st);
+  return bwd_mma<256>(q, k, v, o, dout, lse, delta, qs, dq, dk, dv, p, st);
 }

@@ -71,11 +71,16 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     return out.transpose(1, 2).to(q.dtype)            # [B,Sq,H,hd]
 
 
-def decode_attention(q, k_cache, v_cache, pos):
+def decode_attention(q, k_cache, v_cache, pos, *,
+                     window: Optional[int] = None, rolling: bool = False):
     """Single-token decode.  q [B,1,H,hd]; caches [B,Smax,KH,hd]; ``pos``
     [B] is each row's absolute position of the new token (already written
-    to the cache): a row attends to cache entries ``idx <= pos``.  An fp8
-    cache is dequantized to bf16 first."""
+    to the cache): a row attends to cache entries ``idx <= pos``, and with
+    a ``window`` only to those with ``idx > pos - window``.  ``rolling``:
+    the cache is a ring (Smax == the window) holding position p at
+    ``p % Smax``, so once a row has written Smax entries (``pos + 1 >=
+    Smax``) every entry is valid.  An fp8 cache is dequantized to bf16
+    first."""
     b, _, h, hd = q.shape
     smax, kh = k_cache.shape[1], k_cache.shape[2]
     if k_cache.dtype not in (torch.float32, torch.bfloat16, torch.float16):
@@ -89,6 +94,10 @@ def decode_attention(q, k_cache, v_cache, pos):
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     idx = torch.arange(smax, device=q.device)
     valid = idx[None, :] <= pos[:, None]                      # [B,Smax]
+    if rolling:
+        valid = valid | (pos[:, None] + 1 >= smax)
+    elif window is not None:
+        valid = valid & (idx[None, :] > pos[:, None] - window)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)

@@ -1,8 +1,10 @@
 """Per-block-type parameter definitions and apply functions for the block
 types the port runs so far: ``attn`` (full-attention decoder block),
-``moe`` (attention + MoE-FFN decoder block), ``rwkv`` (RWKV6 time mix +
-channel mix), ``mamba`` (Mamba2 SSD block) and ``shared_attn`` (zamba2's
-attention block, one weight copy shared by every occurrence).
+``local`` (the same block over a sliding window of ``cfg.window`` keys,
+decoding from a rolling cache of that many rows), ``moe`` (attention +
+MoE-FFN decoder block), ``rwkv`` (RWKV6 time mix + channel mix),
+``mamba`` (Mamba2 SSD block) and ``shared_attn`` (zamba2's attention
+block, one weight copy shared by every occurrence).
 
 Each type defines:
   defs(cfg)                        parameter declaration (ParamDef tree)
@@ -15,7 +17,8 @@ Each type defines:
                                    activations at use)
 Decode updates the cache tensors in place (the reference returns updated
 copies), and only for the rows ``ctx["active"]`` selects: attention writes
-one K/V row per batch row at that row's position; the recurrent blocks
+one K/V row per batch row at that row's position (``local``: at that
+position modulo the ring's length); the recurrent blocks
 overwrite their state rows, which cannot be rewound, so an inactive row
 must keep its state untouched.
 """
@@ -71,18 +74,20 @@ def _project_qkv(cfg, p, x):
     return q, k, v
 
 
-def _self_attention(cfg, p, x, ctx):
+def _self_attention(cfg, p, x, ctx, window=None):
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     q = _rope(cfg, q, ctx["positions"])
     k = _rope(cfg, k, ctx["positions"])
-    out = flash_attention(q, k, v, impl=ctx.get("impl", "auto"))
+    out = flash_attention(q, k, v, window=window,
+                          impl=ctx.get("impl", "auto"))
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
 
 
-def _decode_attention(cfg, p, x, cache, ctx):
+def _decode_attention(cfg, p, x, cache, ctx, window=None, rolling=False):
     """x [B,1,D] (normed); writes this token's K/V into ``cache`` in place
-    and returns the attention output projected back to [B,1,D]."""
+    and returns the attention output projected back to [B,1,D].  A
+    ``rolling`` cache is a ring: row ``pos % Smax``."""
     pos = ctx["pos"]                                     # [B]
     q, k, v = _project_qkv(cfg, p, x)
     positions = pos[:, None]
@@ -92,7 +97,8 @@ def _decode_attention(cfg, p, x, cache, ctx):
     rows = torch.arange(b, device=x.device)
     # an out-of-range index is clamped, as the reference's
     # dynamic_update_slice does; inactive rows keep their cache untouched
-    widx = torch.clamp(pos, max=cache["k"].shape[1] - 1)
+    smax = cache["k"].shape[1]
+    widx = pos % smax if rolling else torch.clamp(pos, max=smax - 1)
     active = ctx.get("active")
     for name, new in (("k", k), ("v", v)):
         c = cache[name]
@@ -100,7 +106,8 @@ def _decode_attention(cfg, p, x, cache, ctx):
         if active is not None:
             new = torch.where(active[:, None, None], new, c[rows, widx])
         c[rows, widx] = new
-    out = attn_lib.decode_attention(q, cache["k"], cache["v"], pos)
+    out = attn_lib.decode_attention(q, cache["k"], cache["v"], pos,
+                                    window=window, rolling=rolling)
     return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
 
 
@@ -119,19 +126,36 @@ def attn_defs(cfg):
             **_attn_defs(cfg), **_mlp_defs(cfg)}
 
 
-def attn_apply(p, x, ctx):
+def attn_apply(p, x, ctx, window=None):
     cfg = ctx["cfg"]
-    h = x + _self_attention(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps), ctx)
+    h = x + _self_attention(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps), ctx,
+                            window)
     return h + swiglu(rms_norm(h, p["ln2"], cfg.norm_eps),
                       p["w_gate"], p["w_up"], p["w_down"])
 
 
-def attn_decode(p, x, cache, ctx):
+def attn_decode(p, x, cache, ctx, window=None, rolling=False):
     cfg = ctx["cfg"]
     h = x + _decode_attention(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps),
-                              cache, ctx)
+                              cache, ctx, window, rolling)
     return h + swiglu(rms_norm(h, p["ln2"], cfg.norm_eps),
                       p["w_gate"], p["w_up"], p["w_down"])
+
+
+# --------------------------------------------------------------------- local
+
+def local_apply(p, x, ctx):
+    return attn_apply(p, x, ctx, window=ctx["cfg"].window)
+
+
+def local_decode(p, x, cache, ctx):
+    # the rolling cache holds min(smax, window) rows (local_cache)
+    return attn_decode(p, x, cache, ctx, window=ctx["cfg"].window,
+                       rolling=True)
+
+
+def local_cache(cfg: ArchConfig, batch: int, smax: int, kv_dtype, device):
+    return attn_cache(cfg, batch, min(smax, cfg.window), kv_dtype, device)
 
 
 # ----------------------------------------------------------------------- moe
@@ -409,6 +433,8 @@ def mamba_decode(p, x, cache, ctx):
 BLOCKS: Dict[str, Dict[str, Any]] = {
     "attn": dict(defs=attn_defs, apply=attn_apply, decode=attn_decode,
                  cache=attn_cache, f32=()),
+    "local": dict(defs=attn_defs, apply=local_apply, decode=local_decode,
+                  cache=local_cache, f32=()),
     "moe": dict(defs=moe_defs, apply=moe_apply, decode=moe_decode,
                 cache=attn_cache, f32=()),
     "rwkv": dict(defs=rwkv_defs, apply=rwkv_apply, decode=rwkv_decode,

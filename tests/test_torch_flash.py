@@ -24,17 +24,21 @@ from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.models import attention as j_attn
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention.flash_attention import MAX_HEAD_DIM
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import attention
 
 # (B, Sq, Sk, H, KH, hd, causal, window, q_offset): causal self-attention
 # with GQA, a sliding window, a ragged decode-like chunk (Sq != Sk, with
-# q_offset), and non-causal cross attention at zamba2's head size
+# q_offset), non-causal cross attention at zamba2's head size, and
+# gemma3-1b's local attention (head dim 256, one KV head of 4, a window)
 CASES = [(2, 37, 37, 4, 2, 64, True, None, 0),
          (1, 40, 40, 2, 2, 112, True, 8, 0),
          (2, 7, 12, 4, 4, 64, True, None, 5),
-         (1, 9, 23, 2, 1, 112, False, None, 0)]
-_IDS = ["causal-gqa", "window", "q_offset", "cross-hd112"]
+         (1, 9, 23, 2, 1, 112, False, None, 0),
+         (1, 40, 40, 4, 1, 256, True, 8, 0)]
+_IDS = ["causal-gqa", "window", "q_offset", "cross-hd112",
+        "window-gqa-hd256"]
 
 _j_chunked = jax.jit(j_attn.chunked_attention,
                      static_argnames=("causal", "window", "q_offset",
@@ -115,6 +119,39 @@ def test_bf16_plain_forward_matches_reference(rng):
                                atol=2 ** -8 * float(np.abs(ref).max()))
 
 
+def test_bf16_plain_backward_matches_jax_grad_with_a_shared_key_component(
+        rng):
+    """bf16 queries, keys and values that share a common component, as a
+    model's do (gemma3-1b's one KV head): the port's plain backward, whose
+    rounded P takes P's gradient through a plain cast as the reference's
+    does, against ``jax.grad`` of the reference's bf16 chunked attention.
+    The reference rounds its cotangents to bf16 where the port keeps them
+    in f32 (each is about 1e-2 and 5e-3 from the f64 gradients), so the
+    bound is 2e-2 relative L2 per gradient."""
+    s, h, hd, window = 256, 4, 64, 32
+    common = 2.0 * rng.standard_normal(hd)
+    q, k, v = ((rng.standard_normal((1, s, n, hd)) + common)
+               .astype(np.float32) for n in (h, 1, 1))
+    do = rng.standard_normal((1, s, h, hd)).astype(np.float32)
+    j_do = jnp.asarray(do).astype(jnp.bfloat16)
+
+    def j_grads(q, k, v):
+        _, vjp = jax.vjp(lambda *x: j_attn.chunked_attention(
+            *x, window=window), q, k, v)
+        return vjp(j_do)
+
+    ref = jax.jit(j_grads)(*(jnp.asarray(x).astype(jnp.bfloat16)
+                             for x in (q, k, v)))
+    ts = [torch.from_numpy(x).bfloat16().requires_grad_(True)
+          for x in (q, k, v)]
+    got = torch.autograd.grad(fops.flash_attention(*ts, window=window), ts,
+                              torch.from_numpy(do).bfloat16())
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        r = np.asarray(r.astype(jnp.float32), dtype=np.float64)
+        err = np.linalg.norm(a.double().numpy() - r) / np.linalg.norm(r)
+        assert err < 2e-2, (name, err)
+
+
 def test_plain_version_counts_no_launches(rng):
     q, k, v = map(torch.from_numpy, _inputs(rng, 1, 8, 8, 2, 2, 16))
     reset_launches()
@@ -137,9 +174,11 @@ def cuda():
     return torch.device("cuda")
 
 
-# lengths on and off the kernels' 64-row tiles (1, 63, 65, 1000), the three
-# head dims of the bf16 kernels (64, 112 and 128), windows, a one-row
-# decode-like chunk at a q_offset, and cross attention
+# lengths on and off the kernels' 64-row tiles (1, 63, 65, 1000), the four
+# head dims of the bf16 kernels (64, 112, 128 and 256, and 136 padded up to
+# 256), windows, a one-row decode-like chunk at a q_offset, and cross
+# attention; at hd 256, gemma3-1b's local attention (window 1024 over 1100
+# rows, one KV head of 4), a ragged length and a decode row
 GPU_CASES = [(2, 200, 200, 4, 4, 64, True, None, 0),
              (1, 1000, 1000, 2, 2, 112, True, None, 0),
              (2, 130, 130, 2, 1, 128, True, 48, 0),
@@ -150,10 +189,16 @@ GPU_CASES = [(2, 200, 200, 4, 4, 64, True, None, 0),
              (2, 65, 65, 4, 2, 112, True, None, 0),
              (2, 1, 300, 2, 2, 112, True, None, 299),
              (1, 1000, 1000, 2, 1, 64, True, 100, 0),
-             (1, 63, 1000, 2, 2, 128, False, None, 0)]
+             (1, 63, 1000, 2, 2, 128, False, None, 0),
+             (1, 1100, 1100, 4, 1, 256, True, 1024, 0),
+             (2, 130, 130, 4, 1, 256, True, None, 0),
+             (2, 1, 300, 4, 4, 256, True, None, 299),
+             (1, 65, 65, 2, 2, 136, True, None, 0)]
 _GPU_IDS = ["causal", "ragged-1000-hd112", "window-gqa-hd128", "q_offset",
             "cross", "len1-cross", "len63-hd128", "len65-gqa-hd112",
-            "decode-row-q_offset", "window-1000-gqa", "cross-63x1000-hd128"]
+            "decode-row-q_offset", "window-1000-gqa", "cross-63x1000-hd128",
+            "window-1024-gqa-hd256", "ragged-130-gqa-hd256",
+            "decode-row-q_offset-hd256", "len65-hd136"]
 
 
 def _oracle(q, k, v, g, mask):
@@ -177,6 +222,14 @@ def test_cuda_flash_matches_oracle(cuda, rng, dtype, case):
                for x in _inputs(rng, b, sq, sk, h, kh, hd))
     g = torch.from_numpy(rng.standard_normal((b, sq, h, hd))
                          .astype(np.float32)).to(cuda, dtype)
+    if hd > MAX_HEAD_DIM[dtype]:
+        # the f32 kernels stop at hd 128: the wrapper raises, launches
+        # nothing and takes no plain version in their place
+        reset_launches()
+        with pytest.raises(ValueError, match="hd <= 128"):
+            fops.flash_attention(q, k, v, impl="cuda", **mask)
+        assert LAUNCHES["flash_fwd"] == 0
+        return
     ref, ref_grads = _oracle(q, k, v, g, mask)
     tol = (1e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
     for impl in ("cuda", "torch"):
@@ -221,5 +274,19 @@ def test_cuda_bf16_refuses_head_dims_off_8(cuda, rng, hd):
                for x in _inputs(rng, 1, 16, 16, 2, 2, hd))
     reset_launches()
     with pytest.raises(ValueError, match="hd % 8"):
+        fops.flash_attention(q, k, v)
+    assert LAUNCHES["flash_fwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 264),
+                                      (torch.float32, 136)])
+def test_cuda_refuses_head_dims_past_each_route(cuda, rng, dtype, hd):
+    """bf16 runs up to hd 256 and f32 up to 128: past them the wrapper
+    raises before any launch and never falls back."""
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype)
+               for x in _inputs(rng, 1, 16, 16, 2, 2, hd))
+    reset_launches()
+    with pytest.raises(ValueError, match=f"hd <= {MAX_HEAD_DIM[dtype]}"):
         fops.flash_attention(q, k, v)
     assert LAUNCHES["flash_fwd"] == 0

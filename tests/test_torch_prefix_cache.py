@@ -10,8 +10,8 @@ use of them at smoke size.
   and ``stats()`` after every call equal exactly.
 * In the port's engine: shared-prefix requests seed their slots, and their
   outputs equal both ``generate_static`` and a prefix-off engine, for the
-  MoE family and the recurrent ones (``gemma3-1b``'s rolling ``local``
-  blocks, which the reference's own seeding test runs, are not ported); an
+  MoE family, the recurrent ones and ``gemma3-1b`` (a snapshot copies
+  whole rolling ``local`` rings, and the prompts wrap them); an
   exact repeat is answered without a slot or a tick; sampled requests never
   seed or store; the cache toggles hot; a ``params_version`` bump keys the
   result cache and flushes the snapshots.
@@ -30,7 +30,8 @@ from repro_torch.engine import prefix_cache as t_pc
 from repro_torch.models import lm
 from repro_torch.runtime.serve import BatchedServer
 
-ARCHS = ["paper-moe-100m-smoke", "rwkv6-1.6b-smoke", "zamba2-7b-smoke"]
+ARCHS = ["paper-moe-100m-smoke", "rwkv6-1.6b-smoke", "zamba2-7b-smoke",
+         "gemma3-1b-smoke"]
 MAX_LEN = 64
 
 

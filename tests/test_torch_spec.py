@@ -15,8 +15,10 @@ the port's own plain decode.
 * Inside the port, greedy output under a forced ``spec:ngram`` arm, and a
   forced ``spec:draft`` arm with the truncated self-draft and with the
   target as its own draft, equals ``generate_static`` token for token for
-  the MoE family and the recurrent ones (their rows must freeze at a
-  rejected step); the target as its own draft accepts every proposal.
+  the MoE family, the recurrent ones (their rows must freeze at a
+  rejected step) and ``gemma3-1b`` (a rejected step writes no row of its
+  rolling ``local`` rings; its self-draft is one ``local`` block); the
+  target as its own draft accepts every proposal.
 * On the card (``cuda`` marker), the graphed speculative tick gives the
   eager tick's tokens, counts, positions and pool state bit for bit.
 """
@@ -40,7 +42,7 @@ from repro_torch.models import bridge, lm
 from repro_torch.runtime.serve import BatchedServer, serving_params
 
 ARCH = "paper-moe-100m-smoke"
-ARCHS = [ARCH, "rwkv6-1.6b-smoke", "zamba2-7b-smoke"]
+ARCHS = [ARCH, "rwkv6-1.6b-smoke", "zamba2-7b-smoke", "gemma3-1b-smoke"]
 MAX_LEN = 48
 
 
