@@ -46,7 +46,31 @@
    weights mid-stream with ``update(params=..., params_version=1)``: no
    request drops, later requests equal a fresh engine on the new weights
    through a graph captured again, and no version-0 answer or snapshot
-   serves;
+   serves; these and the phases before run every tick at its pool's full
+   height (``compact_decode=False``);
+   ``[pools]``: 2 pools x 4 slots and a two-class table (interactive
+   weight 4, aging bound 2; batch weight 1, bound 6; batch only on pool
+   1), driven by ``loadgen.drive`` through ``BatchedServer.submit`` over
+   the reference's ``priority_starvation`` and ``steady_poisson``
+   scenarios (prompts scaled to 16-128 tokens): per class TTFT median and
+   largest in virtual ticks and seconds, generated tok/s and
+   ``max_deferred``, which must stay within its class's bound; every
+   output equal to ``generate_static`` on 4 copies of its prompt; every
+   MoE launch one that a replay of a pool's graph made (counts set to 0
+   just before each drive and read just after); per pool its graphs'
+   captures and replays; the device's busy share under a CUDA-only trace;
+   ``[compact]``: 8 slots, 2 requests decoding, forced full, forced
+   compact (2-row ticks) and unforced, launch counts held the same way,
+   each layout's per-token tick EMA and ``Engine.choose_compact``'s
+   choice; the full run equal to ``generate_static``, a compact run equal
+   to it except from a token where the static loop's top-2 margin is
+   within the logit difference measured between the heights (cuBLAS
+   rounds rows by the product's height); then 4 requests ending at
+   different times (compact ticks of 4, 2 and 1 rows) held the same way;
+   ``[autotune]``: the ``[pools]`` scenarios with ``autotune=True``, the
+   knob moves and where they ended, outputs equal to ``generate_static``;
+   the MoE kernels also on inputs at compact heights 1 and 2 and on pool
+   1's rows, against their plain versions;
 6. ``[train]``: trains ``paper-moe-100m`` at full width with ``TrainLoop``
    (fused gating and dispatch, ``MoEReshaper`` closing the Reshape loop,
    a skewed ``TokenStream``, global batch 8 x 1024 in 2 microbatches):
@@ -422,6 +446,18 @@ def check_kernels(torch, seen, launches):
     return rows, shapes
 
 
+def log_kernel_rows(rows, shapes) -> None:
+    """One line a kernel row; ``shapes`` by row name, or by kernel name for
+    a row named ``kernel@path``."""
+    for r in rows:
+        shape = shapes.get(r["name"]) or shapes[r["name"].split("@")[0]]
+        log(f"[kernel] {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.4f} "
+            f"us by {r['bound_by']}), integer outputs equal, max |err| "
+            f"{r['max_abs_err']}, shapes and tolerance {shape}; launches on "
+            f"its path {r['launches']}")
+
+
 def scan_rwkv6(torch, args):
     """The RWKV6 scan on one captured call's inputs: (kernel call, plain
     call, bytes moved, (operations, their peak rate), shapes).  bf16 runs
@@ -617,8 +653,14 @@ def ssm_phase(torch, dev, ph, fails) -> tuple:
         del logits
         # the same forward again under a CUDA-only trace: device time by
         # kernel, and the busy share of the untraced forward's wall
+        def whole(table):
+            return all(sum(v[0] for k, v in table.items()
+                           if f"{name}_" in k and kern in k) == want
+                       for kern in SCAN_KERNELS[name])
+
         wall_t, busy_us, by_name = device_trace(
-            torch, lambda: lm.forward(params, {"tokens": toks}, cfg))
+            torch, lambda: lm.forward(params, {"tokens": toks}, cfg),
+            whole=whole)
         busy = busy_us / 1e6 / wall
         log(f"[{tag}] forward again under a CUDA-only trace (traced wall "
             f"{wall_t:.4f} s): device busy {busy_us:.0f} us; over the "
@@ -648,7 +690,8 @@ def ssm_phase(torch, dev, ph, fails) -> tuple:
     # serving through the engine, and engine == static
     max_len = max(SSM_PROMPT_LENS) + SSM_NEW + 16
     srv = BatchedServer(cfg, params, max_len=max_len, slots=4,
-                        prefill_chunk=16, decode_chunk=4, device=dev)
+                        prefill_chunk=16, decode_chunk=4,
+                        compact_decode=False, device=dev)
     del params
     prompts = [rng.integers(1, cfg.vocab, (n,)).astype(np.int32)
                for n in SSM_PROMPT_LENS]
@@ -784,13 +827,21 @@ def _free(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def device_trace(torch, fn, gaps=None):
+# traces of one repeatable call taken at most, when one lost records
+TRACE_TRIES = 3
+
+
+def device_trace(torch, fn, gaps=None, whole=None):
     """Run ``fn()`` under a CUDA-only ``torch.profiler`` trace (no CPU
     activity, so the host's op dispatch is not traced).  Returns the traced
     call's wall seconds, the device time summed over the trace in µs (one
     stream, so no overlap) and ``{kernel name: [launches, µs]}``.  A list
     ``gaps`` receives the device's idle gaps in µs, between the first
-    traced activity and the last."""
+    traced activity and the last.  ``whole``, a predicate on that table,
+    says whether the trace holds every launch the kernel wrappers counted:
+    CUPTI may drop activity records, so a trace that fails it is taken
+    again (``fn`` must be repeatable), up to TRACE_TRIES traces, each
+    retry logged; the caller checks the last."""
     from torch.profiler import ProfilerActivity, profile
 
     def settle():
@@ -800,21 +851,28 @@ def device_trace(torch, fn, gaps=None):
         torch.cuda.synchronize()
         time.sleep(0.05)
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        settle()
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, TRACE_TRIES + 1):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        settle()
-    by_name, spans = {}, []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n = by_name.setdefault(e.name, [0, 0.0])
-            n[0] += 1
-            n[1] += e.time_range.elapsed_us()
-            spans.append((e.time_range.start, e.time_range.end))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            settle()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            settle()
+        # the profiler's raw records: building its FunctionEvents from a
+        # serve trace's hundreds of thousands of records takes the host
+        # tens of seconds
+        by_name, spans = {}, []
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                n = by_name.setdefault(e.name(), [0, 0.0])
+                n[0] += 1
+                n[1] += e.duration_ns() / 1e3
+                spans.append((e.start_ns() / 1e3, e.end_ns() / 1e3))
+        if whole is None or whole(by_name) or attempt == TRACE_TRIES:
+            break
+        log(f"[trace] trace {attempt} lost launch records; tracing again")
     if gaps is not None:
         spans.sort()
         end = spans[0][1] if spans else 0
@@ -969,7 +1027,8 @@ def moe_phase(torch, dev, fails) -> list:
         f"slots, top-{cfg.moe.top_k}, vocab {cfg.vocab}, {n_params} params")
     max_len = max(PROMPT_LENS) + MAX_NEW + 32
     srv = BatchedServer(cfg, params, max_len=max_len, slots=len(PROMPT_LENS),
-                        prefill_chunk=16, decode_chunk=4, device=dev)
+                        prefill_chunk=16, decode_chunk=4,
+                        compact_decode=False, device=dev)
     del params
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, cfg.vocab, (n,)).astype(np.int32)
@@ -1068,15 +1127,12 @@ def moe_phase(torch, dev, fails) -> list:
     rows.append(gating_row(torch, wide, 8, 0, "moe_gating@e128"))
     shapes["moe_gating@e128"] = {"logits": list(wide.shape), "k": 8,
                                  "tol": 1e-6}
-    for r in rows:
-        log(f"[kernel] {r['name']}: {r['ms'] * 1e3:.2f} us (plain "
-            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.4f} "
-            f"us by {r['bound_by']}), integer outputs equal, max |err| "
-            f"{r['max_abs_err']}, shapes and tolerance {shapes[r['name']]}")
+    log_kernel_rows(rows, shapes)
 
     # greedy ServeEngine == generate_static on a drop-free batch
     srv4 = BatchedServer(cfg, srv.params, max_len=max_len, slots=4,
-                         prefill_chunk=16, decode_chunk=4, device=dev)
+                         prefill_chunk=16, decode_chunk=4,
+                         compact_decode=False, device=dev)
     batch = rng.integers(1, cfg.vocab, (4, 64)).astype(np.int32)
     t0 = time.perf_counter()
     ref = srv4.generate_static(batch, MAX_NEW)
@@ -1125,32 +1181,41 @@ def force_arm(eng, arm) -> None:
     eng.engine.choose_serve_tick = forced
 
 
-def graph_launches(graphs, since) -> dict:
+def graph_launches(graphs, since, keep=None) -> dict:
     """The kernel launches that the replays of ``graphs`` ({name:
-    GraphedStep}) credited since ``since`` ({name: replays})."""
+    GraphedStep}) credited since ``since`` ({name: replays}); with
+    ``keep``, only those of the graphs whose name it accepts."""
     from repro_torch.kernels import LAUNCHES
     want = dict.fromkeys(LAUNCHES, 0)
     for name, g in graphs.items():
+        if keep is not None and not keep(name):
+            continue
         for k, n in g.per_replay.items():
             want[k] += (g.replays - since.get(name, 0)) * n
     return want
 
 
 def serve_engine(cfg, params, dev, **kw):
+    """An 8-slot engine of the serve phases.  The phases before [compact]
+    run every tick at the pool's full height (``compact_decode=False``):
+    [compact] measures how a compact tick rounds."""
     from repro_torch.engine import ServeEngine
+    kw.setdefault("compact_decode", False)
     return ServeEngine(cfg, params, max_len=SERVE_MAX_LEN,
                        slots=SERVE_SLOTS, prefill_chunk=16, decode_chunk=4,
                        device=dev, **kw)
 
 
 def timed_generate(torch, eng, prompts, max_new):
-    """Serve ``prompts`` with the launch counts set to 0 just before and
-    read just after: (requests, wall seconds, launches)."""
+    """Serve ``prompts`` (``max_new`` new tokens each, or a list of one
+    count a prompt) with the launch counts set to 0 just before and read
+    just after: (requests, wall seconds, launches)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
+    news = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new) for p in prompts]
+    reqs = [eng.submit(p, n) for p, n in zip(prompts, news)]
     eng.run_until_done()
     torch.cuda.synchronize()
     return reqs, time.perf_counter() - t0, dict(LAUNCHES)
@@ -1387,8 +1452,573 @@ def publish_phase(torch, dev, cfg, srv, fails) -> None:
     _free(torch)
 
 
-def serve_features_phase(torch, dev, fails) -> None:
-    """[spec], [prefix] and [publish] on one full-width model."""
+# [pools], [compact], [autotune]: several slot pools arbitrated across
+# priority classes, compact decode and the knob autotuner, on paper-moe-100m
+# at full width (the [serve] model, random weights from SEED)
+POOLS, POOL_SLOTS = 2, 4
+# the reference gauntlet's two-class table for priority_starvation
+# (benchmarks/gauntlet.py _STARVE_CLASSES), copied: (name, weight,
+# max_defer)
+STARVE_CLASSES = (("interactive", 4.0, 2), ("batch", 1.0, 6))
+# batch traffic only on pool 1; interactive may join either pool
+POOL_ROUTES = {"batch": (1,)}
+POOL_SCENARIOS = ("priority_starvation", "steady_poisson")
+MOE_KERNELS = ("moe_gating", "moe_dispatch", "moe_combine")
+# [compact]: 2 requests decode on the 8 slots
+COMPACT_LEN, COMPACT_NEW = 64, 64
+
+
+def pool_cfg(cfg):
+    from repro_torch.configs.base import PriorityClass
+    return dataclasses.replace(cfg, serve=dataclasses.replace(
+        cfg.serve, classes=tuple(PriorityClass(n, w, d)
+                                 for n, w, d in STARVE_CLASSES)))
+
+
+def scenario_stream(name, cfg):
+    """The reference scenario's request stream from SEED, its prompt
+    lengths scaled to the [serve] prompts' 16-128 tokens and its tokens to
+    the model's vocabulary (arrivals, response budgets and the class mix
+    as the scenario has them)."""
+    from repro_torch.engine import loadgen as lg
+    spec = dataclasses.replace(
+        lg.SCENARIOS[name], vocab=cfg.vocab,
+        plen_params=(("lo", min(PROMPT_LENS)), ("hi", max(PROMPT_LENS))))
+    return spec, lg.generate(spec, SEED)
+
+
+class StaticOracle:
+    """generate_static on 4 copies of a prompt (a pool's 4 rows: cuBLAS
+    rounds by rows), memoized; ``seconds`` sums its wall.  ``margins``
+    runs the same loop keeping each step's top-2 logit margin, for a
+    request that parts from it."""
+
+    def __init__(self, torch, srv):
+        self.torch, self.srv, self.memo, self.seconds = torch, srv, {}, 0.0
+
+    def __call__(self, prompt, max_new):
+        key = (tuple(int(t) for t in prompt), int(max_new))
+        if key not in self.memo:
+            t0 = time.perf_counter()
+            batch = np.repeat(np.asarray(prompt, np.int32)[None], 4, 0)
+            self.memo[key] = self.srv.generate_static(batch, max_new)[0]
+            self.seconds += time.perf_counter() - t0
+        return self.memo[key]
+
+    def margins(self, prompt, max_new):
+        """``[max_new]`` top-2 margins of the static loop on the prompt."""
+        return static_margins(self.torch, self.srv,
+                              [np.asarray(prompt, np.int32)] * 4,
+                              max_new)[1][0]
+
+
+def pool_server(cfg, srv, dev, **kw):
+    """2 pools x 4 slots of the two-class table, every tick at its pool's
+    full height unless ``compact_decode`` says otherwise."""
+    from repro_torch.runtime.serve import BatchedServer
+    kw.setdefault("compact_decode", False)
+    return BatchedServer(pool_cfg(cfg), srv.params, max_len=SERVE_MAX_LEN,
+                         slots=POOL_SLOTS, pools=POOLS,
+                         class_pools=POOL_ROUTES, device=dev, **kw)
+
+
+def warm_pools(torch, eng, cfg, rng) -> list:
+    """One request pinned to each pool in turn: each pool's first tick
+    captures its graph.  Returns each pool's (seconds, MiB reserved) of
+    that first serve."""
+    out = []
+    for lid in range(len(eng.pools)):
+        torch.cuda.synchronize()
+        r0, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+        eng.submit(rng.integers(1, cfg.vocab, 16).astype(np.int32), 4,
+                   pool=lid)
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0,
+                    (torch.cuda.memory_reserved() - r0) / 2 ** 20))
+    return out
+
+
+def drive_scenario(torch, psrv, name, cfg):
+    """``loadgen.drive`` of the scenario through ``BatchedServer.submit``
+    (a request of the scenario's single default class is served as the
+    table's first class).  Returns (spec, drive result, wall seconds)."""
+    from repro_torch.engine import loadgen as lg
+    spec, gen = scenario_stream(name, cfg)
+    eng = psrv.engine()
+
+    def submit(prompt, max_new, temperature, priority):
+        return psrv.submit(prompt, max_new, temperature,
+                           priority=priority if priority in eng.classes
+                           else None)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = lg.drive(eng, gen, max_ticks=20_000, submit=submit)
+    torch.cuda.synchronize()
+    return spec, res, time.perf_counter() - t0
+
+
+def class_report(tag, name, spec, res, wall, oracle, fails,
+                 allow=None) -> list:
+    """Per class: TTFT median and largest in virtual ticks and in seconds,
+    generated tok/s, max_deferred against the class's bound; the
+    scenario's SLO grade; greedy outputs equal to the static oracle's, or
+    with ``allow`` (a run whose ticks may be compact) equal except from a
+    token where the oracle's top-2 margin is within ``allow``.  Returns
+    those partings' (request, token, margin)."""
+    from repro_torch.core.scheduler import grade_slo
+    from repro_torch.engine import loadgen as lg
+    bound = {n: d for n, _, d in STARVE_CLASSES}
+    by = {}
+    for tr in res.traces:
+        by.setdefault(tr.req.priority, []).append(tr)
+    for cls, trs in sorted(by.items()):
+        ticks = [tr.ttft for tr in trs]
+        secs = [tr.req.t_first - tr.req.t_submit for tr in trs]
+        toks = sum(len(tr.req.output()) for tr in trs)
+        md = max(tr.req.max_deferred for tr in trs)
+        log(f"[{tag}] {name} {cls}: {len(trs)} requests, TTFT median "
+            f"{np.median(ticks)} and largest {max(ticks)} ticks, median "
+            f"{np.median(secs):.6f} and largest {max(secs):.6f} s; "
+            f"{toks / wall:.1f} generated tok/s; max_deferred {md} (bound "
+            f"{bound[cls]})")
+        if md > bound[cls]:
+            fails.append(f"{tag} {name}: class {cls} deferred {md} ticks, "
+                         f"over its bound {bound[cls]}")
+    m = lg.summarize(res)
+    ok, detail = grade_slo(m, list(spec.slos))
+    log(f"[{tag}] {name}: {len(res.traces)} requests, {res.ticks} virtual "
+        f"ticks ({res.idle_skipped} fast-forwarded), {wall:.4f} s, "
+        f"{res.tokens_out / wall:.1f} generated tok/s; dropped "
+        f"{m['dropped']}; the scenario's SLOs (smoke-scale tripwires) "
+        f"{'pass' if ok else 'fail'} {detail}")
+    bad, near = [], []
+    for tr in res.traces:
+        want = oracle(tr.gen.prompt, tr.gen.max_new)
+        out = tr.req.output()
+        if np.array_equal(out, want):
+            continue
+        if allow is None or len(out) != len(want):
+            bad.append(tr.req.rid)
+            continue
+        margins = oracle.margins(tr.gen.prompt, tr.gen.max_new)
+        near += [(tr.req.rid,) + x[1:] for x in near_tie_check(
+            f"{tag} {name}, request {tr.req.rid}", out[None], want[None],
+            margins[None], allow, fails)]
+    if allow is not None:
+        log(f"[{tag}] {name}: (request, token, static top-2 margin) where a "
+            f"request parts from generate_static at a near-tie within "
+            f"{allow}: {near}")
+    if bad or m["dropped"]:
+        fails.append(f"{tag} {name}: requests {bad[:5]} differ from "
+                     f"generate_static, {m['dropped']} dropped")
+    return near
+
+
+def pool_graphs(eng, since) -> dict:
+    """Per pool: its graphs' captures and replays since ``since``."""
+    out = {}
+    for (lid, n, rows), g in eng._tick.graphs.items():
+        p = out.setdefault(f"pool {lid}", {"graphs": [], "replays": 0})
+        p["graphs"].append(f"{n}@{rows}")
+        p["replays"] += g.replays - since.get((lid, n, rows), 0)
+    return out
+
+
+def step_inputs(torch, cfg, params, dev, rng, pool):
+    """The MoE kernels' inputs of the tick's decode step over ``pool`` (its
+    rows all active): four eager runs, the last call of each kept."""
+    from repro_torch.engine.serve import build_decode_step
+    step = build_decode_step(cfg, dev)
+    active = torch.ones(pool.slots, dtype=torch.bool, device=dev)
+
+    @torch.no_grad()
+    def run():
+        for _ in range(4):
+            tok = torch.as_tensor(rng.integers(1, cfg.vocab, pool.slots),
+                                  device=dev)
+            step(params, None, pool, tok, active)
+    return capture_kernel_inputs(torch, run)[1]
+
+
+def suffixed(rows, tag) -> list:
+    for r in rows:
+        r["name"] = f"{r['name']}@{tag}"
+    return rows
+
+
+def pools_phase(torch, dev, cfg, srv, oracle, fails) -> list:
+    """2 pools x 4 slots and the two-class table (batch traffic on pool 1
+    only), driven by loadgen over priority_starvation and steady_poisson:
+    per class TTFT, tok/s and max_deferred within its bound, greedy ==
+    generate_static, every launch one that a replay of a pool's graph made
+    (counts set to 0 just before each drive and read just after), then the
+    device's busy share under a CUDA-only trace, and the MoE kernels on
+    pool 1's rows against their plain versions.  Returns their JSON rows."""
+    from repro_torch.engine.serve import SlotPool
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    rng = np.random.default_rng(SEED + 4)
+    psrv = pool_server(cfg, srv, dev)
+    eng = psrv.engine()
+    warm = warm_pools(torch, eng, cfg, rng)
+    caps0 = eng._tick.captures
+    log(f"[pools] {POOLS} pools x {POOL_SLOTS} slots, classes "
+        f"{STARVE_CLASSES} (name, weight, max_defer), routes {POOL_ROUTES}; "
+        f"each pool's first serve (its graph's capture in it): "
+        + "; ".join(f"pool {i} {s:.4f} s, {mib:.1f} MiB reserved"
+                    for i, (s, mib) in enumerate(warm)))
+    # each pool's launches: its own graphs' replays x per-replay counts
+    per_pool = [dict.fromkeys(LAUNCHES, 0) for _ in range(POOLS)]
+    walls = {}
+    for name in POOL_SCENARIOS:
+        since = {k: g.replays for k, g in eng._tick.graphs.items()}
+        reset_launches()
+        spec, res, wall = drive_scenario(torch, psrv, name, cfg)
+        launches = dict(LAUNCHES)
+        want = graph_launches(eng._tick.graphs, since)
+        mine = [graph_launches(eng._tick.graphs, since,
+                               lambda key, lid=lid: key[0] == lid)
+                for lid in range(POOLS)]
+        class_report("pools", name, spec, res, wall, oracle, fails)
+        log(f"[pools] {name}: per pool {pool_graphs(eng, since)}; launches "
+            f"{_nonzero(launches)} (replays x per replay: "
+            f"{'equal' if launches == want else want}); of them by pool "
+            + "; ".join(f"{lid}: {_nonzero(m)}" for lid, m in enumerate(mine)))
+        if launches != want or eng._tick.captures != caps0:
+            fails.append(f"pools {name}: launches {launches} are not the "
+                         f"replays' {want}, or a graph was captured")
+        for lid, m in enumerate(mine):
+            for k, n in m.items():
+                per_pool[lid][k] += n
+        walls[name] = wall
+    for lid, m in enumerate(per_pool):
+        if not all(m[k] for k in MOE_KERNELS):
+            fails.append(f"pools: pool {lid}'s graphs launched "
+                         f"{_nonzero(m)}, not every MoE kernel")
+    log(f"[pools] the static oracle: {len(oracle.memo)} prompts, "
+        f"{oracle.seconds:.1f} s (eager, one step a token)")
+    # the first scenario's work once more under a CUDA-only trace
+    ticks0 = eng.tick_no
+    wall_t, busy_us, _ = device_trace(
+        torch, lambda: drive_scenario(torch, psrv, POOL_SCENARIOS[0], cfg))
+    untraced = walls[POOL_SCENARIOS[0]]
+    busy = busy_us / 1e6 / untraced
+    log(f"[profile] pools: {POOL_SCENARIOS[0]} again under a CUDA-only "
+        f"trace ({eng.tick_no - ticks0} ticks, traced wall {wall_t:.4f} s): "
+        f"device busy {busy_us:.0f} us; over the untraced drive's wall "
+        f"{untraced:.4f} s: busy {busy:.4f}, idle {1 - busy:.4f}")
+    # the MoE kernels on pool 1's rows (a copy of its state, all rows on)
+    copy = SlotPool(cfg, POOL_SLOTS, SERVE_MAX_LEN, dev)
+    eng.pools[1].gather_into(copy, torch.arange(POOL_SLOTS, device=dev))
+    rows, shapes = check_kernels(
+        torch, step_inputs(torch, cfg, psrv.params, dev, rng, copy),
+        per_pool[1])
+    log_kernel_rows(suffixed(rows, "pool1"), shapes)
+    del eng, psrv, copy
+    _free(torch)
+    return rows
+
+
+LAYOUT = {False: "full", True: "compact", None: "unforced"}
+
+
+def static_margins(torch, srv, prompts, max_new):
+    """generate_static's greedy loop on ``prompts`` (equal lengths) as one
+    batch, keeping each step's top-2 logit margin: (tokens, margins), each
+    ``[B, max_new]``."""
+    from repro_torch.models import lm
+    state = lm.init_cache(srv.cfg, len(prompts), srv.max_len,
+                          device=srv.device)
+    toks = torch.as_tensor(np.stack(prompts), dtype=torch.long,
+                           device=srv.device)
+    out, margins = [], []
+    with torch.no_grad():
+        for i in range(toks.shape[1]):
+            logits, state = srv._step(srv.params, state, toks[:, i:i + 1])
+        for _ in range(max_new):
+            top2 = torch.topk(logits.float(), 2, dim=-1).values
+            margins.append(top2[:, 0] - top2[:, 1])
+            tok = torch.argmax(logits, dim=-1)
+            out.append(tok)
+            logits, state = srv._step(srv.params, state, tok[:, None])
+    return (torch.stack(out, 1).cpu().numpy().astype(np.int32),
+            torch.stack(margins, 1).cpu().numpy())
+
+
+def height_drift(torch, cfg, params, dev, prompts, ref) -> dict:
+    """The rounding a compact tick adds, measured apart from the served
+    runs: ``prompts`` (4 of COMPACT_LEN tokens) fed one step a token to
+    rows 0-3 of an 8-row pool (rows 4-7 idle, as in a tick), then for each
+    height h of 1, 2 and 4 the eager decode step over a copy of the 8 rows
+    and over a buffer set of h rows gathered from them, both fed the
+    static loop's greedy tokens ``ref`` [4, n] (the requests' own
+    trajectory, as the runs follow it until they part).  Returns {h: the
+    largest logit difference over rows 0..h-1 and the n - 1 steps}."""
+    from repro_torch.engine.serve import SlotPool, build_decode_step
+    step = build_decode_step(cfg, dev)
+    n = len(prompts)
+    every = torch.arange(SERVE_SLOTS, device=dev)
+    on = every < n
+
+    def toks(col):
+        t = torch.zeros(SERVE_SLOTS, dtype=torch.long, device=dev)
+        t[:n] = torch.as_tensor(np.asarray(col), device=dev)
+        return t
+
+    base = SlotPool(cfg, SERVE_SLOTS, SERVE_MAX_LEN, dev)
+    drift = {}
+    with torch.no_grad():
+        for i in range(COMPACT_LEN):
+            step(params, None, base, toks([p[i] for p in prompts]), on)
+        for h in (1, 2, 4):
+            full = SlotPool(cfg, SERVE_SLOTS, SERVE_MAX_LEN, dev)
+            base.gather_into(full, every)
+            sub = base.compact_rows(h)
+            base.gather_into(sub, every[:h])
+            d = torch.zeros((), device=dev)
+            for t in range(ref.shape[1] - 1):
+                tok = toks(ref[:, t])
+                a, _ = step(params, None, full, tok, on)
+                b, _ = step(params, None, sub, tok[:h], on[:h])
+                d = torch.maximum(d, (a[:h].float() - b.float()).abs().max())
+            drift[h] = d.item()
+    return drift
+
+
+def near_tie_check(tag, out, ref, margins, diff, fails) -> list:
+    """Tokens ``out`` equal ``ref`` row by row, except from a row's first
+    difference where the reference's top-2 margin is within ``diff`` (the
+    row is compared no further).  Returns those rows' (row, token,
+    margin)."""
+    near = []
+    for r in range(ref.shape[0]):
+        bad = np.flatnonzero(out[r] != ref[r])
+        if not bad.size:
+            continue
+        m = float(margins[r, bad[0]])
+        if m <= diff:
+            near.append((r, int(bad[0]), m))
+        else:
+            fails.append(f"{tag}: row {r} differs at token {bad[0]}, "
+                         f"margin {m} > {diff}")
+    return near
+
+
+def compact_phase(torch, dev, cfg, srv, fails):
+    """8 slots.  First the rounding a compact tick adds, measured apart
+    from the served runs (``height_drift``): the allowance of every
+    near-tie below.  Then 2 requests decoding: forced full, forced compact
+    (ticks of 2 rows) and left to Engine.choose_compact, each after a
+    warm-up that captures its graphs, launch counts set to 0 just before
+    and read just after each run; the per-token tick EMAs of each layout;
+    the served runs' largest logit difference until a row's argmax parts,
+    beside the allowance.  Then 4 requests of 64, 48, 32 and 16 new tokens,
+    forced full and forced compact (ticks of 4, 2 and 1 rows), each served
+    twice on one engine and read the second time: its launches equal the
+    replays of each height's graph times its per-replay counts, and each
+    compact height's graph launched every MoE kernel.  The full runs equal
+    generate_static; a compact run equals its full run, except from a
+    token where the static loop's top-2 margin is within the allowance
+    (cuBLAS may round a few rows unlike 8).  Then the MoE kernels at
+    compact heights 1 and 2 against their plain versions, with the
+    launches of those heights' graphs.  Returns (their JSON rows, the
+    allowance: the largest drift of any height)."""
+    from collections import Counter
+
+    from repro_torch.engine.jobs import layout_kind
+    from repro_torch.engine.serve import SlotPool
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(1, cfg.vocab, COMPACT_LEN).astype(np.int32)
+               for _ in range(4)]
+    ref, margins = static_margins(torch, srv, prompts, COMPACT_NEW)
+    drift = height_drift(torch, cfg, srv.params, dev, prompts, ref)
+    allow = max(drift.values())
+    log(f"[compact] the eager decode step over 1, 2 or 4 of 8 rows against "
+        f"the 8-row step, both fed the static loop's tokens after one "
+        f"prefill of the 4 prompts: largest logit difference over "
+        f"{COMPACT_NEW - 1} steps {drift} (the near-tie allowance: height "
+        f"2's for the 2-request runs, the largest, {allow}, elsewhere)")
+    runs = {}
+    for mode in (False, True, None):
+        eng = serve_engine(cfg, srv.params, dev, compact_decode=mode)
+        eng.generate([p[:16] for p in prompts[:2]], 8)   # captures graphs
+        graphs = dict(eng._tick.graphs)
+        since = {k: g.replays for k, g in graphs.items()}
+        n_dec = len(eng.engine.decisions)
+        eng._tick.record = []
+        reqs, wall, launches = timed_generate(torch, eng, prompts[:2],
+                                              COMPACT_NEW)
+        want = graph_launches(graphs, since)
+        if launches != want or eng._tick.graphs != graphs:
+            fails.append(f"compact {mode}: launches {launches} are not the "
+                         f"replays' {want}, or a graph was captured")
+        if not all(launches[k] for k in MOE_KERNELS):
+            fails.append(f"compact {mode}: an MoE kernel never launched")
+        est = {lay: eng.engine.costs.estimate(layout_kind(lay, 0) +
+                                              "_per_tok")
+               for lay in (True, False)}
+        chose = Counter(d["choice"] for d in
+                        list(eng.engine.decisions)[n_dec:]
+                        if d["decision"] == "serve_compact")
+        log(f"[compact] 2 requests, {LAYOUT[mode]}: "
+            f"{2 * COMPACT_NEW / wall:.1f} generated tok/s ({wall:.4f} s), "
+            f"{eng.compact_ticks} compact ticks of {eng.tick_no}; per-token "
+            f"tick EMA compact {est[True]}, full {est[False]} s; graphs "
+            f"{sorted(f'{n}@{r}' for (_, n, r) in graphs)}; launches "
+            f"{_nonzero(launches)}"
+            + (f"; choose_compact chose {dict(chose)} in the run, and after "
+               f"it chooses "
+               f"{'compact' if eng.engine.choose_compact(0) else 'full'}"
+               if mode is None else ""))
+        runs[mode] = (np.stack([r.output() for r in reqs]),
+                      eng._tick.record)
+        del eng
+    full, rec_full = runs[False]
+    if not np.array_equal(full, ref[:2]):
+        fails.append(f"compact: the full run differs from generate_static "
+                     f"at {np.argwhere(full != ref[:2])[:5].tolist()}")
+    for mode in (True, None):
+        out, rec = runs[mode]
+        # the two requests are slots 0 and 1 (a compact tick's rows 0 and
+        # 1), both in every tick: compare each row's logits step by step
+        # until its argmax parts
+        diff, parted = 0.0, set()
+        for a, b in zip(rec_full, rec):
+            for r in set(range(2)) - parted:
+                diff = max(diff, (a[r].float() - b[r].float()).abs().max()
+                           .item())
+                if a[r].argmax() != b[r].argmax():
+                    parted.add(r)
+        near = near_tie_check(f"compact {mode}", out, full, margins[:2],
+                              drift[2], fails)
+        log(f"[compact] 2 requests, {LAYOUT[mode]} vs full: "
+            f"{'bit-equal' if diff == 0 and not near else 'not bit-equal'}; "
+            f"the served runs' largest logit difference until a row parts "
+            f"{diff} over {len(rec)} steps (the eager drift at height 2: "
+            f"{drift[2]}); (row, token, static top-2 margin) where a row "
+            f"parts at a near-tie within {drift[2]}: {near}; tokens equal "
+            f"{np.array_equal(out, full)}")
+    # heights 4, 2 and 1: four requests ending at 16-token steps, served
+    # once to capture each height's graph and read the second time
+    news = [COMPACT_NEW - 16 * i for i in range(4)]
+    outs, by_height = {}, {}
+    for mode in (False, True):
+        eng = serve_engine(cfg, srv.params, dev, compact_decode=mode)
+        timed_generate(torch, eng, prompts, news)
+        graphs = dict(eng._tick.graphs)
+        since = {k: g.replays for k, g in graphs.items()}
+        caps = eng._tick.captures
+        reqs, wall, launches = timed_generate(torch, eng, prompts, news)
+        outs[mode] = [r.output() for r in reqs]
+        want = graph_launches(graphs, since)
+        per = {key[2]: graph_launches(graphs, since,
+                                      lambda k, key=key: k == key)
+               for key in graphs if key[1] == "step"}
+        log(f"[compact] 4 requests, {news} new, {LAYOUT[mode]}, served the "
+            f"second time: {eng.compact_ticks} compact ticks of "
+            f"{eng.tick_no} in both; launches {_nonzero(launches)} (replays "
+            f"x per replay: {'equal' if launches == want else want}); of "
+            f"them by the step graph's height "
+            + "; ".join(f"{h}: {_nonzero(m)}" for h, m in sorted(per.items())))
+        if launches != want or eng._tick.captures != caps:
+            fails.append(f"compact heights {mode}: launches {launches} are "
+                         f"not the replays' {want}, or a graph was captured")
+        if mode:
+            missing = [h for h in (1, 2, 4)
+                       if not all(per.get(h, {}).get(k) for k in MOE_KERNELS)]
+            if sorted(per) != [1, 2, 4, SERVE_SLOTS] or missing:
+                fails.append(f"compact: step graphs at heights {sorted(per)}"
+                             f", those of {missing} launched not every MoE "
+                             f"kernel")
+            by_height = per
+        del eng
+    near = []
+    for r, n in enumerate(news):
+        if not np.array_equal(outs[False][r], ref[r, :n]):
+            fails.append(f"compact: the full run's request {r} differs "
+                         f"from generate_static")
+        near += [(r,) + x[1:] for x in near_tie_check(
+            f"compact heights, request {r}", outs[True][r][None],
+            outs[False][r][None], margins[r:r + 1, :n], allow, fails)]
+    log(f"[compact] 4 requests, compact vs full: tokens equal "
+        f"{all(np.array_equal(a, b) for a, b in zip(outs[True], outs[False]))}"
+        f"; (request, token, static top-2 margin) where a request parts at "
+        f"a near-tie within {allow}: {near}")
+    # the MoE kernels at compact heights 1 and 2 (a compact tick's buffer
+    # set is a pool of that many slots)
+    rows = []
+    for h in (1, 2):
+        seen = step_inputs(torch, cfg, srv.params, dev, rng,
+                           SlotPool(cfg, h, SERVE_MAX_LEN, dev))
+        r, shapes = check_kernels(torch, seen, by_height.get(h) or
+                                   dict.fromkeys(MOE_KERNELS, 0))
+        rows += suffixed(r, f"compact{h}")
+        log_kernel_rows(r, shapes)
+    _free(torch)
+    return rows, allow
+
+
+def autotune_phase(torch, dev, cfg, srv, oracle, allow, fails) -> None:
+    """The [pools] scenarios on a fresh 2-pool engine with
+    ``autotune=True`` and the layout left to the engine
+    (``compact_decode=None``: the default knobs prefill_chunk,
+    compact_frac and the two class weights, in windows of 32 work ticks):
+    the knob moves, the values they ended at, the ticks and compact ticks
+    run under each setting, and greedy == generate_static except from a
+    near-tie within ``allow`` ([compact]'s drift)."""
+    from collections import Counter
+    rng = np.random.default_rng(SEED + 6)
+    psrv = pool_server(cfg, srv, dev, autotune=True, compact_decode=None)
+    eng = psrv.engine()
+    warm_pools(torch, eng, cfg, rng)
+    # the ticks and compact ticks of each stretch between two knob moves:
+    # the tuner applies a move through the engine's update handler, and
+    # records the knob's new value after it (so a mark's ``current`` is the
+    # setting of the stretch that the mark ends)
+    marks, apply = [], eng._apply_updates
+
+    def mark(updates=None):
+        marks.append((dict(eng.autotuner.current), eng.tick_no,
+                      eng.compact_ticks, updates))
+
+    def moved(updates):
+        if updates:                 # the engine applies its queue each tick
+            mark(updates)
+        return apply(updates)
+
+    eng._apply_updates = moved
+    mark()
+    near = []
+    for name in POOL_SCENARIOS:
+        spec, res, wall = drive_scenario(torch, psrv, name, cfg)
+        near += class_report("autotune", name, spec, res, wall, oracle,
+                             fails, allow)
+    mark()
+    eng._apply_updates = apply
+    snap = eng.autotuner.snapshot()
+    moves = Counter(f"{d['knob']}={d['choice']}"
+                    for d in eng.engine.decisions
+                    if d["decision"] == "autotune_knob")
+    stretches = [f"{b[0]}: {b[1] - a[1]} ticks, {b[2] - a[2]} compact, then "
+                 f"{b[3]}" for a, b in zip(marks, marks[1:])]
+    log(f"[autotune] {snap['windows']} windows of {snap['window']} work "
+        f"ticks, {snap['moves']} moves; knob choices {dict(moves)}; ended "
+        f"at {snap['current']}; captures {eng._tick.captures}; "
+        f"{eng.compact_ticks} compact ticks of {eng.tick_no}; arm EMAs "
+        f"(s/token) {snap['arms']}")
+    log(f"[autotune] each setting the knobs held, with its ticks and compact "
+        f"ticks and the move that ended it: {stretches}")
+    if not snap["windows"]:
+        fails.append("autotune: no window closed")
+    del eng, psrv
+    _free(torch)
+
+
+def serve_features_phase(torch, dev, fails, phase_time) -> list:
+    """[spec], [prefix], [publish], [pools], [compact] and [autotune] on one
+    full-width model.  Returns the kernels' JSON rows of [pools] and
+    [compact]."""
     from repro_torch.models import lm
     from repro_torch.runtime.serve import BatchedServer
     cfg = moe_cfg()
@@ -1400,6 +2030,16 @@ def serve_features_phase(torch, dev, fails) -> None:
     spec_phase(torch, dev, cfg, srv, fails)
     prefix_phase(torch, dev, cfg, srv, fails)
     publish_phase(torch, dev, cfg, srv, fails)
+    phase_time("spec, prefix, publish")
+    oracle = StaticOracle(torch, srv)
+    rows = pools_phase(torch, dev, cfg, srv, oracle, fails)
+    phase_time("pools")
+    compact_rows, allow = compact_phase(torch, dev, cfg, srv, fails)
+    rows += compact_rows
+    phase_time("compact")
+    autotune_phase(torch, dev, cfg, srv, oracle, allow, fails)
+    phase_time("autotune")
+    return rows
 
 
 # [train]: paper-moe-100m at full width, trained by TrainLoop with the
@@ -2092,7 +2732,10 @@ def gemma3_phase(torch, dev, fails) -> list:
             f"{n_tok / wall:.1f} tok/s, launches {_nonzero(fwd_launches)}")
         del logits
         wall_t, busy_us, by_name = device_trace(
-            torch, lambda: lm.forward(params, {"tokens": toks}, cfg))
+            torch, lambda: lm.forward(params, {"tokens": toks}, cfg),
+            whole=lambda table: sum(
+                v[0] for k, v in table.items()
+                if "flash_fwd_mma_kernel<256>" in k) == n_layers)
         busy = busy_us / 1e6 / wall
         log(f"[{tag}] forward again under a CUDA-only trace (traced wall "
             f"{wall_t:.4f} s): device busy {busy_us:.0f} us; over the "
@@ -2185,7 +2828,8 @@ def gemma3_phase(torch, dev, fails) -> list:
     # e. serving, one prompt past the window
     srv = BatchedServer(cfg, params, max_len=max(GEMMA_PROMPT_LENS) +
                         GEMMA_NEW + 16, slots=len(GEMMA_PROMPT_LENS),
-                        prefill_chunk=16, decode_chunk=4, device=dev)
+                        prefill_chunk=16, decode_chunk=4,
+                        compact_decode=False, device=dev)
     prompts = [rng.integers(1, cfg.vocab, (n,)).astype(np.int32)
                for n in GEMMA_PROMPT_LENS]
     srv.generate([p[:16] for p in prompts], 4)      # captures the graph
@@ -2210,7 +2854,7 @@ def gemma3_phase(torch, dev, fails) -> list:
     # f. engine == static on equal-length prompts crossing the window
     srv = BatchedServer(cfg, params, max_len=GEMMA_STATIC[1] + GEMMA_NEW +
                         16, slots=GEMMA_STATIC[0], prefill_chunk=16,
-                        decode_chunk=4, device=dev)
+                        decode_chunk=4, compact_decode=False, device=dev)
     batch = rng.integers(1, cfg.vocab, GEMMA_STATIC).astype(np.int32)
     t0 = time.perf_counter()
     ref = srv.generate_static(batch, GEMMA_NEW)
@@ -2328,9 +2972,8 @@ def main() -> int:
     rows = moe_phase(torch, dev, fails)
     _free(torch)
     phase_time("serve, graph, kernel, equiv")
-    serve_features_phase(torch, dev, fails)
+    rows += serve_features_phase(torch, dev, fails, phase_time)
     _free(torch)
-    phase_time("spec, prefix, publish")
     train_rows, train_launches = train_phase(torch, dev, fails)
     phase_time("train")
     flash_rows = flash_phase(torch, dev, train_launches)

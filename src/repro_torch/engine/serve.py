@@ -1,6 +1,7 @@
-"""ServeEngine: continuous batching under the Amber control plane, on one
-slot pool of the default traffic class, with speculative decoding, a
-cross-request prefix and result cache, and hot weight updates.
+"""ServeEngine: continuous batching under the Amber control plane, over
+one or several slot pools arbitrated across priority classes, with compact
+decode, speculative decoding, a cross-request prefix and result cache, hot
+weight updates and a closed-loop knob autotuner.
 
 Serving runs as engine jobs over a fixed pool of *slots*, each slot holding
 one request's cache rows at its own sequence position.  A **tick** advances
@@ -70,12 +71,14 @@ vmap, and inactive rows leave their cache rows and positions untouched.
 
 On the card the tick's step — the n-gram learn, the draft's feed and the
 target's ``decode_step`` — runs as one CUDA graph (``GraphedStep``),
-captured on the engine's first tick and replayed once per step; the
-draft's propose step is a second graph over the scratch rows.  A CPU pool
-runs the same steps eagerly.
+captured on a pool's first tick at each height and replayed once per
+step; the draft's propose step is a second graph over the scratch rows.
+A CPU pool runs the same steps eagerly.
 
 Invariants (tests/test_torch_serve.py, test_torch_spec.py,
-test_torch_prefix_cache.py, test_torch_draft.py):
+test_torch_prefix_cache.py, test_torch_draft.py,
+test_torch_serve_priority.py, test_torch_compact.py,
+test_torch_serve_differential.py):
 
 * **Greedy bit-identicality** — greedy outputs equal the static
   ``BatchedServer.generate_static`` oracle token for token on batches where
@@ -84,10 +87,37 @@ test_torch_prefix_cache.py, test_torch_draft.py):
 * **Reset-mask join** — a request joins a slot by flagging the row for
   zeroing at the start of the next tick instead of eager per-join writes;
   no stale cache, n-gram, draft or position state leaks between occupants
-  of a slot.
+  of a slot, in any pool, and a slot that sits out a compact tick keeps
+  its pending flag.
 
-Several pools with priority classes, device placements, compact decode and
-the knob autotuner are later slices of the port.
+**Several pools and priority classes** (``pools=``, ``class_pools=``):
+every pool is a :class:`SlotPool` of its own, and a request carries a
+``priority`` naming one of ``cfg.serve.classes``.  With one pool and the
+single default class a tick is ``Engine.choose_serve_tick`` as above;
+otherwise every pool with work offers its candidate ticks
+(``jobs.TickCandidate``) and ``Engine.choose_serve_job`` picks one (pool,
+composition) by weighted first-result time: the candidate's FRT, costed
+from the pool's own measured per-token EMA, over the summed class weight
+of the requests it advances.  An admitted prefill that has sat out its
+class's ``max_defer`` scheduled ticks ages its pool's prefill candidate,
+which then wins whatever the weights say.  ``class_pools`` restricts the
+pools a class may join; ``submit(pool=)`` pins one.
+
+**Compact decode** (``compact_decode=None|True|False``): a decode tick
+whose participants fit in ``int(slots * compact_frac)`` rows may gather
+them (padded with idle rows to a power of two) into a persistent buffer
+set of that height, run the tick there and write the rows back in place;
+``None`` lets ``Engine.choose_compact`` pick compact or full per tick from
+the measured ``jobs.layout_kind`` EMAs.  Pad rows run inactive, so their
+rows and positions come back as they went.
+
+**Knob autotuner** (``autotune=True`` or a dict of ``AutoTuner``
+arguments, ``engine.autotune``): ``spec_len``, ``compact_frac``,
+``prefill_chunk`` and the class weights become windowed Maestro decisions,
+applied at tick boundaries through the same handlers as ``update``.
+
+Device placements, draining a pool and migrating its slots need more than
+one device and are not ported yet.
 """
 from __future__ import annotations
 
@@ -103,9 +133,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import messages as M
+from repro_torch.engine.autotune import AutoTuner
 from repro_torch.engine.draft import slice_draft_params, truncated_draft_cfg
 from repro_torch.engine.engine import Engine
-from repro_torch.engine.jobs import Job, pool_kind, spec_kind
+from repro_torch.engine.jobs import (Job, TickCandidate, layout_kind,
+                                     pool_kind, spec_kind)
 from repro_torch.engine.prefix_cache import (PrefixAnalyzer, PrefixCache,
                                              to_host)
 from repro_torch.kernels import LAUNCHES, credit_launches, launches_since
@@ -229,12 +261,22 @@ class GraphedStep:
     (``SlotTick.release``).  A failed capture raises; there is no eager
     fallback on the card.  The kernel wrappers count their launches on the
     host, where a replay runs no wrapper: the capture records one step's
-    counts and every replay credits them (``kernels.credit_launches``)."""
+    counts and every replay credits them (``kernels.credit_launches``).
 
-    def __init__(self, step, *state):
+    A graph belongs to one pool's tensors at one height: ``SlotTick`` keys
+    its graphs by (pool, step name, rows), and a compact tick runs on the
+    pool's persistent buffer set of that height
+    (``SlotPool.compact_rows``), so no tensor a graph holds is ever
+    replaced.  ``mempool`` (a ``torch.cuda.graph_pool_handle()``) lets the
+    graphs of every pool and height share one memory pool: they never run
+    concurrently, and a tick consumes a replay's outputs before the next
+    replay of any graph."""
+
+    def __init__(self, step, *state, mempool=None):
         pool = state[-1]
         dev = pool.pos.device
         b = pool.pos.shape[0]
+        self.rows = b
         self.state = state
         self.tok = torch.zeros((b,), dtype=torch.long, device=dev)
         self.active = torch.zeros((b,), dtype=torch.bool, device=dev)
@@ -248,7 +290,7 @@ class GraphedStep:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = dict(LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, pool=mempool):
             self.logits, self.greedy = step(*state, self.tok, self.active)
         self.per_replay = launches_since(before)
         LAUNCHES.update(before)              # the capture launched nothing
@@ -347,7 +389,9 @@ class SlotTick:
     ``L``.
 
     With ``graph`` (a pool on the card) each step runs as a
-    ``GraphedStep``, captured on first use; the reset zeroing, the token
+    ``GraphedStep``, captured on its first use over each (pool, height):
+    a pool's full rows and each compact buffer set are separate states.
+    All share one graph memory pool.  The reset zeroing, the token
     select and the valid mask between steps, sampling and the tick's one
     host copy stay outside the graph.  Without it (a CPU pool) the same
     steps run eagerly.  ``record``, when a list, receives each step's
@@ -359,37 +403,53 @@ class SlotTick:
         if draft_cfg is not None:
             self.steps["propose"] = build_propose_step(draft_cfg, device)
         self.graph = graph
-        self.graphs: Dict[str, GraphedStep] = {}
+        # (pool lid, step name, rows) -> its graph
+        self.graphs: Dict[tuple, GraphedStep] = {}
         self.captures = 0
         self.record: Optional[list] = None
+        self._mempool = None
+
+    @staticmethod
+    def key(pool, name: str) -> tuple:
+        return (pool.lid, name, pool.slots)
 
     @property
     def graphed(self) -> Optional[GraphedStep]:
-        """The target step's graph (None before the first tick)."""
-        return self.graphs.get("step")
+        """Pool 0's target step graph at its full height (None before its
+        first full tick)."""
+        full = [g for (lid, n, _), g in self.graphs.items()
+                if lid == 0 and n == "step"]
+        return max(full, key=lambda g: g.rows, default=None)
 
-    def capture_pending(self, arm: str = "") -> bool:
+    def capture_pending(self, pool, arm: str = "") -> bool:
         need = ("step", "propose") if arm == "draft" else ("step",)
-        return self.graph and any(n not in self.graphs for n in need)
+        return self.graph and any(self.key(pool, n) not in self.graphs
+                                  for n in need)
 
     def release(self) -> None:
-        """Drop every graph: the next tick captures again (a weight publish
-        rebinds the weights the graphs hold)."""
+        """Drop every graph of every pool and height: the next tick
+        captures again (a weight or draft publish rebinds the weights the
+        graphs hold).  The memory pool goes with them."""
         self.graphs.clear()
+        self._mempool = None
 
     def runner(self, name: str, *state):
         """``fn(tok, active) -> (logits, argmax)`` of step ``name`` over
-        ``state``: its graph on the card (captured on first use), the step
-        itself on the CPU."""
+        ``state`` (its last element the pool the tick runs on): its graph
+        on the card (captured on first use), the step itself on the CPU."""
         step = self.steps[name]
         if not self.graph:
             return lambda tok, active: step(*state, tok, active)
-        g = self.graphs.get(name)
+        key = self.key(state[-1], name)
+        g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[name] = GraphedStep(step, *state)
+            if self._mempool is None:
+                self._mempool = torch.cuda.graph_pool_handle()
+            g = self.graphs[key] = GraphedStep(step, *state,
+                                               mempool=self._mempool)
             self.captures += 1
         elif not g.bound_to(*state):
-            raise ValueError(f"the tick's {name} graph was captured over "
+            raise ValueError(f"the tick's {key} graph was captured over "
                              "other weights or another pool")
         return g
 
@@ -441,16 +501,23 @@ class Request:
     max_new: int
     temperature: float = 0.0
     seed: int = 0                        # private sampling stream
+    priority: str = "default"            # one of cfg.serve.classes
+    pin_pool: Optional[int] = None       # admission restricted to this pool
     joined_version: int = 0              # params_version at admission: a
     #                                      request straddling a weight swap
     #                                      stores neither results nor
     #                                      snapshots
     tokens: List[int] = dataclasses.field(default_factory=list)
-    slot: int = -1                       # slot joined (-1: queued)
+    pool: int = -1                       # slot pool joined (-1: queued)
+    slot: int = -1                       # slot within the pool
     prompt_off: int = 0
     pending_tok: int = -1                # emitted but not yet fed back
     seed_node: Any = None                # prefix-cache node this slot seeded
     #                                      from (ref held until eviction)
+    # aging: scheduled ticks this admitted prefill has sat out since it
+    # last advanced, and the peak (the starvation bound's witness)
+    deferred: int = 0
+    max_deferred: int = 0
     # wall-clock marks for first-token and completion latency
     t_submit: float = 0.0
     t_first: Optional[float] = None
@@ -474,10 +541,17 @@ class SlotPool:
     (``scratch``), per-slot positions (on the device, with a host copy that
     needs no device sync), the reset mask, and per-slot sampling
     generators.  Every write is in place: a CUDA graph holds the tensors'
-    addresses."""
+    addresses.
+
+    ``lid`` is the pool's id: requests and ``class_pools`` address pools
+    by it, and the engine's cost kinds carry it (``jobs.pool_kind``).
+    ``compact_rows(n)`` is the pool's persistent buffer set of height
+    ``n`` for compact ticks."""
 
     def __init__(self, cfg: ArchConfig, slots: int, max_len: int, device,
-                 draft_cfg: Optional[ArchConfig] = None):
+                 draft_cfg: Optional[ArchConfig] = None, lid: int = 0):
+        self.cfg, self.max_len, self.draft_cfg = cfg, max_len, draft_cfg
+        self.lid = lid
         self.slots = slots
         state = lm.init_cache(cfg, slots, max_len, device=device)
         self.caches = state["caches"]
@@ -496,9 +570,36 @@ class SlotPool:
         self.reset = np.zeros((slots,), bool)
         self.gens: List[Optional[torch.Generator]] = [None] * slots
         self.active: List[Optional[Request]] = [None] * slots
+        self._compact: Dict[int, SlotPool] = {}
 
     def free_slots(self) -> int:
         return sum(r is None for r in self.active)
+
+    def compact_rows(self, rows: int) -> "SlotPool":
+        """The buffer set a compact tick of ``rows`` rows runs on: a pool
+        of ``rows`` slots with this pool's ids, made on first use and kept,
+        so that the graphs captured over it stay bound."""
+        sub = self._compact.get(rows)
+        if sub is None:
+            sub = self._compact[rows] = SlotPool(
+                self.cfg, rows, self.max_len, self.pos.device,
+                self.draft_cfg, lid=self.lid)
+        return sub
+
+    def gather_into(self, sub: "SlotPool", idx) -> None:
+        """Copy rows ``idx`` (a device index tensor) of every per-slot leaf
+        and their positions into ``sub``'s tensors, in place."""
+        for (_, c, dim), (_, cc, _) in zip(self.row_leaves(),
+                                           sub.row_leaves()):
+            cc.copy_(c.index_select(dim, idx))
+        sub.pos.copy_(self.pos.index_select(0, idx))
+
+    def scatter_from(self, sub: "SlotPool", idx) -> None:
+        """Write ``sub``'s rows back into rows ``idx``, in place."""
+        for (_, c, dim), (_, cc, _) in zip(self.row_leaves(),
+                                           sub.row_leaves()):
+            c.index_copy_(dim, idx, cc)
+        self.pos.index_copy_(0, idx, sub.pos)
 
     def row_leaves(self):
         """``(path, tensor, slot dim)`` of every per-slot leaf a snapshot
@@ -549,14 +650,18 @@ class SlotPool:
 
 @dataclasses.dataclass
 class _TickPlan:
-    """One planned tick: resolved arm, length, participants and job
-    records plus the dispatch thunk that runs it."""
+    """One planned tick: its pool, resolved arm, length, participants, the
+    rows it runs (``idx``: the compact gather, or every slot) and job
+    records, plus the dispatch thunk that runs it."""
+    sp: SlotPool
     mode: str
     spec: bool
     arm: str
     L: int
     part: List[Request]
     n_given: np.ndarray
+    idx: np.ndarray
+    compact: bool
     job: Job
     extras: tuple
     dispatch: Any
@@ -566,11 +671,13 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, max_len: int = 128,
                  slots: int = 4, prefill_chunk: int = 16,
                  decode_chunk: int = 4, engine: Optional[Engine] = None,
-                 seed: int = 0, spec_decode: bool = False,
+                 seed: int = 0, compact_decode: Optional[bool] = None,
+                 spec_decode: bool = False, pools: int = 1,
+                 class_pools: Optional[Dict[str, tuple]] = None,
                  prefix_cache: bool = False, params_version: int = 0,
                  draft: Optional[str] = None,
                  draft_cfg: Optional[ArchConfig] = None, draft_params=None,
-                 device="cuda"):
+                 autotune: Any = False, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = serving_params(params, self.device)
@@ -579,10 +686,16 @@ class ServeEngine:
         self.prefill_chunk = prefill_chunk
         self.decode_chunk = decode_chunk
         self.seed = seed
-        # the live speculative draft length (hot-updatable; _tick_len caps a
-        # tick by every participant's cache headroom, so a larger value
-        # mid-stream only shrinks ticks that cannot host it)
+        # compact decode: None lets Engine.choose_compact pick the layout of
+        # each eligible tick from measured per-pool EMAs; True/False pins it
+        self.compact_decode = compact_decode
+        self.compact_ticks = 0
+        # hot-updatable knobs: the live speculative draft length (_tick_len
+        # caps a tick by every participant's cache headroom, so a larger
+        # value mid-stream only shrinks ticks that cannot host it) and the
+        # compaction gate (participants <= int(slots * compact_frac))
         self.spec_len = int(cfg.serve.spec_len)
+        self.compact_frac = 0.5
         self.spec_decode = spec_decode
         self.spec_ticks = 0
         self.spec_proposed = 0      # draft tokens offered for verification
@@ -611,14 +724,29 @@ class ServeEngine:
                                  "draft_params")
             self.draft_cfg = draft_cfg
             self.draft_params = serving_params(draft_params, self.device)
-        self.pool = SlotPool(cfg, slots, max_len, self.device, self.draft_cfg)
+        # priority classes: name -> PriorityClass; the table's first entry
+        # is the class of a request submitted without a priority
+        self.classes = {c.name: c for c in cfg.serve.classes}
+        self._default_class = cfg.serve.classes[0].name
+        n_pools = max(int(pools), 1)
+        # class -> admissible pool ids; a class not listed joins any pool
+        self.class_pools = dict(class_pools or {})
+        for cls, pids in self.class_pools.items():
+            if cls not in self.classes:
+                raise ValueError(f"class_pools names unknown class {cls!r}")
+            if not pids or not all(0 <= p < n_pools for p in pids):
+                raise ValueError(f"class_pools[{cls!r}]={pids}: pool ids "
+                                 f"must be in [0, {n_pools})")
+        self.pools: List[SlotPool] = [
+            SlotPool(cfg, slots, max_len, self.device, self.draft_cfg, lid=i)
+            for i in range(n_pools)]
         self._tick = SlotTick(cfg, self.device,
                               graph=self.device.type == "cuda",
                               draft_cfg=self.draft_cfg)
-        # tick shapes (arm, L) and row copies already run once: a first run
-        # carries one-time costs (kernel library builds and loads,
-        # allocator growth, a graph's capture) and must not enter the cost
-        # EMAs
+        # tick shapes (pool, arm, L, rows) and row copies already run once:
+        # a first run carries one-time costs (kernel library builds and
+        # loads, allocator growth, a graph's capture) and must not enter
+        # the cost EMAs
         self._warm: set = set()
         # ``params_version`` keys the result cache and the snapshots: a hot
         # weight swap bumps it so stale answers and states cannot serve
@@ -636,13 +764,43 @@ class ServeEngine:
         self.tokens_out = 0
         self._rid = itertools.count()
         self.hit_breakpoints: List[str] = []
+        # the knob autotuner (engine.autotune): True wires the default knob
+        # set, a dict passes AutoTuner arguments.  Built last: it reads the
+        # live engine state
+        self.autotuner: Optional[AutoTuner] = None
+        if autotune:
+            self.autotuner = AutoTuner(
+                self, **(dict(autotune) if isinstance(autotune, dict)
+                         else {}))
+
+    # ------------------------------------------------------------- pools
+    @property
+    def pool(self) -> SlotPool:
+        """The first slot pool (the whole engine when ``pools=1``)."""
+        return self.pools[0]
+
+    @property
+    def active(self) -> List[Optional[Request]]:
+        """Admitted requests across every pool, slot-ordered within pools
+        (a read-only view)."""
+        return [r for sp in self.pools for r in sp.active]
+
+    @property
+    def single_pool(self) -> bool:
+        """One pool and the single default class: ticks take
+        ``Engine.choose_serve_tick``, decision for decision the engine
+        without classes."""
+        return len(self.pools) == 1 and len(self.classes) == 1
 
     # ------------------------------------------------------------- requests
     def submit(self, prompt, max_new: int = 16, temperature: float = 0.0,
-               seed: Optional[int] = None) -> Request:
+               seed: Optional[int] = None, priority: Optional[str] = None,
+               pool: Optional[int] = None) -> Request:
         """Queue a request.  ``seed`` pins the request's private sampling
         stream; the default derives one from the engine seed and the
-        request id."""
+        request id.  ``priority`` names a ``cfg.serve.classes`` entry (by
+        default the table's first); ``pool`` pins admission to one slot
+        pool (by default class routing, then the emptiest pool)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -652,10 +810,17 @@ class ServeEngine:
         if need > self.max_len:
             raise ValueError(f"prompt+max_new+chunk={need} exceeds "
                              f"max_len={self.max_len}")
+        priority = priority or self._default_class
+        if priority not in self.classes:
+            raise ValueError(f"unknown priority {priority!r}; classes: "
+                             f"{list(self.classes)}")
+        if pool is not None and not 0 <= pool < len(self.pools):
+            raise ValueError(f"no pool {pool}; pools: "
+                             f"{[sp.lid for sp in self.pools]}")
         rid = next(self._rid)
         req = Request(rid, prompt, max_new, temperature,
                       seed=_stream_seed(self.seed, rid) if seed is None
-                      else seed,
+                      else seed, priority=priority, pin_pool=pool,
                       t_submit=time.perf_counter())
         if self.prefix is not None:
             # workload analyzer: count this prompt's grid prefixes and
@@ -669,7 +834,7 @@ class ServeEngine:
         return req
 
     def _evict(self, req: Request) -> None:
-        sp = self.pool
+        sp = self.pools[req.pool]
         # a request that straddled a weight swap ran partly on old weights:
         # its slot state and its output belong to neither version
         fresh = req.joined_version == self.params_version
@@ -684,7 +849,7 @@ class ServeEngine:
                         (n := self.prefix.lookup(path)) is not None
                         and n.snapshot is not None
                         and n.version == self.params_version):
-                    self._snapshot_slot(req.slot, path)
+                    self._snapshot_slot(sp, req.slot, path)
             if req.seed_node is not None:
                 self.prefix.release(req.seed_node)
                 req.seed_node = None
@@ -695,7 +860,7 @@ class ServeEngine:
                                          self.params_version, req.output())
         sp.active[req.slot] = None
         sp.gens[req.slot] = None
-        req.slot = -1
+        req.pool = req.slot = -1
         req.t_done = time.perf_counter()
         req.done.set()
 
@@ -713,14 +878,15 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _row_job(self, kind: str, tokens: int, fn):
+    def _row_job(self, sp: SlotPool, kind: str, tokens: int, fn):
         """Run a row copy (snapshot or seed write) as a measured job, also
         under the pool's kind (the engine's prefix-admission decision reads
         both)."""
         cold = kind not in self._warm
         self._warm.add(kind)
         job = Job(kind, tokens=tokens, meta={"cold": cold})
-        pjob = Job(pool_kind(kind, 0), tokens=tokens, meta={"cold": cold})
+        pjob = Job(pool_kind(kind, sp.lid), tokens=tokens,
+                   meta={"cold": cold})
 
         def thunk():
             out = fn()
@@ -729,18 +895,32 @@ class ServeEngine:
 
         return self.engine.run_job(job, thunk, extra=(pjob,))
 
-    def _snapshot_slot(self, slot: int, path) -> None:
+    def _snapshot_slot(self, sp: SlotPool, slot: int, path) -> None:
         """Capture one slot's pool row (to host tensors) and commit it into
         the radix tree under ``path`` — the token prefix the slot has
         consumed so far."""
-        row = self._row_job("serve_snapshot", len(path),
-                            lambda: self.pool.snapshot(slot))
+        row = self._row_job(sp, "serve_snapshot", len(path),
+                            lambda: sp.snapshot(slot))
         self.prefix.insert(path, snapshot=row, version=self.params_version)
 
+    def _allowed_pools(self, req: Request) -> List[int]:
+        if req.pin_pool is not None:
+            return [req.pin_pool]
+        allowed = self.class_pools.get(req.priority)
+        if allowed is not None:
+            return list(allowed)
+        return [sp.lid for sp in self.pools]
+
     def _admit(self) -> None:
-        """Join queued requests into free slots, in order.  The row zeroing
-        and position reset are deferred into the next tick (the ``reset``
+        """Join queued requests into free slots.  The row zeroing and
+        position reset are deferred into the next tick (the ``reset``
         mask); only the slot's sampling generator is set here.
+
+        Routing: a pinned request joins only its pool; otherwise
+        ``class_pools`` restricts the admissible pools, and among those the
+        emptiest wins (ties: the lowest id).  A request whose admissible
+        pools are all full stays queued, in order, without blocking later
+        requests bound for a free pool.
 
         Prefix cache (when enabled): an exact result-cache hit answers the
         request here — it never takes a slot.  Otherwise a greedy request
@@ -749,10 +929,9 @@ class ServeEngine:
         seed path the slot starts from the snapshot: ``prompt_off``/``pos``
         begin at the cached depth and ``reset`` stays False (the seed write
         replaces the whole row).  Sampled requests never seed and never
-        hit: their tokens are draws, not facts.  All seed rows land in ONE
-        batched write."""
-        sp = self.pool
-        seeds: List[tuple] = []
+        hit: their tokens are draws, not facts.  Each pool's seed rows land
+        in ONE batched write."""
+        seeds: Dict[int, List[tuple]] = {}
         remaining: Deque[Request] = deque()
         for req in self.queue:
             if (self.prefix is not None and req.temperature <= 0
@@ -761,11 +940,15 @@ class ServeEngine:
                         self.params_version)) is not None):
                 self._finish_from_cache(req, out)
                 continue
-            if not sp.free_slots():
+            cands = [p for p in self._allowed_pools(req)
+                     if self.pools[p].free_slots() > 0]
+            if not cands:
                 remaining.append(req)
                 continue
+            pid = max(cands, key=lambda p: (self.pools[p].free_slots(), -p))
+            sp = self.pools[pid]
             slot = next(s for s in range(sp.slots) if sp.active[s] is None)
-            req.slot = slot
+            req.pool, req.slot = pid, slot
             req.joined_version = self.params_version
             sp.active[slot] = req
             node = None
@@ -776,13 +959,13 @@ class ServeEngine:
                     version=self.params_version)
             if node is not None and self.engine.choose_prefix_admission(
                     node.depth, len(req.prompt) - node.depth,
-                    pool_id=0) == "seed":
+                    pool_id=sp.lid) == "seed":
                 self.prefix.acquire(node)
                 req.seed_node = node
                 req.prompt_off = node.depth
                 sp.reset[slot] = False
                 sp.pos_host[slot] = node.depth
-                seeds.append((slot, node))
+                seeds.setdefault(pid, []).append((slot, node))
                 self.prefix.seeded += 1
                 self.prefix.tokens_avoided += node.depth
             else:
@@ -794,11 +977,12 @@ class ServeEngine:
                 sp.gens[slot] = torch.Generator(
                     device=self.device).manual_seed(req.seed)
         self.queue = remaining
-        if seeds:
-            self._row_job("serve_seed", sum(n.depth for _, n in seeds),
-                          lambda: sp.seed_rows([s for s, _ in seeds],
-                                               [n.snapshot for _, n in seeds],
-                                               [n.pos for _, n in seeds]))
+        for pid, ss in seeds.items():
+            sp = self.pools[pid]
+            self._row_job(sp, "serve_seed", sum(n.depth for _, n in ss),
+                          lambda: sp.seed_rows([s for s, _ in ss],
+                                               [n.snapshot for _, n in ss],
+                                               [n.pos for _, n in ss]))
 
     # -------------------------------------------------------------- control
     def _inspect(self, what: str) -> Dict[str, Any]:
@@ -813,6 +997,8 @@ class ServeEngine:
                          else self.draft_cfg.name,
                          "arms": {a: dict(c)
                                   for a, c in self.spec_arms.items()}},
+                "compact": {"mode": self.compact_decode,
+                            "ticks": self.compact_ticks},
                 "decisions": list(self.engine.decisions),
                 "prefix_cache": (self.prefix.stats()
                                  if self.prefix is not None
@@ -820,11 +1006,24 @@ class ServeEngine:
                 "slots": [None if r is None else
                           {"rid": r.rid, "prompt_off": r.prompt_off,
                            "plen": len(r.prompt), "out": len(r.tokens),
-                           "max_new": r.max_new}
-                          for r in self.pool.active],
+                           "max_new": r.max_new, "priority": r.priority,
+                           "deferred": r.deferred}
+                          for r in self.active],
+                "pools": [{"lid": sp.lid,
+                           "slots": sp.slots, "free": sp.free_slots()}
+                          for sp in self.pools],
+                "classes": {n: {"weight": c.weight,
+                                "max_defer": c.max_defer}
+                            for n, c in self.classes.items()},
                 "knobs": {"spec_len": self.spec_len,
+                          "compact_frac": self.compact_frac,
                           "prefill_chunk": self.prefill_chunk,
-                          "decode_chunk": self.decode_chunk},
+                          "decode_chunk": self.decode_chunk,
+                          "class_weights": {n: c.weight for n, c in
+                                            self.classes.items()}},
+                "autotune": (self.autotuner.snapshot()
+                             if self.autotuner is not None
+                             else {"enabled": False}),
                 "engine": self.engine.inspect()}
 
     def _apply_updates(self, updates: Dict[str, Any]) -> None:
@@ -838,6 +1037,29 @@ class ServeEngine:
             self.spec_decode = bool(updates["spec_decode"])
         if "spec_len" in updates:
             self.spec_len = max(int(updates["spec_len"]), 0)
+        if "compact_frac" in updates:
+            self.compact_frac = min(max(float(updates["compact_frac"]), 0.0),
+                                    1.0)
+        if "compact_decode" in updates:
+            v = updates["compact_decode"]
+            self.compact_decode = None if v is None else bool(v)
+        if "class_weights" in updates:
+            # arbitration-only state: a replace of the frozen class at the
+            # tick boundary is the whole swap.  The aging bound (max_defer)
+            # is not tunable: it is the starvation guarantee
+            for name, w in dict(updates["class_weights"]).items():
+                if name not in self.classes:
+                    raise ValueError(f"class_weights names unknown class "
+                                     f"{name!r}")
+                self.classes[name] = dataclasses.replace(
+                    self.classes[name], weight=float(w))
+        if "autotune" in updates:
+            on = updates["autotune"]
+            if on and self.autotuner is None:
+                self.autotuner = AutoTuner(
+                    self, **(dict(on) if isinstance(on, dict) else {}))
+            elif not on:
+                self.autotuner = None
         if "draft_params" in updates and self.draft_cfg is not None:
             # a draft is acceptance-only state: the swap needs no drain and
             # no re-seed.  Ignored without a draft configured at
@@ -858,10 +1080,11 @@ class ServeEngine:
                 self.prefix = None
         if "params" in updates:
             # the weight publish: the incoming tree (numpy or tensors) is
-            # converted once and rebound, and the tick's graphs, which hold
-            # the old weights' addresses, are dropped for a capture on the
-            # next tick.  Rebinding never writes into the old tensors,
-            # which the caller may share (BatchedServer hands its own).
+            # converted once and rebound, and every graph of every pool and
+            # height, which hold the old weights' addresses, is dropped for
+            # a capture on its next use.  Rebinding never writes into the
+            # old tensors, which the caller may share (BatchedServer hands
+            # its own).
             self.params = serving_params(updates["params"], self.device)
             if self._self_draft:
                 self.draft_params = slice_draft_params(
@@ -901,7 +1124,7 @@ class ServeEngine:
 
     def _check_breakpoints(self, emitted: int) -> None:
         m = {"emitted": float(emitted), "queue": float(len(self.queue)),
-             "active": float(sum(r is not None for r in self.pool.active)),
+             "active": float(sum(r is not None for r in self.active)),
              "tokens_out": float(self.tokens_out)}
         for bp in self.engine.local_bps:
             if bp.check(m):
@@ -914,7 +1137,8 @@ class ServeEngine:
                 self.engine.global_bps.remove(bp)
 
     # ----------------------------------------------------------------- tick
-    def _tick_len(self, act: List[Request], mode: str, chunk: int) -> int:
+    def _tick_len(self, sp: SlotPool, act: List[Request], mode: str,
+                  chunk: int) -> int:
         """Adaptive tick length: no slot needs more than its remaining
         horizon, so trim the chunk to the longest one (rounded up to a
         power of two, so few distinct lengths run), capped by the tightest
@@ -926,7 +1150,7 @@ class ServeEngine:
             h = (len(r.prompt) - r.prompt_off) if r.prefilling \
                 else (r.max_new - len(r.tokens))
             need = max(need, min(h, chunk))
-            cap = min(cap, self.max_len - int(self.pool.pos_host[r.slot]))
+            cap = min(cap, self.max_len - int(sp.pos_host[r.slot]))
         L = 1
         while L < need:
             L *= 2
@@ -947,10 +1171,58 @@ class ServeEngine:
         return ("ngram", "draft") if self.draft_cfg is not None \
             else ("ngram",)
 
-    def _plan_tick(self, act: List[Request], mode: str) -> Optional[_TickPlan]:
-        """Resolve the speculative arm, tick length, participants and job
-        records, and close over the dispatch thunk."""
-        sp = self.pool
+    def _candidates(self) -> List[TickCandidate]:
+        """One TickCandidate per (pool, composition) with work: the menu
+        ``Engine.choose_serve_job`` arbitrates by weighted FRT.  A prefill
+        candidate is ``aged`` once any of its requests has sat out its
+        class's ``max_defer`` scheduled ticks.  Without placements the
+        ``load`` and ``xfer`` terms are 0."""
+        cands = []
+        for sp in self.pools:
+            act = [r for r in sp.active if r is not None]
+            if not act:
+                continue
+            pre = [r for r in act if r.prefilling]
+            dec = [r for r in act if not r.prefilling]
+
+            def weight(rs):
+                return sum(self.classes[r.priority].weight for r in rs)
+
+            if dec:
+                arms = self._pool_spec_arms(act)
+                cands.append(TickCandidate(
+                    sp.lid, "decode", n_dec=len(dec), n_pre=len(pre),
+                    chunk=self.decode_chunk, weight=weight(dec),
+                    spec_len=self.spec_len if arms else 0, arms=arms))
+            if pre:
+                overdue = max(r.deferred - self.classes[r.priority].max_defer
+                              for r in pre)
+                cands.append(TickCandidate(
+                    sp.lid, "prefill", n_dec=len(dec), n_pre=len(pre),
+                    pre_toks=sum(len(r.prompt) - r.prompt_off for r in pre),
+                    chunk=self.prefill_chunk, weight=weight(pre),
+                    aged=overdue >= 0, overdue=max(overdue, 0)))
+        return cands
+
+    def _age_prefills(self, part: List[Request]) -> None:
+        """After a tick: every admitted prefill that did not advance — it
+        sat out a decode tick of its pool, or its pool lost the round —
+        ages one tick; the participants' counters reset."""
+        ran = set(id(r) for r in part)
+        for r in self.active:
+            if r is None or not r.prefilling:
+                continue
+            if id(r) in ran:
+                r.deferred = 0
+            else:
+                r.deferred += 1
+                r.max_deferred = max(r.max_deferred, r.deferred)
+
+    def _plan_tick(self, sp: SlotPool, act: List[Request],
+                   mode: str) -> Optional[_TickPlan]:
+        """Resolve the speculative arm, tick length, participants, layout
+        (compact or full) and job records of one pool's tick, and close
+        over the dispatch thunk."""
         if mode == "spec":
             # a bare "spec" maps to the strongest proposer this engine has
             mode = "spec:draft" if self.draft_cfg is not None \
@@ -958,13 +1230,13 @@ class ServeEngine:
         spec = mode.startswith("spec:")
         arm = mode.split(":", 1)[1] if spec else ""
         if spec:
-            L = self._tick_len(act, mode, self.spec_len)
+            L = self._tick_len(sp, act, mode, self.spec_len)
             if L < 2:
                 mode, spec, arm = "decode", False, ""  # nothing to draft
         if not spec:
             chunk = self.prefill_chunk if mode == "prefill" \
                 else self.decode_chunk
-            L = self._tick_len(act, mode, chunk)
+            L = self._tick_len(sp, act, mode, chunk)
         toks = np.zeros((sp.slots, L), np.int64)
         n_given = np.ones((sp.slots,), np.int64)
         active = np.zeros((sp.slots,), bool)
@@ -987,42 +1259,87 @@ class ServeEngine:
             part.append(r)
         if not part:
             return None
-        cold = (arm, L) not in self._warm or \
-            self._tick.capture_pending(arm)
-        self._warm.add((arm, L))
+        # layout: a decode tick whose participants fit in compact_frac of
+        # the pool may run them, padded with idle rows to a power of two,
+        # on the pool's buffer set of that height; the config pins the
+        # choice or Engine.choose_compact makes it from measured EMAs
+        part_slots = [r.slot for r in part]
+        compact_ok = mode != "prefill" \
+            and len(part) <= int(sp.slots * self.compact_frac)
+        compact = compact_ok and (
+            self.compact_decode if self.compact_decode is not None
+            else self.engine.choose_compact(sp.lid))
+        idx = np.arange(sp.slots)
+        if compact:
+            nc = 1
+            while nc < len(part):
+                nc *= 2
+            if nc < sp.slots:
+                pads = [s for s in range(sp.slots) if s not in part_slots]
+                idx = np.asarray(part_slots + pads[:nc - len(part)])
+        # a compact tick as high as the pool runs on the pool itself
+        run_on = sp.compact_rows(len(idx)) if len(idx) < sp.slots else sp
+        warm = (sp.lid, arm, L, len(idx))
+        cold = warm not in self._warm or \
+            self._tick.capture_pending(run_on, arm)
+        self._warm.add(warm)
         kind = "serve_prefill" if mode == "prefill" \
             else spec_kind(arm) if spec else "serve_decode"
         ntok = L * len(part)
         job = Job(kind, tokens=ntok, meta={"cold": cold})
-        # the same measurement under the pool's kind, and for a speculative
-        # tick the arm-agnostic aggregate: the inputs the engine's arm and
-        # admission decisions read
-        extras = [Job(pool_kind(kind, 0), tokens=ntok, meta={"cold": cold})]
+        # the same measurement under the pool's kind, for a speculative
+        # tick under the arm-agnostic aggregate, and on a layout-eligible
+        # tick under its layout: the inputs of the engine's arbitration,
+        # arm, admission and layout decisions
+        extras = [Job(pool_kind(kind, sp.lid), tokens=ntok,
+                      meta={"cold": cold})]
         if spec:
             extras.append(Job("serve_spec_decode", tokens=ntok,
+                              meta={"cold": cold}))
+        if compact_ok:
+            extras.append(Job(layout_kind(compact, sp.lid), tokens=ntok,
                               meta={"cold": cold}))
         reset = sp.reset.copy()
 
         def dispatch():
-            return self._tick(sp, self.params, self.draft_params, toks,
-                              n_given, active, reset, temps, sp.gens,
-                              arm=arm)
+            if run_on is sp:
+                return self._tick(sp, self.params, self.draft_params, toks,
+                                  n_given, active, reset, temps, sp.gens,
+                                  arm=arm)
+            # the compact tick: gather the rows into the buffer set, tick
+            # it (its reset rows zeroed there), write them back in place
+            rows = torch.as_tensor(idx, device=self.device)
+            sp.gather_into(run_on, rows)
+            _, em_c, nv_c = self._tick(
+                run_on, self.params, self.draft_params, toks[idx],
+                n_given[idx], active[idx], reset[idx], temps[idx],
+                [sp.gens[s] for s in idx], arm=arm)
+            sp.scatter_from(run_on, rows)
+            em = np.zeros((sp.slots, L), em_c.dtype)
+            em[idx] = em_c
+            nv = np.zeros((sp.slots,), np.int64)
+            nv[idx] = nv_c
+            return sp.pos, em, nv
 
-        return _TickPlan(mode=mode, spec=spec, arm=arm, L=L, part=part,
-                         n_given=n_given, job=job, extras=tuple(extras),
+        return _TickPlan(sp=sp, mode=mode, spec=spec, arm=arm, L=L,
+                         part=part, n_given=n_given, idx=idx,
+                         compact=compact, job=job, extras=tuple(extras),
                          dispatch=dispatch)
 
     def _commit_tick(self, plan: _TickPlan, outs) -> int:
-        """Write a tick's results back: the host position view, token
-        commits, evictions, prefill snapshots and speculative counters.
-        Returns the new tokens emitted."""
-        sp, L, part, n_given = self.pool, plan.L, plan.part, plan.n_given
+        """Write a tick's results back: the reset flags of the rows it ran,
+        the host position view, token commits, evictions, prefill
+        snapshots and speculative counters.  Returns the new tokens
+        emitted."""
+        sp, L, part, n_given = plan.sp, plan.L, plan.part, plan.n_given
         _, em, nv = outs
-        sp.reset[:] = False                  # zeroing landed in the tick
+        sp.reset[plan.idx] = False           # zeroing landed in the tick
+        if plan.compact:
+            self.compact_ticks += 1
         # how far each slot really advanced: L for every active slot on the
         # plain arms, the committed prefix under speculation
         sp.pos_host += nv
-        part_slots = [r.slot for r in part]
+        part_slots = [r.slot for r in part]  # an eviction below clears slot
         n_new = 0
         now = time.perf_counter()
         for r in part:
@@ -1057,7 +1374,7 @@ class ServeEngine:
                 if n is not None and n.snapshot is not None \
                         and n.version == self.params_version:
                     continue
-                self._snapshot_slot(r.slot, path)
+                self._snapshot_slot(sp, r.slot, path)
         if plan.spec:
             proposed = (L - 1) * len(part)
             accepted = int(sum(int(nv[s]) - 1 for s in part_slots))
@@ -1070,37 +1387,56 @@ class ServeEngine:
             st["proposed"] += proposed
             st["accepted"] += accepted
             if proposed:
-                self.engine.observe_accept(0, accepted / proposed,
+                self.engine.observe_accept(sp.lid, accepted / proposed,
                                            arm=plan.arm)
         return n_new
 
     def tick(self) -> bool:
         """One engine iteration.  Returns False when stopped, True otherwise
         (including idle ticks).  Control messages land here, between
-        ticks."""
+        ticks.
+
+        With one pool and the single default class the composition is
+        ``Engine.choose_serve_tick``; otherwise every pool's candidate
+        ticks go to ``Engine.choose_serve_job`` (weighted FRT and the
+        per-class aging bounds) and one pool wins the round."""
         if self._poll():
             return False
         self._admit()
-        act = [r for r in self.pool.active if r is not None]
-        if not act:
-            return True
-        n_pre = sum(r.prefilling for r in act)
-        pre_toks = sum(len(r.prompt) - r.prompt_off
-                       for r in act if r.prefilling)
-        arms = self._pool_spec_arms(act)
-        mode = self.engine.choose_serve_tick(
-            len(act) - n_pre, n_pre, pre_toks, self.decode_chunk,
-            self.prefill_chunk, spec_len=self.spec_len if arms else 0,
-            pool_id=0, arms=arms)
-        plan = self._plan_tick(act, mode)
+        if self.single_pool:
+            sp = self.pools[0]
+            act = [r for r in sp.active if r is not None]
+            if not act:
+                return True
+            n_pre = sum(r.prefilling for r in act)
+            pre_toks = sum(len(r.prompt) - r.prompt_off
+                           for r in act if r.prefilling)
+            arms = self._pool_spec_arms(act)
+            mode = self.engine.choose_serve_tick(
+                len(act) - n_pre, n_pre, pre_toks, self.decode_chunk,
+                self.prefill_chunk, spec_len=self.spec_len if arms else 0,
+                pool_id=sp.lid, arms=arms)
+        else:
+            cands = self._candidates()
+            if not cands:
+                return True
+            gid, mode = self.engine.choose_serve_job(cands)
+            sp = self.pools[gid]
+            act = [r for r in sp.active if r is not None]
+        plan = self._plan_tick(sp, act, mode)
         if plan is None:
             return True
         outs = self.engine.run_job(plan.job, plan.dispatch,
                                    extra=plan.extras)
         n_new = self._commit_tick(plan, outs)
+        self._age_prefills(plan.part)
         self.tokens_out += n_new
         self._check_breakpoints(n_new)
         self.tick_no += 1
+        if self.autotuner is not None:
+            # knob moves at the boundary of work ticks only: idle ticks
+            # returned above, so no window accumulates empty time
+            self.autotuner.on_tick()
         return True
 
     # ----------------------------------------------------------- convenience
@@ -1108,18 +1444,21 @@ class ServeEngine:
         for _ in range(max_ticks):
             if not self.tick():
                 return
-            if not self.queue and all(r is None for r in self.pool.active):
+            if not self.queue and all(r is None for r in self.active):
                 return
         raise RuntimeError("serve engine did not drain within max_ticks")
 
     def generate(self, prompts, max_new: int = 16, temperature: float = 0.0,
-                 seed: Optional[int] = None) -> np.ndarray:
+                 seed: Optional[int] = None, priorities=None) -> np.ndarray:
         """Batch convenience: prompts (rectangular, or a list of mixed
         lengths) in, ``[B, max_new]`` tokens out.  ``seed`` pins every
-        request's sampling stream, so repeated calls reproduce."""
+        request's sampling stream, so repeated calls reproduce;
+        ``priorities`` optionally names a traffic class per prompt."""
         reqs = [self.submit(p, max_new, temperature,
                             seed=None if seed is None
-                            else _stream_seed(seed, i))
+                            else _stream_seed(seed, i),
+                            priority=None if priorities is None
+                            else priorities[i])
                 for i, p in enumerate(prompts)]
         self.run_until_done()
         return np.stack([r.output() for r in reqs])

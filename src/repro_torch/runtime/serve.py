@@ -12,7 +12,7 @@ nothing falls back to the CPU when the card is missing.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -63,8 +63,17 @@ def sample(logits, temperature: float = 0.8,
 
 class BatchedServer:
     """Serving front door for examples, tests and the chip smoke run: a thin
-    client of the engine layer (one slot pool, the default class).
+    client of the engine layer.
 
+    ``pools`` > 1 spreads requests over several slot pools arbitrated by
+    the engine's weighted-FRT objective, and ``class_pools`` (class name ->
+    tuple of admissible pool ids) pins traffic classes to pools — e.g. pool
+    0 for the interactive class while batch traffic shares the rest.
+    ``generate`` takes an optional per-prompt ``priorities`` list naming
+    ``cfg.serve.classes`` entries; ``submit`` is the streaming entry point
+    with the same knobs.  ``compact_decode`` pins (True/False) or leaves to
+    the engine (None) the compact layout of sparse decode ticks;
+    ``autotune`` turns on the knob autotuner.
     ``spec_decode`` offers the engine the speculative decode arms;
     ``draft="self"`` slices a truncated self-draft from the params, or an
     independent ``draft_cfg`` + ``draft_params`` (e.g. from
@@ -77,6 +86,8 @@ class BatchedServer:
                  decode_chunk: int = 4, spec_decode: bool = False,
                  prefix_cache: bool = False, draft: Optional[str] = None,
                  draft_cfg: Optional[ArchConfig] = None, draft_params=None,
+                 pools: int = 1, class_pools: Optional[Dict] = None,
+                 compact_decode: Optional[bool] = None, autotune=False,
                  device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -90,6 +101,10 @@ class BatchedServer:
         self.draft = draft
         self.draft_cfg = draft_cfg
         self.draft_params = draft_params
+        self.pools = pools
+        self.class_pools = class_pools
+        self.compact_decode = compact_decode
+        self.autotune = autotune
         self._step = build_serve_step(cfg)
         self._engine = None
 
@@ -100,18 +115,29 @@ class BatchedServer:
                 self.cfg, self.params, max_len=self.max_len,
                 slots=self.slots, prefill_chunk=self.prefill_chunk,
                 decode_chunk=self.decode_chunk, seed=seed,
-                spec_decode=self.spec_decode,
+                compact_decode=self.compact_decode,
+                spec_decode=self.spec_decode, pools=self.pools,
+                class_pools=self.class_pools,
                 prefix_cache=self.prefix_cache, draft=self.draft,
                 draft_cfg=self.draft_cfg, draft_params=self.draft_params,
-                device=self.device)
+                autotune=self.autotune, device=self.device)
         return self._engine
 
+    def submit(self, prompt, max_new: int = 16, temperature: float = 0.0,
+               priority: Optional[str] = None, pool: Optional[int] = None):
+        """Streaming entry point: queue one request on the engine and return
+        the live :class:`repro_torch.engine.Request` (drive it with
+        ``engine().tick()`` or ``engine().run_until_done()``)."""
+        return self.engine().submit(prompt, max_new, temperature,
+                                    priority=priority, pool=pool)
+
     def generate(self, prompts, max_new: int = 16, temperature: float = 0.0,
-                 seed: int = 0) -> np.ndarray:
+                 seed: int = 0, priorities=None) -> np.ndarray:
         """Prompts (a ``[B, plen]`` array, or a list of 1-D prompts of mixed
-        lengths) -> ``[B, max_new]`` tokens through the serve engine."""
+        lengths) -> ``[B, max_new]`` tokens through the serve engine;
+        ``priorities`` optionally names a traffic class per prompt."""
         return self.engine(seed).generate(prompts, max_new, temperature,
-                                          seed=seed)
+                                          seed=seed, priorities=priorities)
 
     @torch.no_grad()
     def generate_static(self, prompts: np.ndarray, max_new: int = 16,

@@ -12,6 +12,8 @@ dtype (relative 2^-7 for bf16, 1e-4 for f32: the sums run in another
 order, so a value may round to the neighbouring ulp) plus 1e-4 of the
 output's scale, the final state within 1e-4 of its scale.
 """
+import time
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -199,9 +201,14 @@ def test_cuda_gating_one_launch_and_replays(cuda, rng, g, t, e, k):
     _, rids, rcnt = gating_ref(x, k)
     gating_cuda(x, k)
     torch.cuda.synchronize()
+    # a short host pause on each side of the traced call, so that no
+    # record of it is lost at the trace's edges (chip_smoke.py
+    # device_trace does the same)
+    time.sleep(0.05)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         gating_cuda(x, k)
         torch.cuda.synchronize()
+        time.sleep(0.05)
     names = [e_.name for e_ in prof.events()
              if e_.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 1 and "gating" in names[0], names

@@ -283,9 +283,9 @@ def test_cuda_graphed_spec_tick_equals_eager_tick(cuda, rng, arch, arm):
     # replayed, 6 eager, and the propose graph's capture in this window
     # ran one eager warm-up step
     g = ticks[0].graphs
-    want = {k: 16 * g["step"].per_replay[k] for k in LAUNCHES}
+    want = {k: 16 * g[(0, "step", 4)].per_replay[k] for k in LAUNCHES}
     if arm == "draft":
         for k in LAUNCHES:
-            want[k] += 13 * g["propose"].per_replay[k]
+            want[k] += 13 * g[(0, "propose", 4)].per_replay[k]
     assert LAUNCHES == want
     reset_launches()
