@@ -69,8 +69,16 @@
    different times (compact ticks of 4, 2 and 1 rows) held the same way;
    ``[autotune]``: the ``[pools]`` scenarios with ``autotune=True``, the
    knob moves and where they ended, outputs equal to ``generate_static``;
-   the MoE kernels also on inputs at compact heights 1 and 2 and on pool
-   1's rows, against their plain versions;
+   ``[migrate]``: 12 requests on the ``[pools]`` server, pool 0 drained
+   while pool 1 is full and a pool joined the next tick (captured on first
+   use): every output equal to ``generate_static`` on 4 copies, none
+   dropped, at least one slot migrated, pools 1 and 2 left, no graph of
+   pool 0 left and pool 0 freed, every MoE launch a replay (or the new
+   pool's capture's eager warm-up step), per pool; each migration batch's
+   time against its bytes bound, the new pool's first serve, the memory
+   around pool 0's retirement;
+   the MoE kernels also on inputs at compact heights 1 and 2 and on pools
+   1's and 2's rows, against their plain versions;
 6. ``[train]``: trains ``paper-moe-100m`` at full width with ``TrainLoop``
    (fused gating and dispatch, ``MoEReshaper`` closing the Reshape loop,
    a skewed ``TokenStream``, global batch 8 x 1024 in 2 microbatches):
@@ -2015,10 +2023,197 @@ def autotune_phase(torch, dev, cfg, srv, oracle, allow, fails) -> None:
     _free(torch)
 
 
+# [migrate]: 12 requests on the [pools] server, pool 0 drained while pool 1
+# is full, a pool joined the tick after
+MIGRATE_REQS, MIGRATE_NEW = 12, 16
+
+
+def row_bytes(pool) -> int:
+    """Bytes of one slot's row of ``pool``: every row leaf and the
+    position."""
+    return sum(c.element_size() * c.numel() // c.shape[dim]
+               for _, c, dim in pool.row_leaves()) + pool.pos.element_size()
+
+
+def freeze_graphs(seen, graphs) -> None:
+    """Keep in ``seen`` every graph ``graphs`` has held: a live one as it
+    is, a dropped one as its final replay count and per-replay launches,
+    so that ``seen`` keeps no retired pool alive."""
+    from types import SimpleNamespace
+    seen.update(graphs)
+    for key, g in list(seen.items()):
+        if key not in graphs and not isinstance(g, SimpleNamespace):
+            seen[key] = SimpleNamespace(replays=g.replays,
+                                        per_replay=dict(g.per_replay))
+
+
+def migrate_phase(torch, dev, cfg, srv, oracle, fails) -> list:
+    """Elastic pools and live slot migration on the [pools] server (2 pools
+    x 4 slots, compact off): 12 requests (prompts cycling through the
+    [serve] lengths, 16 new tokens each) take the 8 slots and 4 queue; once
+    a pool-0 request has emitted a token pool 0 is drained while pool 1 is
+    full, and the next tick a pool joins (lid 2, its graph captured on
+    first use).  Checks: every request ≡ generate_static on 4 copies, none
+    dropped, ``migrated_slots`` >= 1, pools [1, 2] left, no graph of pool 0
+    left, pool 2 captured in the phase, pool 0 freed once retired, every
+    MoE launch one that a replay made (or pool 2's capture's one eager
+    warm-up step), per pool; the MoE kernels on pool 2's rows against
+    their plain versions.  Logs each migration batch (engine-measured,
+    and the move's device time by graph replay against its bytes bound),
+    pool 2's first serve and the memory around pool 0's retirement.
+    Returns the kernels' JSON rows."""
+    import weakref
+
+    from repro_torch.engine.serve import SlotPool
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    rng = np.random.default_rng(SEED + 7)
+    psrv = pool_server(cfg, srv, dev)
+    eng = psrv.engine()
+    warm_pools(torch, eng, cfg, rng)
+    prompts = [rng.integers(1, cfg.vocab, PROMPT_LENS[i % len(PROMPT_LENS)])
+               .astype(np.int32) for i in range(MIGRATE_REQS)]
+    # each migration batch as the engine ran it: (src, dst, rows,
+    # positions, seconds with the device synchronised on both sides)
+    batches, migrate = [], eng._migrate_slots
+
+    def timed_migrate(src, dst, moves):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pos = int(sum(src.pos_host[s] for s, _ in moves))
+        migrate(src, dst, moves)
+        torch.cuda.synchronize()
+        batches.append((src.lid, dst.lid, len(moves), pos,
+                        time.perf_counter() - t0))
+
+    eng._migrate_slots = timed_migrate
+    seen = dict(eng._tick.graphs)
+    since = {k: g.replays for k, g in seen.items()}
+    caps0 = eng._tick.captures
+    pool0 = weakref.ref(eng._pool(0))
+    pool0_bytes = POOL_SLOTS * row_bytes(eng._pool(0))
+    drained = added = first_serve = retired = None
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [psrv.submit(p, MIGRATE_NEW) for p in prompts]
+    for _ in range(20_000):
+        if all(r.done.is_set() for r in reqs):
+            break
+        if drained is None and any(r.tokens for r in reqs if r.pool == 0):
+            drained = eng.tick_no
+            eng.drain_pool(0)
+        elif drained is not None and added is None:
+            torch.cuda.synchronize()
+            r_add, t_add = torch.cuda.memory_reserved(), time.perf_counter()
+            added = eng.add_pool()
+        live0 = eng._pool(0) is not None
+        if live0:
+            torch.cuda.synchronize()
+            mem0 = (torch.cuda.memory_allocated(),
+                    torch.cuda.memory_reserved())
+        assert eng.tick()
+        freeze_graphs(seen, eng._tick.graphs)
+        if added is not None and first_serve is None and any(
+                k[0] == added for k in eng._tick.graphs):
+            torch.cuda.synchronize()
+            first_serve = (time.perf_counter() - t_add,
+                           (torch.cuda.memory_reserved() - r_add) / 2 ** 20)
+        if live0 and eng._pool(0) is None:
+            gc.collect()
+            torch.cuda.synchronize()
+            retired = (eng.tick_no, mem0, (torch.cuda.memory_allocated(),
+                                           torch.cuda.memory_reserved()),
+                       pool0() is None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng._migrate_slots = migrate
+    launches = dict(LAUNCHES)
+    lids = sorted({k[0] for k in seen})
+    per_pool = {lid: graph_launches(seen, since,
+                                    lambda key, lid=lid: key[0] == lid)
+                for lid in lids}
+    # a capture in the phase ran its step once eagerly (all rows inactive)
+    fresh = [g for k, g in seen.items() if k not in since]
+    want = graph_launches(seen, since)
+    for g in fresh:
+        for k, n in g.per_replay.items():
+            want[k] += n
+    bad = [i for i, (p, r) in enumerate(zip(prompts, reqs))
+           if not np.array_equal(r.output(), oracle(p, MIGRATE_NEW))]
+    short = [i for i, r in enumerate(reqs) if len(r.output()) != MIGRATE_NEW]
+    pools = [sp.lid for sp in eng.pools]
+    log(f"[migrate] {MIGRATE_REQS} requests ({MIGRATE_NEW} new tokens each) "
+        f"on {POOLS} pools x {POOL_SLOTS} slots; pool 0 drained at tick "
+        f"{drained}, pool {added} joined at tick {drained + 1}; "
+        f"{eng.tick_no} ticks in all, {wall:.4f} s, "
+        f"{sum(len(r.output()) for r in reqs) / wall:.1f} generated tok/s; "
+        f"migrated_slots {eng.migrated_slots}; pools left {pools}; "
+        f"{len(reqs) - len(short)} of {len(reqs)} requests complete, "
+        f"{len(reqs) - len(bad)} equal to generate_static")
+    a = SlotPool(cfg, POOL_SLOTS, SERVE_MAX_LEN, dev)
+    b = SlotPool(cfg, POOL_SLOTS, SERVE_MAX_LEN, dev)
+    rb = row_bytes(a)
+    for i, (src, dst, k, pos, secs) in enumerate(batches):
+        idx = torch.arange(k, device=dev)
+        ms = graph_ms(torch, lambda: a.move_rows(b, idx, idx))
+        b_ms, _ = bound_ms(2 * k * rb, 0)
+        log(f"[migrate] batch {i}: pool {src} -> pool {dst}, {k} rows "
+            f"({pos} positions), {secs:.6f} s in the engine (synchronised, "
+            f"host bookkeeping included); the move alone {ms:.6f} ms by "
+            f"graph replay, bound {b_ms:.6f} ms by bytes ({k} rows x "
+            f"{rb} B read and written at {HBM_BYTES_PER_S:.3g} B/s)")
+    del a, b
+    if first_serve is not None:
+        log(f"[migrate] pool {added}'s first serve (add_pool to the end of "
+            f"its first tick, its graph's capture in it): "
+            f"{first_serve[0]:.4f} s, {first_serve[1]:.1f} MiB more reserved")
+    if retired is not None:
+        tick, (al0, rs0), (al1, rs1), freed = retired
+        log(f"[migrate] pool 0 retired in tick {tick}: memory_allocated "
+            f"{al0 / 2 ** 20:.1f} -> {al1 / 2 ** 20:.1f} MiB, "
+            f"memory_reserved {rs0 / 2 ** 20:.1f} -> {rs1 / 2 ** 20:.1f} MiB "
+            f"(pool 0's rows {pool0_bytes / 2 ** 20:.1f} MiB); its SlotPool "
+            f"{'freed' if freed else 'still alive'}")
+    log(f"[migrate] launches {_nonzero(launches)} (replays x per replay, and "
+        f"one eager warm-up step per capture in the phase ({len(fresh)}): "
+        f"{'equal' if launches == want else want}); by pool "
+        + "; ".join(f"{lid}: {_nonzero(m)}" for lid, m in per_pool.items()))
+    checks = {
+        "requests differ from generate_static": bad,
+        "requests incomplete": short,
+        "no slot migrated": eng.migrated_slots < 1,
+        f"pools left {pools}, not [1, 2]": pools != [1, 2],
+        "a graph of pool 0 is left": any(k[0] == 0 for k in eng._tick.graphs),
+        "pool 2 not captured in the phase":
+            added != 2 or not any(k[0] == 2 for k in eng._tick.graphs)
+            or eng._tick.captures == caps0,
+        "pool 0 not retired, or still alive": retired is None or
+            not retired[3],
+        f"launches {launches} are not the replays' {want}": launches != want,
+        "a pool's graphs launched not every MoE kernel": not all(
+            m[k] for m in per_pool.values() for k in MOE_KERNELS),
+    }
+    for what, bad_ in checks.items():
+        if bad_:
+            fails.append(f"migrate: {what}" + (f": {bad_[:5]}"
+                                               if isinstance(bad_, list)
+                                               else ""))
+    # the MoE kernels on pool 2's rows (a copy of its state, all rows on)
+    copy = SlotPool(cfg, POOL_SLOTS, SERVE_MAX_LEN, dev)
+    eng._pool(added).gather_into(copy, torch.arange(POOL_SLOTS, device=dev))
+    rows, shapes = check_kernels(
+        torch, step_inputs(torch, cfg, psrv.params, dev, rng, copy),
+        per_pool[added])
+    log_kernel_rows(suffixed(rows, f"pool{added}"), shapes)
+    del eng, psrv, copy
+    _free(torch)
+    return rows
+
+
 def serve_features_phase(torch, dev, fails, phase_time) -> list:
-    """[spec], [prefix], [publish], [pools], [compact] and [autotune] on one
-    full-width model.  Returns the kernels' JSON rows of [pools] and
-    [compact]."""
+    """[spec], [prefix], [publish], [pools], [compact], [autotune] and
+    [migrate] on one full-width model.  Returns the kernels' JSON rows of
+    [pools], [compact] and [migrate]."""
     from repro_torch.models import lm
     from repro_torch.runtime.serve import BatchedServer
     cfg = moe_cfg()
@@ -2039,6 +2234,8 @@ def serve_features_phase(torch, dev, fails, phase_time) -> list:
     phase_time("compact")
     autotune_phase(torch, dev, cfg, srv, oracle, allow, fails)
     phase_time("autotune")
+    rows += migrate_phase(torch, dev, cfg, srv, oracle, fails)
+    phase_time("migrate")
     return rows
 
 

@@ -116,8 +116,27 @@ arguments, ``engine.autotune``): ``spec_len``, ``compact_frac``,
 ``prefill_chunk`` and the class weights become windowed Maestro decisions,
 applied at tick boundaries through the same handlers as ``update``.
 
-Device placements, draining a pool and migrating its slots need more than
-one device and are not ported yet.
+**Elastic pools and live slot migration** (``add_pool()``,
+``drain_pool(lid)``): a pool can join under load (its graphs captured on
+first use, marked cold) and a pool can drain away.  A draining pool admits
+nothing; at the top of every tick one batch of at most
+``cfg.serve.migrate_batch`` of its in-flight slots moves to the pool
+``Engine.choose_migration_dst`` picks — every row leaf, the position, the
+pending reset flag and the sampling generator, copied in place into the
+destination's tensors, so no graph's tensor is replaced — and an empty
+draining pool is retired with its graphs and compact buffer sets.  A
+slot's row, position and generator determine its continuation, so greedy
+outputs are unchanged by any migration, and no request drops.  While a
+drain routes into a pool, that pool's candidates carry the pending
+batches times the measured ``serve_migrate`` time (the ``xfer`` term).
+Pools are addressed by their stable ``lid`` (``_pool``), never by list
+position; ``pool_id`` offsets the pools' cost-kind ids
+(``pool_id..pool_id+pools-1``) so that several engines can share one
+``Engine``.
+
+Device placements (a pool's own device group, its params copy, parallel
+group ticks and the ``load`` term) need more than one device and are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -136,8 +155,8 @@ from repro_torch.core import messages as M
 from repro_torch.engine.autotune import AutoTuner
 from repro_torch.engine.draft import slice_draft_params, truncated_draft_cfg
 from repro_torch.engine.engine import Engine
-from repro_torch.engine.jobs import (Job, TickCandidate, layout_kind,
-                                     pool_kind, spec_kind)
+from repro_torch.engine.jobs import (COST_DEFAULTS, Job, TickCandidate,
+                                     layout_kind, pool_kind, spec_kind)
 from repro_torch.engine.prefix_cache import (PrefixAnalyzer, PrefixCache,
                                              to_host)
 from repro_torch.kernels import LAUNCHES, credit_launches, launches_since
@@ -415,11 +434,16 @@ class SlotTick:
 
     @property
     def graphed(self) -> Optional[GraphedStep]:
-        """Pool 0's target step graph at its full height (None before its
-        first full tick)."""
-        full = [g for (lid, n, _), g in self.graphs.items()
-                if lid == 0 and n == "step"]
-        return max(full, key=lambda g: g.rows, default=None)
+        """The target step graph at full height of the first live pool that
+        has one (a retired pool's graphs are dropped, ``drop_pool``); None
+        before any capture."""
+        steps = [(lid, g) for (lid, n, _), g in self.graphs.items()
+                 if n == "step"]
+        if not steps:
+            return None
+        first = min(lid for lid, _ in steps)
+        return max((g for lid, g in steps if lid == first),
+                   key=lambda g: g.rows)
 
     def capture_pending(self, pool, arm: str = "") -> bool:
         need = ("step", "propose") if arm == "draft" else ("step",)
@@ -432,6 +456,13 @@ class SlotTick:
         graphs hold).  The memory pool goes with them."""
         self.graphs.clear()
         self._mempool = None
+
+    def drop_pool(self, lid: int) -> None:
+        """Drop every graph of pool ``lid``, full and compact heights: a
+        retired pool's tensors must not stay alive through the graphs that
+        hold their addresses."""
+        for key in [k for k in self.graphs if k[0] == lid]:
+            del self.graphs[key]
 
     def runner(self, name: str, *state):
         """``fn(tok, active) -> (logits, argmax)`` of step ``name`` over
@@ -543,15 +574,21 @@ class SlotPool:
     generators.  Every write is in place: a CUDA graph holds the tensors'
     addresses.
 
-    ``lid`` is the pool's id: requests and ``class_pools`` address pools
-    by it, and the engine's cost kinds carry it (``jobs.pool_kind``).
-    ``compact_rows(n)`` is the pool's persistent buffer set of height
-    ``n`` for compact ticks."""
+    ``lid`` is the pool's stable engine-local id: requests, routing,
+    ``class_pools`` and the graphs' keys address pools by it (list
+    position changes as pools drain away, the lid never does).
+    ``pool_id`` (``lid`` unless given) is its id in the engine's cost
+    kinds (``jobs.pool_kind``, ``TickCandidate``, acceptance EMAs).
+    ``draining`` stops admission to it.  ``compact_rows(n)`` is the pool's
+    persistent buffer set of height ``n`` for compact ticks."""
 
     def __init__(self, cfg: ArchConfig, slots: int, max_len: int, device,
-                 draft_cfg: Optional[ArchConfig] = None, lid: int = 0):
+                 draft_cfg: Optional[ArchConfig] = None, lid: int = 0,
+                 pool_id: Optional[int] = None):
         self.cfg, self.max_len, self.draft_cfg = cfg, max_len, draft_cfg
         self.lid = lid
+        self.pool_id = lid if pool_id is None else pool_id
+        self.draining = False
         self.slots = slots
         state = lm.init_cache(cfg, slots, max_len, device=device)
         self.caches = state["caches"]
@@ -583,7 +620,7 @@ class SlotPool:
         if sub is None:
             sub = self._compact[rows] = SlotPool(
                 self.cfg, rows, self.max_len, self.pos.device,
-                self.draft_cfg, lid=self.lid)
+                self.draft_cfg, lid=self.lid, pool_id=self.pool_id)
         return sub
 
     def gather_into(self, sub: "SlotPool", idx) -> None:
@@ -600,6 +637,16 @@ class SlotPool:
                                            sub.row_leaves()):
             c.index_copy_(dim, idx, cc)
         self.pos.index_copy_(0, idx, sub.pos)
+
+    def move_rows(self, dst: "SlotPool", src_idx, dst_idx) -> None:
+        """Copy rows ``src_idx`` of every per-slot leaf and their positions
+        into rows ``dst_idx`` of ``dst`` (device index tensors): one
+        ``index_select`` and one in-place ``index_copy_`` a leaf, so none
+        of ``dst``'s tensors is replaced."""
+        for (_, c, dim), (_, cc, _) in zip(self.row_leaves(),
+                                           dst.row_leaves()):
+            cc.index_copy_(dim, dst_idx, c.index_select(dim, src_idx))
+        dst.pos.index_copy_(0, dst_idx, self.pos.index_select(0, src_idx))
 
     def row_leaves(self):
         """``(path, tensor, slot dim)`` of every per-slot leaf a snapshot
@@ -672,8 +719,8 @@ class ServeEngine:
                  slots: int = 4, prefill_chunk: int = 16,
                  decode_chunk: int = 4, engine: Optional[Engine] = None,
                  seed: int = 0, compact_decode: Optional[bool] = None,
-                 spec_decode: bool = False, pools: int = 1,
-                 class_pools: Optional[Dict[str, tuple]] = None,
+                 spec_decode: bool = False, pool_id: int = 0,
+                 pools: int = 1, class_pools: Optional[Dict[str, tuple]] = None,
                  prefix_cache: bool = False, params_version: int = 0,
                  draft: Optional[str] = None,
                  draft_cfg: Optional[ArchConfig] = None, draft_params=None,
@@ -683,9 +730,13 @@ class ServeEngine:
         self.params = serving_params(params, self.device)
         self.engine = engine or Engine()
         self.max_len = max_len
+        self.slots = slots
         self.prefill_chunk = prefill_chunk
         self.decode_chunk = decode_chunk
         self.seed = seed
+        # pools get the cost-kind ids pool_id..pool_id+pools-1, so that the
+        # per-pool EMAs of several ServeEngines sharing one Engine stay apart
+        self.pool_id = pool_id
         # compact decode: None lets Engine.choose_compact pick the layout of
         # each eligible tick from measured per-pool EMAs; True/False pins it
         self.compact_decode = compact_decode
@@ -737,9 +788,16 @@ class ServeEngine:
             if not pids or not all(0 <= p < n_pools for p in pids):
                 raise ValueError(f"class_pools[{cls!r}]={pids}: pool ids "
                                  f"must be in [0, {n_pools})")
+        # the live pools, in lid order; a drained pool drops out, so pools
+        # are looked up by lid (``_pool``), never by list position
         self.pools: List[SlotPool] = [
-            SlotPool(cfg, slots, max_len, self.device, self.draft_cfg, lid=i)
+            SlotPool(cfg, slots, max_len, self.device, self.draft_cfg, lid=i,
+                     pool_id=pool_id + i)
             for i in range(n_pools)]
+        self._next_local = n_pools
+        # the pool a drain last routed into (its candidates carry ``xfer``)
+        self._last_mig_dst: Optional[int] = None
+        self.migrated_slots = 0
         self._tick = SlotTick(cfg, self.device,
                               graph=self.device.type == "cuda",
                               draft_cfg=self.draft_cfg)
@@ -776,7 +834,7 @@ class ServeEngine:
     # ------------------------------------------------------------- pools
     @property
     def pool(self) -> SlotPool:
-        """The first slot pool (the whole engine when ``pools=1``)."""
+        """The first live slot pool (the whole engine when ``pools=1``)."""
         return self.pools[0]
 
     @property
@@ -791,6 +849,131 @@ class ServeEngine:
         ``Engine.choose_serve_tick``, decision for decision the engine
         without classes."""
         return len(self.pools) == 1 and len(self.classes) == 1
+
+    def _pool(self, lid: int) -> Optional[SlotPool]:
+        """The live pool of id ``lid`` (None once it has drained away)."""
+        for sp in self.pools:
+            if sp.lid == lid:
+                return sp
+        return None
+
+    def _busy(self, sp: SlotPool) -> float:
+        """The occupied share of the other pools' slots: every pool shares
+        the one device, so this is the contention a pool's ticks meet."""
+        tot = occ = 0
+        for o in self.pools:
+            if o is not sp:
+                tot += o.slots
+                occ += o.slots - o.free_slots()
+        return occ / tot if tot else 0.0
+
+    # --------------------------------------------------------- elasticity
+    def add_pool(self, placement=None, slots: Optional[int] = None) -> int:
+        """Elastic scale-out: append a pool of ``slots`` slots (by default
+        the engine's) under the next lid, admissible at once (also as
+        ``submit(pool=...)``); returns its lid.  On the card its graphs are
+        captured on first use, marked cold, into the shared graph memory
+        pool.  Sampling generators are keyed by request (``_stream_seed``),
+        not by pool, so an engine grown to N pools gives each request the
+        stream an engine built with N pools gives it.  Device placements
+        are not ported: ``placement`` must be None."""
+        if placement is not None:
+            raise ValueError("device placements are not ported; "
+                             "add_pool takes placement=None only")
+        lid = self._next_local
+        self._next_local += 1
+        self.pools.append(SlotPool(self.cfg, slots or self.slots,
+                                   self.max_len, self.device, self.draft_cfg,
+                                   lid=lid, pool_id=self.pool_id + lid))
+        return lid
+
+    def drain_pool(self, lid: int) -> None:
+        """Elastic scale-in, live: stop admitting to pool ``lid`` and move
+        its in-flight slots out, one batch of at most
+        ``cfg.serve.migrate_batch`` a tick (``_drain_step``), then retire
+        the empty pool.  The draining pool keeps ticking its slots until
+        the last one leaves, so nothing stops streaming; zero requests
+        drop.  Queued requests pinned to it fall back to open routing."""
+        sp = self._pool(lid)
+        if sp is None:
+            raise ValueError(f"no pool {lid}; pools: "
+                             f"{[o.lid for o in self.pools]}")
+        if not any(o is not sp and not o.draining for o in self.pools):
+            raise ValueError(f"draining pool {lid} would leave no "
+                             "admissible pool")
+        sp.draining = True
+        for req in self.queue:
+            if req.pin_pool == lid:
+                req.pin_pool = None
+
+    def _drain_step(self) -> None:
+        """One migration batch per draining pool, to the destination
+        ``Engine.choose_migration_dst`` picks among the open pools with
+        free slots; a saturated fleet defers the move (the draining pool
+        keeps serving).  A draining pool left empty is retired."""
+        for src in [sp for sp in self.pools if sp.draining]:
+            occ = [(s, r) for s, r in enumerate(src.active) if r is not None]
+            if occ:
+                opts = [{"pool": o.pool_id, "free": o.free_slots(),
+                         "busy": self._busy(o)}
+                        for o in self.pools
+                        if o is not src and not o.draining
+                        and o.free_slots() > 0]
+                if not opts:
+                    continue
+                dst = self._pool(self.engine.choose_migration_dst(opts)
+                                 - self.pool_id)
+                self._last_mig_dst = dst.lid
+                self._migrate_slots(src, dst, occ[:min(
+                    self.cfg.serve.migrate_batch, dst.free_slots())])
+            if src.free_slots() == src.slots:
+                self._retire(src)
+
+    def _retire(self, sp: SlotPool) -> None:
+        """Remove an empty pool with its graphs and compact buffer sets."""
+        self.pools.remove(sp)
+        self._tick.drop_pool(sp.lid)
+        sp._compact.clear()
+
+    def _migrate_slots(self, src: SlotPool, dst: SlotPool,
+                       moves: List[tuple]) -> None:
+        """Move in-flight slots ``moves`` ([(slot, request)]) from ``src``
+        into free slots of ``dst``: every row leaf and the positions in
+        one ``index_select`` and one in-place ``index_copy_`` a leaf
+        (``SlotPool.move_rows``), then the host position, the pending reset
+        flag (a never-ticked join travels as its stale row plus its flag,
+        which ``dst``'s next tick zeroes), the sampling generator (the same
+        object, not re-seeded) and ``Request.pool/slot``.  A slot's row,
+        position and generator determine its continuation, so the outputs
+        are those of an unmigrated run.  Measured as a ``serve_migrate``
+        job (per moved position) and under ``dst``'s pool kind, which
+        ``choose_migration_dst`` and the ``xfer`` term read."""
+        k = len(moves)
+        free = [s for s in range(dst.slots) if dst.active[s] is None]
+        assert 0 < k <= len(free)
+        dst_slots = free[:k]
+        src_idx = torch.as_tensor([s for s, _ in moves], device=self.device)
+        dst_idx = torch.as_tensor(dst_slots, device=self.device)
+        ntok = max(int(sum(src.pos_host[s] for s, _ in moves)), 1)
+        warm = ("migrate", k)
+        cold = warm not in self._warm
+        self._warm.add(warm)
+        job = Job("serve_migrate", tokens=ntok, meta={"cold": cold})
+        pjob = Job(pool_kind("serve_migrate", dst.pool_id), tokens=ntok,
+                   meta={"cold": cold})
+
+        def thunk():
+            src.move_rows(dst, src_idx, dst_idx)
+            self._sync()
+
+        self.engine.run_job(job, thunk, extra=(pjob,))
+        for (s, r), d in zip(moves, dst_slots):
+            dst.active[d], src.active[s] = r, None
+            dst.gens[d], src.gens[s] = src.gens[s], None
+            dst.pos_host[d], src.pos_host[s] = src.pos_host[s], 0
+            dst.reset[d], src.reset[s] = bool(src.reset[s]), False
+            r.pool, r.slot = dst.lid, d
+        self.migrated_slots += k
 
     # ------------------------------------------------------------- requests
     def submit(self, prompt, max_new: int = 16, temperature: float = 0.0,
@@ -814,8 +997,9 @@ class ServeEngine:
         if priority not in self.classes:
             raise ValueError(f"unknown priority {priority!r}; classes: "
                              f"{list(self.classes)}")
-        if pool is not None and not 0 <= pool < len(self.pools):
-            raise ValueError(f"no pool {pool}; pools: "
+        if pool is not None and ((sp := self._pool(pool)) is None
+                                 or sp.draining):
+            raise ValueError(f"no open pool {pool}; pools: "
                              f"{[sp.lid for sp in self.pools]}")
         rid = next(self._rid)
         req = Request(rid, prompt, max_new, temperature,
@@ -834,7 +1018,7 @@ class ServeEngine:
         return req
 
     def _evict(self, req: Request) -> None:
-        sp = self.pools[req.pool]
+        sp = self._pool(req.pool)
         # a request that straddled a weight swap ran partly on old weights:
         # its slot state and its output belong to neither version
         fresh = req.joined_version == self.params_version
@@ -885,7 +1069,7 @@ class ServeEngine:
         cold = kind not in self._warm
         self._warm.add(kind)
         job = Job(kind, tokens=tokens, meta={"cold": cold})
-        pjob = Job(pool_kind(kind, sp.lid), tokens=tokens,
+        pjob = Job(pool_kind(kind, sp.pool_id), tokens=tokens,
                    meta={"cold": cold})
 
         def thunk():
@@ -908,8 +1092,13 @@ class ServeEngine:
             return [req.pin_pool]
         allowed = self.class_pools.get(req.priority)
         if allowed is not None:
-            return list(allowed)
-        return [sp.lid for sp in self.pools]
+            live = [p for p in allowed
+                    if (sp := self._pool(p)) is not None and not sp.draining]
+            if live:
+                return live
+            # every pool the class routes to has drained away: open
+            # routing rather than a stranded class
+        return [sp.lid for sp in self.pools if not sp.draining]
 
     def _admit(self) -> None:
         """Join queued requests into free slots.  The row zeroing and
@@ -918,9 +1107,10 @@ class ServeEngine:
 
         Routing: a pinned request joins only its pool; otherwise
         ``class_pools`` restricts the admissible pools, and among those the
-        emptiest wins (ties: the lowest id).  A request whose admissible
-        pools are all full stays queued, in order, without blocking later
-        requests bound for a free pool.
+        emptiest wins (ties: the lowest id); a draining pool admits
+        nothing.  A request whose admissible pools are all full stays
+        queued, in order, without blocking later requests bound for a free
+        pool.
 
         Prefix cache (when enabled): an exact result-cache hit answers the
         request here — it never takes a slot.  Otherwise a greedy request
@@ -941,12 +1131,13 @@ class ServeEngine:
                 self._finish_from_cache(req, out)
                 continue
             cands = [p for p in self._allowed_pools(req)
-                     if self.pools[p].free_slots() > 0]
+                     if (c := self._pool(p)) is not None
+                     and not c.draining and c.free_slots() > 0]
             if not cands:
                 remaining.append(req)
                 continue
-            pid = max(cands, key=lambda p: (self.pools[p].free_slots(), -p))
-            sp = self.pools[pid]
+            pid = max(cands, key=lambda p: (self._pool(p).free_slots(), -p))
+            sp = self._pool(pid)
             slot = next(s for s in range(sp.slots) if sp.active[s] is None)
             req.pool, req.slot = pid, slot
             req.joined_version = self.params_version
@@ -959,7 +1150,7 @@ class ServeEngine:
                     version=self.params_version)
             if node is not None and self.engine.choose_prefix_admission(
                     node.depth, len(req.prompt) - node.depth,
-                    pool_id=sp.lid) == "seed":
+                    pool_id=sp.pool_id) == "seed":
                 self.prefix.acquire(node)
                 req.seed_node = node
                 req.prompt_off = node.depth
@@ -978,7 +1169,7 @@ class ServeEngine:
                     device=self.device).manual_seed(req.seed)
         self.queue = remaining
         for pid, ss in seeds.items():
-            sp = self.pools[pid]
+            sp = self._pool(pid)
             self._row_job(sp, "serve_seed", sum(n.depth for _, n in ss),
                           lambda: sp.seed_rows([s for s, _ in ss],
                                                [n.snapshot for _, n in ss],
@@ -1009,9 +1200,11 @@ class ServeEngine:
                            "max_new": r.max_new, "priority": r.priority,
                            "deferred": r.deferred}
                           for r in self.active],
-                "pools": [{"lid": sp.lid,
-                           "slots": sp.slots, "free": sp.free_slots()}
+                "pools": [{"id": sp.pool_id, "lid": sp.lid,
+                           "slots": sp.slots, "free": sp.free_slots(),
+                           "draining": sp.draining}
                           for sp in self.pools],
+                "migrated_slots": self.migrated_slots,
                 "classes": {n: {"weight": c.weight,
                                 "max_defer": c.max_defer}
                             for n, c in self.classes.items()},
@@ -1175,9 +1368,12 @@ class ServeEngine:
         """One TickCandidate per (pool, composition) with work: the menu
         ``Engine.choose_serve_job`` arbitrates by weighted FRT.  A prefill
         candidate is ``aged`` once any of its requests has sat out its
-        class's ``max_defer`` scheduled ticks.  Without placements the
-        ``load`` and ``xfer`` terms are 0."""
+        class's ``max_defer`` scheduled ticks.  ``xfer`` is the migration
+        traffic about to land on a pool: while a drain routes into it, the
+        pending batches times the measured ``serve_migrate`` time.  Without
+        placements ``load`` is 0."""
         cands = []
+        draining = any(sp.draining for sp in self.pools)
         for sp in self.pools:
             act = [r for r in sp.active if r is not None]
             if not act:
@@ -1188,20 +1384,30 @@ class ServeEngine:
             def weight(rs):
                 return sum(self.classes[r.priority].weight for r in rs)
 
+            xfer = 0.0
+            if draining and self._last_mig_dst == sp.lid:
+                pend = sum(o.slots - o.free_slots()
+                           for o in self.pools if o.draining)
+                t_mig = self.engine.costs.estimate_first(
+                    [pool_kind("serve_migrate", sp.pool_id),
+                     "serve_migrate"], COST_DEFAULTS["serve_migrate"])
+                xfer = -(-pend // max(self.cfg.serve.migrate_batch, 1)) \
+                    * t_mig
             if dec:
                 arms = self._pool_spec_arms(act)
                 cands.append(TickCandidate(
-                    sp.lid, "decode", n_dec=len(dec), n_pre=len(pre),
+                    sp.pool_id, "decode", n_dec=len(dec), n_pre=len(pre),
                     chunk=self.decode_chunk, weight=weight(dec),
-                    spec_len=self.spec_len if arms else 0, arms=arms))
+                    spec_len=self.spec_len if arms else 0, arms=arms,
+                    xfer=xfer))
             if pre:
                 overdue = max(r.deferred - self.classes[r.priority].max_defer
                               for r in pre)
                 cands.append(TickCandidate(
-                    sp.lid, "prefill", n_dec=len(dec), n_pre=len(pre),
+                    sp.pool_id, "prefill", n_dec=len(dec), n_pre=len(pre),
                     pre_toks=sum(len(r.prompt) - r.prompt_off for r in pre),
                     chunk=self.prefill_chunk, weight=weight(pre),
-                    aged=overdue >= 0, overdue=max(overdue, 0)))
+                    aged=overdue >= 0, overdue=max(overdue, 0), xfer=xfer))
         return cands
 
     def _age_prefills(self, part: List[Request]) -> None:
@@ -1268,7 +1474,7 @@ class ServeEngine:
             and len(part) <= int(sp.slots * self.compact_frac)
         compact = compact_ok and (
             self.compact_decode if self.compact_decode is not None
-            else self.engine.choose_compact(sp.lid))
+            else self.engine.choose_compact(sp.pool_id))
         idx = np.arange(sp.slots)
         if compact:
             nc = 1
@@ -1291,14 +1497,14 @@ class ServeEngine:
         # tick under the arm-agnostic aggregate, and on a layout-eligible
         # tick under its layout: the inputs of the engine's arbitration,
         # arm, admission and layout decisions
-        extras = [Job(pool_kind(kind, sp.lid), tokens=ntok,
+        extras = [Job(pool_kind(kind, sp.pool_id), tokens=ntok,
                       meta={"cold": cold})]
         if spec:
             extras.append(Job("serve_spec_decode", tokens=ntok,
                               meta={"cold": cold}))
         if compact_ok:
-            extras.append(Job(layout_kind(compact, sp.lid), tokens=ntok,
-                              meta={"cold": cold}))
+            extras.append(Job(layout_kind(compact, sp.pool_id),
+                              tokens=ntok, meta={"cold": cold}))
         reset = sp.reset.copy()
 
         def dispatch():
@@ -1387,14 +1593,15 @@ class ServeEngine:
             st["proposed"] += proposed
             st["accepted"] += accepted
             if proposed:
-                self.engine.observe_accept(sp.lid, accepted / proposed,
+                self.engine.observe_accept(sp.pool_id, accepted / proposed,
                                            arm=plan.arm)
         return n_new
 
     def tick(self) -> bool:
         """One engine iteration.  Returns False when stopped, True otherwise
         (including idle ticks).  Control messages land here, between
-        ticks.
+        ticks; then each draining pool moves one batch of its slots
+        (``_drain_step``) and queued requests join.
 
         With one pool and the single default class the composition is
         ``Engine.choose_serve_tick``; otherwise every pool's candidate
@@ -1402,6 +1609,7 @@ class ServeEngine:
         per-class aging bounds) and one pool wins the round."""
         if self._poll():
             return False
+        self._drain_step()
         self._admit()
         if self.single_pool:
             sp = self.pools[0]
@@ -1415,13 +1623,13 @@ class ServeEngine:
             mode = self.engine.choose_serve_tick(
                 len(act) - n_pre, n_pre, pre_toks, self.decode_chunk,
                 self.prefill_chunk, spec_len=self.spec_len if arms else 0,
-                pool_id=sp.lid, arms=arms)
+                pool_id=sp.pool_id, arms=arms)
         else:
             cands = self._candidates()
             if not cands:
                 return True
             gid, mode = self.engine.choose_serve_job(cands)
-            sp = self.pools[gid]
+            sp = self._pool(gid - self.pool_id)
             act = [r for r in sp.active if r is not None]
         plan = self._plan_tick(sp, act, mode)
         if plan is None:

@@ -8,11 +8,15 @@ chunk sizes, ``compact_decode``, ``spec_decode`` and the draft axis
 ``prefix_cache``, one or two pools, control batches delivered between
 ticks (pause/inspect/resume, chunk updates, speculation toggles, a garbage
 draft publish, a value-identical weight publish) and loadgen arrival
-ticks.  Device placements and ``drain_pool`` are not in the port; the
-scenario's ``placements`` and ``drain_at`` draws are ignored.  Each
-request's greedy output must equal the port's ``generate_static`` token
-for token.  One more case forces every axis at once: two pools, forced
-compact decode, the n-gram arm, the prefix cache and bursty arrivals.
+ticks, and a mid-stream ``drain_pool`` of the first pool at the
+scenario's ``drain_at`` tick when more than one pool is live (its slots
+migrate live, or finish in place while the fleet is saturated).  Device
+placements are not in the port; the scenario's ``placements`` draw is
+ignored.  Each request's greedy output must equal the port's
+``generate_static`` token for token.  Two more cases force every axis at
+once: two pools, forced compact decode, the n-gram arm, the prefix cache
+and bursty arrivals, once as they are and once with pool 0 drained
+mid-stream.
 
 As in tests/test_torch_compact.py, the tests run torch's native CPU GEMM
 (``torch.backends.mkldnn`` off), whose rows do not depend on the batch
@@ -130,6 +134,7 @@ def run_scenario(sc):
     pend = sorted(range(len(sc["prompts"])), key=lambda i: arrival[i])
     reqs: list = [None] * len(sc["prompts"])
     ctl_rng = np.random.default_rng(sc["ctl_seed"])
+    drain_at = sc.get("drain_at")
     ticks = 0
     while pend or eng.queue or any(r is not None for r in eng.active):
         while pend and arrival[pend[0]] <= ticks:
@@ -137,6 +142,8 @@ def run_scenario(sc):
             reqs[i] = eng.submit(sc["prompts"][i], max_new=sc["max_news"][i])
         if ticks in sc["schedule"]:
             _ctl_batch(eng, sc["schedule"][ticks], ctl_rng)
+        if ticks == drain_at and len(eng.pools) > 1:
+            eng.drain_pool(eng.pools[0].lid)
         assert eng.tick(), "engine stopped unexpectedly"
         ticks += 1
         assert ticks < 1000, "serve engine did not drain"
@@ -149,7 +156,7 @@ def run_scenario(sc):
                      f" compact={sc['compact']} spec={sc['spec']}"
                      f" draft={sc.get('draft')} pools={sc.get('pools', 1)}"
                      f" prefix_cache={sc.get('prefix_cache', False)}"
-                     f" schedule={sc['schedule']}"))
+                     f" drain_at={drain_at} schedule={sc['schedule']}"))
     return eng
 
 
@@ -159,10 +166,11 @@ def test_differential_seeded(case):
                                                     + case)))
 
 
-def test_differential_every_axis_at_once():
+def _every_axis(drain_at=None):
     """Two pools, forced compact decode, the n-gram arm and the prefix
-    cache on a shared preamble, under bursty arrivals: compact, speculative
-    and seeded ticks all run, and every output equals the oracle."""
+    cache on a shared preamble, under bursty arrivals (the last two
+    requests arrive at tick 12): compact, speculative and seeded ticks all
+    run, and every output equals the oracle."""
     rng = np.random.default_rng(PYTEST_SEED + 577)
     shared = rng.integers(1, CFG.vocab, 8).astype(np.int32)
     prompts = [np.concatenate([shared, rng.integers(1, CFG.vocab, n)
@@ -170,9 +178,23 @@ def test_differential_every_axis_at_once():
     sc = {"prompts": prompts, "max_news": [6, 3, 8, 5, 7], "slots": 3,
           "prefill_chunk": 4, "decode_chunk": 2, "compact": True,
           "spec": True, "draft": None, "prefix_cache": True, "pools": 2,
-          "schedule": {}, "ctl_seed": 0,
+          "schedule": {}, "ctl_seed": 0, "drain_at": drain_at,
           "arrival": [int(t) for t in np.minimum(arrival_offsets(
               "bursty", len(prompts), rng, burst=2, gap=3.0), 12)]}
     eng = run_scenario(sc)
     assert eng.compact_ticks > 0 and eng.spec_ticks > 0
     assert eng.prefix.seeded + eng.prefix.result_hits > 0
+    return eng
+
+
+def test_differential_every_axis_at_once():
+    _every_axis()
+
+
+def test_differential_every_axis_with_a_drain():
+    """The same, with pool 0 drained at tick 10, between the bursts: a
+    slot migrates under the n-gram arm with the prefix cache on, and pool
+    0 is retired."""
+    eng = _every_axis(drain_at=10)
+    assert eng.migrated_slots > 0
+    assert [sp.lid for sp in eng.pools] == [1]

@@ -12,7 +12,9 @@ and inside the port (the reference's tests/test_serve_priority.py).
   a step where the reference's top-2 logit margin is under 2e-2 (a bf16
   near-tie the two frameworks may resolve apart; the row is compared no
   further).  The inputs are fixed ones (their own seed, independent of
-  PYTEST_SEED), as in tests/test_torch_serve.py.
+  PYTEST_SEED), as in tests/test_torch_serve.py.  The same holds when
+  both pools' prefills age in the same rounds, where one waits a tick
+  past its class's ``max_defer`` in both engines.
 * The weighted-FRT arbitration of the port's ``Engine`` (a copy of the
   reference's) on hand-made candidates.
 * Inside the port: the starvation bound (a low-priority prefill under a
@@ -210,6 +212,49 @@ def test_decisions_and_deferrals_match_reference(case):
     assert compared >= total * 3 // 4
     assert eng.tick_no == ref.tick_no
     assert eng.compact_ticks == ref.compact_ticks
+
+
+def test_aging_bound_with_both_pools_aging_at_once():
+    """Both pools' low-priority prefills age in the same rounds under a
+    high-priority decode stream on each pool.  ``choose_serve_job``
+    serves one pool a tick, the most overdue first, so when both reach
+    ``max_defer`` together one waits a tick past it: the reference's
+    behaviour, copied.  The reference and the port (one frozen CostBook
+    each) make the same decisions and peak at the same ``max_deferred``
+    per class, and that peak is the bound plus one."""
+    params_j, params_t = _weights()
+    kw = dict(max_len=MAX_LEN, slots=2, prefill_chunk=4, decode_chunk=2,
+              pools=2)
+    ref = j_serve.ServeEngine(_prio(j_get_arch(ARCH), J_CLASSES), params_j,
+                              engine=_frozen(JEngine, j_jobs.pool_kind, 2),
+                              **kw)
+    eng = ServeEngine(CFG_PRIO, params_t, device="cpu",
+                      engine=_frozen(Engine, jobs.pool_kind, 2), **kw)
+    rng = np.random.default_rng(31)
+    hi = [rng.integers(1, CFG.vocab, 3).astype(np.int32) for _ in range(2)]
+    lo = [rng.integers(1, CFG.vocab, 12).astype(np.int32) for _ in range(2)]
+
+    def drive(e):
+        hs = [e.submit(p, max_new=30, priority="hi", pool=i)
+              for i, p in enumerate(hi)]
+        while any(r.prefilling for r in hs):
+            assert e.tick()
+        ls = [e.submit(p, max_new=2, priority="lo", pool=i)
+              for i, p in enumerate(lo)]
+        for _ in range(200):
+            if all(len(r.tokens) >= r.max_new for r in hs + ls):
+                break
+            assert e.tick()
+        peak = {}
+        for r in hs + ls:
+            peak[r.priority] = max(peak.get(r.priority, 0), r.max_deferred)
+        return peak
+
+    want, got = drive(ref), drive(eng)
+    assert list(eng.engine.decisions) == list(ref.engine.decisions)
+    assert got == want
+    bound = dict((c.name, c.max_defer) for c in CLASSES)["lo"]
+    assert got["lo"] == bound + 1
 
 
 # ------------------------------------------------------- engine unit tests
