@@ -132,7 +132,45 @@
    plain versions, then 3 steps of 2 x 2048 tokens in 2 microbatches, each
    step launching 52 ``flash_fwd`` and 52 ``flash_bwd``.  Each step and
    each phase logs its wall time;
-10. prints the kernels' JSON line, the card's name and power limit, and
+10. the reference's last six configs at their published widths, random
+    bf16 weights drawn on the card from the seed, each forward the main
+    path of its phase (a warm-up, then the run counted from 0, then again
+    under a CUDA-only trace for its busy share and device time by kernel),
+    each serve through ``BatchedServer`` on the graphed tick (counts from
+    0: replays x per-replay counts) held to ``generate_static`` on batches
+    of one prompt length, and each model freed before the next:
+    ``[olmoe]`` ``olmoe-1b-7b`` (16 layers, d_model 2048, 64 experts + 16
+    spare slots top-8, the fused gating and dispatch): 8 prompts of 16 and
+    128 tokens on 8 slots, 16 new each (the oracle on batches of 8 rows
+    at a capacity at which nothing drops and its expert products have the
+    engine's rows); the MoE kernels at k 8 over
+    80 slots against their plain versions on the serve tick's and the
+    forward's inputs (``gating_kernel<32, 2>``); the forward on ``[4,
+    1024]``; the ``moe`` block's forward vs decode; then ``[olmoe train]``
+    at 2 of 16 layers (an f32 step of the port holds about 36 B a
+    parameter): ``train_compare``, then 3 ``TrainLoop`` steps of 4 x 1024
+    with ``MoEReshaper``, each step's launches checked; ``[qwen3moe]``
+    ``qwen3-moe-235b-a22b`` at 6 of 94 layers (128 experts + 16 spare
+    slots top-8, q dim 8192 against d_model 4096): the forward on ``[2,
+    1024]`` (``gating_kernel<32, 4>``; the flash kernel at hd 128 with 16
+    query heads a KV head), the MoE kernels over 144 slots at D 4096 on the
+    forward's and the serve tick's inputs, 4 prompts served on 4 slots;
+    ``[dense]`` ``starcoder2-7b`` (all 32 layers), ``yi-34b`` (16 of 60)
+    and ``command-r-plus-104b`` (8 of 64): the forward on ``[1, 2048]``, 2
+    prompts served on 2 slots; ``[qwen2vl]`` ``qwen2-vl-7b`` (all 28
+    layers, M-RoPE): the forward on ``[2, 1024]`` whose first 256
+    positions are a 16 x 16 patch grid's (t, h, w) ids, against the plain
+    versions' forward, 4 prompts served; ``[whisper]`` ``whisper-base``
+    (6 encoder and 6 decoder layers): ``encode`` on ``[4, 1500, 512]``
+    frames, the forward on 448 tokens (18 flash launches: 6 encoder, 6
+    causal self, 6 cross), ``decode_step`` against the precomputed cross
+    K/V vs the forward within the reference's atol 0.15 and rtol 0.1, one
+    training microbatch through the kernels vs the plain versions and 3
+    ``TrainLoop`` steps, and the non-causal flash forward and backward on
+    the encoder's and the cross-attention's captured inputs against their
+    plain version, timed beside ``scaled_dot_product_attention`` and aten's
+    flash backward;
+11. prints the kernels' JSON line, the card's name and power limit, and
     last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or without
@@ -316,10 +354,7 @@ def capture_kernel_inputs(torch, run, targets=None, clone=True):
     ``targets`` are (module, wrapper name) pairs, by default the MoE
     kernels'.  Returns ``(run()'s result, {wrapper name: args})``."""
     if targets is None:
-        from repro_torch.kernels.moe_dispatch import ops as dops
-        from repro_torch.kernels.moe_gating import ops as gops
-        targets = [(gops, "gating_cuda"), (dops, "dispatch_cuda"),
-                   (dops, "combine_cuda")]
+        targets = moe_targets()
     seen = {}
     originals = [getattr(m, n) for m, n in targets]
 
@@ -787,8 +822,12 @@ def block_decode_check(torch, cfg, params, toks, tag, fails) -> None:
     feeds it: the full-sequence apply (through the kernels) against the
     block's step-by-step decode from an empty cache, every output within
     BLOCK_TOL of the output's scale plus BLOCK_TOL relative (bf16 rounds at
-    other points in the two paths)."""
+    other points in the two paths).  An ``moe`` layer routes with an
+    identity plan at a capacity factor of 8, so that neither path drops an
+    assignment (as tests/test_serve_consistency.py raises it): the forward
+    routes all its tokens as one group, each decode step its batch."""
     from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models.blocks import BLOCKS
     inputs, applies = {}, {t: BLOCKS[t]["apply"] for t in lm.type_counts(cfg)}
 
@@ -808,13 +847,23 @@ def block_decode_check(torch, cfg, params, toks, tag, fails) -> None:
     b, s = toks.shape
     dev = toks.device
     pos = torch.arange(s, device=dev)
+    moe_ctx = {}
+    if cfg.moe is not None:
+        wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+        plan = moe_lib.identity_plan(wide, 1, device=dev)
+        moe_ctx = {"cfg": wide, "moe_groups": "batch", "moe_metrics": [],
+                   "plan_slots": plan.slots[0], "plan_cum": plan.cum[0]}
     out = []
     for t, (p, x) in inputs.items():
+        extra = moe_ctx if t == "moe" else {}
         ref = applies[t](p, x, {"cfg": cfg, "impl": "auto",
-                                "positions": pos[None].expand(b, s)})
+                                "positions": pos[None].expand(b, s),
+                                "token_offset": 0, **extra})
         cache = BLOCKS[t]["cache"](cfg, b, s, None, dev)
         got = torch.cat([BLOCKS[t]["decode"](
-            p, x[:, i:i + 1], cache, {"cfg": cfg, "pos": pos[i].expand(b)})
+            p, x[:, i:i + 1], cache, {"cfg": cfg, "pos": pos[i].expand(b),
+                                      "token_offset": pos[i:i + 1], **extra})
             for i in range(s)], dim=1)
         err = (got.float() - ref.float()).abs()
         scale = ref.float().abs().max().item()
@@ -903,13 +952,13 @@ def log_trace(tag, by_name, top) -> None:
             log(f"[{tag}]   {us:10.1f} us {n:6d} launches  {name[:90]}")
 
 
-def serve_kernel_inputs(torch, cfg, params, dev, rng):
+def serve_kernel_inputs(torch, cfg, params, dev, rng, slots=None):
     """The MoE kernels' inputs at the decode tick's shapes: four eager runs
-    of the tick's own decode step over len(PROMPT_LENS) fresh slots, the
-    last call of each kernel kept (the graphed tick replays kernels that no
-    wrapper sees)."""
+    of the tick's own decode step over ``slots`` (by default
+    len(PROMPT_LENS)) fresh slots, the last call of each kernel kept (the
+    graphed tick replays kernels that no wrapper sees)."""
     from repro_torch.engine.serve import SlotPool, build_decode_step
-    b = len(PROMPT_LENS)
+    b = slots or len(PROMPT_LENS)
     pool = SlotPool(cfg, b, 16, dev)
     step = build_decode_step(cfg, dev)
     active = torch.ones(b, dtype=torch.bool, device=dev)
@@ -1171,9 +1220,7 @@ PREFIX_LEN, PREFIX_SUFFIXES, PREFIX_REQS, PREFIX_NEW = 96, (8, 16, 24, 32), \
 def moe_cfg():
     """paper-moe-100m with the fused gating and dispatch flags on."""
     from repro_torch.configs import get_arch
-    base = get_arch("paper-moe-100m")
-    return dataclasses.replace(base, moe=dataclasses.replace(
-        base.moe, fused_gating=True, fused_dispatch=True))
+    return fused_moe(get_arch("paper-moe-100m"))
 
 
 def force_arm(eng, arm) -> None:
@@ -2294,41 +2341,48 @@ def event_ms(torch, fn, reps: int = 10) -> float:
     return best
 
 
-def flash_work(b, s, h, hd, es, backward, window=None):
-    """Causal attention over [B, S, H, hd] inputs of ``es`` bytes, over a
-    sliding ``window`` when one is given: (bytes, operations).  Operations:
-    2·hd per visible (q, k) pair a product, 2 products in the forward
-    (QK^T, PV) and 5 in the backward (QK^T, dO·V^T, P^T·dO, dS^T·Q, dS·K);
-    bytes: q, k, v, o (and dO, dq, dk, dv) once, and the f32
-    log-sum-exp."""
-    w = s if window is None else min(window, s)
-    # row i sees min(i + 1, w) keys
-    pairs = b * h * (w * (w + 1) // 2 + (s - w) * w)
-    n = 8 if backward else 4
-    return (n * b * s * h * hd * es + 4 * b * h * s,
+def flash_work(b, s, h, hd, es, backward, window=None, sk=None,
+               causal=True):
+    """Attention of [B, S, H, hd] queries over ``sk`` (default S) keys and
+    values, inputs of ``es`` bytes, causal (over a sliding ``window`` when
+    one is given) or not: (bytes, operations).  Operations: 2·hd per
+    visible (q, k) pair a product, 2 products in the forward (QK^T, PV) and
+    5 in the backward (QK^T, dO·V^T, P^T·dO, dS^T·Q, dS·K); bytes: q, k, v,
+    o (and dO, dq, dk, dv) once, and the f32 log-sum-exp."""
+    sk = s if sk is None else sk
+    if causal:
+        w = s if window is None else min(window, s)
+        # row i sees min(i + 1, w) keys
+        pairs = b * h * (w * (w + 1) // 2 + (s - w) * w)
+    else:
+        pairs = b * h * s * sk
+    n_q, n_k = (4, 4) if backward else (2, 2)
+    return ((n_q * s + n_k * sk) * b * h * hd * es + 4 * b * h * s,
             (10 if backward else 4) * hd * pairs)
 
 
-def flash_bound(b, s, h, hd, es, backward, window=None):
+def flash_bound(b, s, h, hd, es, backward, window=None, sk=None,
+                causal=True):
     """(bound ms, by) of ``flash_work`` at the bf16 tensor-core rate."""
-    return bound_ms(*flash_work(b, s, h, hd, es, backward, window),
-                    BF16_FLOP_PER_S)
+    return bound_ms(*flash_work(b, s, h, hd, es, backward, window, sk,
+                                causal), BF16_FLOP_PER_S)
 
 
-def sdpa_backward(torch, q, k, v, do):
+def sdpa_backward(torch, q, k, v, do, causal=True):
     """One call of aten's flash-attention backward (the backward of
-    ``scaled_dot_product_attention``'s flash backend) on heads-first causal
+    ``scaled_dot_product_attention``'s flash backend) on heads-first
     inputs, as a closure that a CUDA graph can capture."""
     aten = torch.ops.aten
     o, lse, cq, ck, mq, mk, seed, offset = \
-        aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True)[:8]
+        aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)[:8]
     return lambda: aten._scaled_dot_product_flash_attention_backward(
-        do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+        do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
 
 
-def flash_check(torch, tag, case, q, k, v, do, window=None):
-    """The flash kernels on q, k, v [B, S, H, hd] bf16 (causal, over
-    ``window`` when one is given) and dO, forward and backward, against
+def flash_check(torch, tag, case, q, k, v, do, window=None, causal=True):
+    """The flash kernels on q [B, Sq, H, hd], k, v [B, Sk, H, hd] bf16
+    (causal, over ``window`` when one is given, or not) and dO, forward and
+    backward, against
     their plain version (chunked attention in bf16, differentiated by
     autograd), with an f32 materialised oracle beside both: o, dq, dk and
     dv within FLASH_RTOL relative L2 and FLASH_TILE_RTOL in every tile of
@@ -2341,16 +2395,16 @@ def flash_check(torch, tag, case, q, k, v, do, window=None):
         flash_bwd_cuda, flash_fwd_cuda)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models.attention import chunked_attention
-    o, lse, o32 = flash_fwd_cuda(q, k, v, window=window, keep_f32=True)
-    grads = flash_bwd_cuda(q, k, v, o32, lse, do, window=window)
+    o, lse, o32 = flash_fwd_cuda(q, k, v, causal, window, keep_f32=True)
+    grads = flash_bwd_cuda(q, k, v, o32, lse, do, causal, window)
     if not torch.equal(o32.to(o.dtype), o):
         raise AssertionError(f"{tag} flash {case}: the f32 o does not round "
                              f"to o")
     ps = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    po = chunked_attention(*ps, window=window)
+    po = chunked_attention(*ps, causal=causal, window=window)
     pgrads = torch.autograd.grad(po, ps, do, retain_graph=True)
     fs = [x.float().requires_grad_(True) for x in (q, k, v)]
-    fo = attention_ref(*(x.transpose(1, 2) for x in fs),
+    fo = attention_ref(*(x.transpose(1, 2) for x in fs), causal=causal,
                        window=window).transpose(1, 2)
     fgrads = torch.autograd.grad(fo, fs, do.float())
     torch.cuda.synchronize()
@@ -2379,7 +2433,8 @@ def flash_check(torch, tag, case, q, k, v, do, window=None):
                    f"{errs[name]:.4g} of "
                    f"{plain.float().abs().max().item():.4g}; held to the "
                    f"{held})")
-    log(f"[{tag}] {case} q,k,v,dO {list(q.shape)} bf16 causal, window "
+    log(f"[{tag}] {case} q,dO {list(q.shape)}, k,v {list(k.shape)} bf16 "
+        f"{'causal' if causal else 'not causal'}, window "
         f"{window}, kernel vs plain rel L2: {'; '.join(out)}; tolerance "
         f"{FLASH_RTOL}, {FLASH_TILE_RTOL} in every {FLASH_TILE}-row tile of "
         f"a head")
@@ -2576,25 +2631,29 @@ def _first_flips(torch, kern, plain, n_layers) -> list:
     return out
 
 
-def train_compare(torch, cfg, hyper, state, tokens, plan, fails):
-    """Checks from one state on one batch, before the loop trains: the
-    full step through the kernels against the same step through the plain
-    versions (every one of them; the MoE ones only, with the attention
-    kernel in both arms), the granulated step against the fused one, and
-    the kernel step run twice."""
+def train_compare(torch, cfg, hyper, state, tokens, plan, fails, n_mb=None,
+                  tag="train"):
+    """Checks from one state on one batch ``tokens`` [B, S] in ``n_mb``
+    (default TRAIN_MB) microbatches, before the loop trains: the full step
+    through the kernels against the same step through the plain versions
+    (every one of them; the MoE ones only, with the attention kernel in
+    both arms), the granulated step against the fused one, and the kernel
+    step run twice.  Of each step's new state only the parameters are
+    kept."""
     from repro_torch.models import blocks, lm
     from repro_torch.models import moe as moe_lib
     from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.runtime.train import build_fused_step, build_grad_step
-    n_mb = TRAIN_MB
+    n_mb = n_mb or TRAIN_MB
     ps, pc = plan
-    mb = TRAIN_BATCH // n_mb
+    mb, seq = tokens.shape[0] // n_mb, tokens.shape[1]
     ints = ("expert_counts", "slot_counts", "dropped")
     gating = moe_lib.gating
 
     def step(impl):
-        return build_fused_step(cfg, hyper, impl)(
+        new, metrics, opt_m = build_fused_step(cfg, hyper, impl)(
             state, {"tokens": tokens}, ps, pc, 1.0, n_mb)
+        return new["params"], metrics, opt_m
 
     def mb0_grads(impl):
         grad_mb = build_grad_step(cfg, hyper, impl)[0]
@@ -2631,13 +2690,13 @@ def train_compare(torch, cfg, hyper, state, tokens, plan, fails):
     first = _first_flips(torch, step_routes, plain_routes,
                          lm.n_moe_layers(cfg))
     worst_margin = max((f[2] for f in first), default=0.0)
-    log(f"[train] kernels vs every plain version, first flipped expert "
+    log(f"[{tag}] kernels vs every plain version, first flipped expert "
         f"sets per microbatch (layer, tokens, worst plain top-k margin and "
         f"worst logit change, in bf16 ulps of the token's largest |logit|):"
         f" {[(a, b, round(c, 3), round(d, 3)) for a, b, c, d in first]}; "
         f"tolerance {FLIP_MARGIN_ULPS} ulps")
     if worst_margin > FLIP_MARGIN_ULPS:
-        fails.append(f"train: a token flipped at a top-k margin of "
+        fails.append(f"{tag}: a token flipped at a top-k margin of "
                      f"{worst_margin} bf16 ulps, not a near-tie")
     del sp, mp, plain_routes
     try:
@@ -2650,7 +2709,7 @@ def train_compare(torch, cfg, hyper, state, tokens, plan, fails):
     loss_r = mr["loss"].mean().item()
     diffs = {key: _int_diff(torch, mk[key], mr[key]) for key in ints}
     worst = worst_leaf(gk, gr)
-    log(f"[train] one step, kernels vs every plain version (same state and "
+    log(f"[{tag}] one step, kernels vs every plain version (same state and "
         f"batch): loss {loss_k:.7f} vs {loss_p:.7f} (rel "
         f"{abs(loss_k - loss_p) / loss_p:.3g}), integer entries that "
         f"differ {flips} (router near-ties); with the plain step replaying "
@@ -2662,7 +2721,7 @@ def train_compare(torch, cfg, hyper, state, tokens, plan, fails):
     if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * loss_p or \
             abs(loss_k - loss_r) > TRAIN_LOSS_RTOL * loss_r or \
             any(diffs.values()) or worst > TRAIN_GRAD_RTOL:
-        fails.append("train: the kernel step differs from the plain step")
+        fails.append(f"{tag}: the kernel step differs from the plain step")
     del sr, mr, gr, step_routes, mb0_routes
     # the MoE kernels' plain versions, attention through its kernel in both
     orig = blocks.flash_attention
@@ -2676,15 +2735,15 @@ def train_compare(torch, cfg, hyper, state, tokens, plan, fails):
     diffs = {key: _int_diff(torch, mk[key], mm[key]) for key in ints}
     worst = worst_leaf(gk, gm)
     same_loss = torch.equal(mk["loss"], mm["loss"])
-    log(f"[train] one step, kernels vs the plain gating, dispatch and "
+    log(f"[{tag}] one step, kernels vs the plain gating, dispatch and "
         f"combine (attention kernel in both): integer metrics "
         f"{'equal' if not any(diffs.values()) else diffs}; per-microbatch "
         f"losses equal bit for bit: {same_loss}; microbatch-0 gradient "
         f"leaves: worst rel L2 {worst:.4g}; expert_counts per layer of "
         f"microbatch 0: {mk['expert_counts'][0].tolist()}")
     if any(diffs.values()) or worst > TRAIN_GRAD_RTOL:
-        fails.append("train: the MoE kernels' step differs from their plain "
-                     "versions'")
+        fails.append(f"{tag}: the MoE kernels' step differs from their plain "
+                     f"versions'")
     del sm, mm, gm
     # granulated (gradient per microbatch, summed, then apply) vs fused
     grad_mb, apply, _ = build_grad_step(cfg, hyper)
@@ -2692,28 +2751,125 @@ def train_compare(torch, cfg, hyper, state, tokens, plan, fails):
     for i in range(n_mb):
         g, m = grad_mb(state["params"],
                        {"tokens": tokens[i * mb:(i + 1) * mb]}, ps, pc,
-                       i * mb * TRAIN_SEQ)
+                       i * mb * seq)
         acc = g if acc is None else tree_map(lambda a, b: a + b, acc, g)
         metrics.append(m)
     sg, _ = apply(state, acc, n_mb, 1.0)
     int_eq = all(torch.equal(torch.stack([m[key] for m in metrics]), mk[key])
                  for key in ints)
-    pairs = list(zip(tree_leaves(sg["params"]), tree_leaves(sk["params"])))
+    pairs = list(zip(tree_leaves(sg["params"]), tree_leaves(sk)))
     bitwise = all(torch.equal(a, b) for a, b in pairs)
     worst = max(_rel_l2(torch, a, b) for a, b in pairs)
-    log(f"[train] granulated vs fused step: integer metrics equal {int_eq}, "
+    log(f"[{tag}] granulated vs fused step: integer metrics equal {int_eq}, "
         f"updated params equal bit for bit {bitwise} (worst rel L2 "
         f"{worst:.3g})")
     if not int_eq or worst > 1e-6:
-        fails.append("train: granulated and fused steps differ")
+        fails.append(f"{tag}: granulated and fused steps differ")
     del sg, acc, metrics
     # the kernel step again: the same bits?
     s2, _, _ = step("auto")
     again = all(torch.equal(a, b) for a, b in zip(
-        tree_leaves(s2["params"]), tree_leaves(sk["params"])))
-    log(f"[train] the kernel step run twice from the same state gives the "
+        tree_leaves(s2), tree_leaves(sk)))
+    log(f"[{tag}] the kernel step run twice from the same state gives the "
         f"same parameters bit for bit: {again}")
     del s2, sk, mk, ok, gk
+
+
+def reshape_train_loop(torch, dev, cfg, batch, seq, n_mb, tag, fails):
+    """``TrainLoop`` on ``cfg`` (f32 master weights) over a skewed
+    ``TokenStream`` of ``batch`` x ``seq`` tokens a step in ``n_mb``
+    microbatches, with ``MoEReshaper`` closing the loop (ep_ranks 2, tau
+    0.2), and ``train_compare`` from its initial state before it trains.
+    Returns (the loop, its reshaper)."""
+    from repro_torch.core.reshape_moe import MoEReshaper
+    from repro_torch.core.skew import SkewParams
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import lm
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+    from repro_torch.runtime.train import TrainHyper
+
+    def stream():
+        return TokenStream(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                           seed=SEED, class_alpha=TRAIN_ALPHA)
+
+    reshaper = MoEReshaper(cfg, lm.n_moe_layers(cfg), ep_ranks=2,
+                           params=SkewParams(eta=0.0, tau=0.2))
+    hyper = TrainHyper()
+    loop = TrainLoop(cfg, stream(), hyper,
+                     LoopConfig(microbatches=n_mb, device=str(dev)),
+                     reshaper=reshaper, seed=SEED)
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, "
+        f"{cfg.moe.num_experts}+{cfg.moe.spare_slots} slots top-"
+        f"{cfg.moe.top_k}, expert d_ff {cfg.moe.expert_d_ff}, vocab "
+        f"{cfg.vocab}, {sum(p.numel() for p in _leaves(loop.state['params']))}"
+        f" f32 params; global batch {batch} x {seq} in {n_mb} microbatches, "
+        f"TokenStream class_alpha {TRAIN_ALPHA}, Reshape ep_ranks 2, tau 0.2")
+    tokens = torch.as_tensor(stream().next()["tokens"], device=dev)
+    train_compare(torch, cfg, hyper, loop.state, tokens, loop._plan_args(),
+                  fails, n_mb=n_mb, tag=tag)
+    _free(torch)
+    return loop, reshaper
+
+
+def moe_step_launches(nl, n_mb) -> dict:
+    """What the code launches in a training step of ``nl`` MoE layers and
+    ``n_mb`` microbatches: per layer and microbatch, the forward's
+    attention, gating, dispatch and combine, and the backward's attention,
+    combine (dispatch's gradient) and dispatch (combine's)."""
+    return {"flash_fwd": nl * n_mb, "flash_bwd": nl * n_mb,
+            "moe_gating": nl * n_mb, "moe_dispatch": 2 * nl * n_mb,
+            "moe_combine": 2 * nl * n_mb}
+
+
+def train_steps(torch, loop, per_step, n, tag, fails, note=None) -> float:
+    """The training main path: ``n`` steps of ``loop``, the launch counts
+    set to 0 just before; each step's launches held to ``per_step`` (what
+    the code predicts) and its loss to be finite, and ``note(h)`` added to
+    each step's log line; the peak device memory is read over these steps
+    alone.  Returns the steps' mean wall time."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    n_tok = loop.stream.global_batch * loop.stream.seq_len
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    prev, walls = dict(LAUNCHES), []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = loop.run(1)[-1]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        now = dict(LAUNCHES)
+        delta = {k: now[k] - prev[k] for k in per_step}
+        prev = now
+        if delta != per_step:
+            fails.append(f"{tag}: step {h['step']} launched {delta}, the "
+                         f"code predicts {per_step}")
+        if not np.isfinite(h["loss"]):
+            fails.append(f"{tag}: step {h['step']} loss {h['loss']}")
+        log(f"[{tag}] step {h['step']}: loss {h['loss']:.6f} grad_norm "
+            f"{h['grad_norm']:.6f}{note(h) if note else ''}; "
+            f"{walls[-1]:.4f} s, {n_tok / walls[-1]:.1f} training tok/s; "
+            f"launches {delta}")
+    wall = sum(walls) / len(walls)
+    log(f"[{tag}] {n} steps of {loop.stream.global_batch} x "
+        f"{loop.stream.seq_len}: mean {wall:.4f} s a step, "
+        f"{n_tok / wall:.1f} training tok/s; launches {_nonzero(LAUNCHES)}; "
+        f"peak device memory in these steps "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return wall
+
+
+def reshape_note(reshaper):
+    """``train_steps``' note for a Reshape loop: drops, slot counts and
+    the reshaper's iterations and events."""
+    def note(h):
+        return (f" dropped {int(np.sum(h['dropped']))} (per layer "
+                f"{np.asarray(h['dropped']).tolist()}) slot_counts (summed "
+                f"over layers) {np.sum(h['slot_counts'], 0).tolist()}; "
+                f"reshape iterations {reshaper.iterations}, events "
+                f"{len(reshaper.events)}")
+    return note
 
 
 def train_phase(torch, dev, fails):
@@ -2721,40 +2877,12 @@ def train_phase(torch, dev, fails):
     width through the kernels, with the Reshape loop closed.  Returns
     (the MoE kernels' JSON rows at training shapes, the main path's launch
     counts)."""
-    from repro_torch.core.reshape_moe import MoEReshaper
-    from repro_torch.core.skew import SkewParams
-    from repro_torch.data.synthetic import TokenStream
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.models import lm
-    from repro_torch.runtime.loop import LoopConfig, TrainLoop
-    from repro_torch.runtime.train import TrainHyper
 
     cfg = moe_cfg()
-    nl = lm.n_moe_layers(cfg)
-    stream = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                         global_batch=TRAIN_BATCH, seed=SEED,
-                         class_alpha=TRAIN_ALPHA)
-    reshaper = MoEReshaper(cfg, nl, ep_ranks=2,
-                           params=SkewParams(eta=0.0, tau=0.2))
-    hyper = TrainHyper()
-    loop = TrainLoop(cfg, stream, hyper,
-                     LoopConfig(microbatches=TRAIN_MB, device="cuda"),
-                     reshaper=reshaper, seed=SEED)
-    n_tok = TRAIN_BATCH * TRAIN_SEQ
-    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, "
-        f"{cfg.moe.num_experts}+{cfg.moe.spare_slots} slots top-"
-        f"{cfg.moe.top_k}, expert d_ff {cfg.moe.expert_d_ff}, vocab "
-        f"{cfg.vocab}, {sum(p.numel() for p in _leaves(loop.state['params']))}"
-        f" f32 params; global batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
-        f"{TRAIN_MB} microbatches, TokenStream class_alpha {TRAIN_ALPHA}, "
-        f"Reshape ep_ranks 2, tau 0.2")
-    tokens = torch.as_tensor(TokenStream(
-        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-        seed=SEED, class_alpha=TRAIN_ALPHA).next()["tokens"], device=dev)
-    train_compare(torch, cfg, hyper, loop.state, tokens, loop._plan_args(),
-                  fails)
-    _free(torch)
+    loop, reshaper = reshape_train_loop(torch, dev, cfg, TRAIN_BATCH,
+                                        TRAIN_SEQ, TRAIN_MB, "train", fails)
 
     # warm-up step (first-use costs stay out of the main path), keeping the
     # kernels' inputs from their last calls: gating's last forward,
@@ -2767,47 +2895,16 @@ def train_phase(torch, dev, fails):
         torch, lambda: loop.run(1),
         [(gops, "gating_cuda"), (dops, "dispatch_cuda"),
          (dops, "combine_cuda"), (fa, "flash_bwd_cuda")])
-    # what the code launches per step: per MoE layer and microbatch, the
-    # forward's attention, gating, dispatch and combine, and the backward's
-    # attention, combine (dispatch's gradient) and dispatch (combine's)
-    per_step = {"flash_fwd": nl * TRAIN_MB, "flash_bwd": nl * TRAIN_MB,
-                "moe_gating": nl * TRAIN_MB,
-                "moe_dispatch": 2 * nl * TRAIN_MB,
-                "moe_combine": 2 * nl * TRAIN_MB}
 
     # the main path
-    reset_launches()
-    prev, walls = dict(LAUNCHES), []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        h = loop.run(1)[-1]
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        now = dict(LAUNCHES)
-        delta = {k: now[k] - prev[k] for k in per_step}
-        prev = now
-        if delta != per_step:
-            fails.append(f"train: step {h['step']} launched {delta}, the "
-                         f"code predicts {per_step}")
-        if not np.isfinite(h["loss"]):
-            fails.append(f"train: step {h['step']} loss {h['loss']}")
-        path = loop.engine.decisions[-1]["choice"] \
-            if loop.engine.decisions else "?"
-        log(f"[train] step {h['step']}: loss {h['loss']:.6f} grad_norm "
-            f"{h['grad_norm']:.6f} dropped {int(np.sum(h['dropped']))} "
-            f"slot_counts (summed over layers) "
-            f"{np.sum(h['slot_counts'], 0).tolist()}; reshape iterations "
-            f"{reshaper.iterations}, events {len(reshaper.events)}; "
-            f"{walls[-1]:.4f} s, {n_tok / walls[-1]:.1f} training tok/s "
-            f"({path} step path); launches {delta}")
+    wall = train_steps(
+        torch, loop, moe_step_launches(lm.n_moe_layers(cfg), TRAIN_MB),
+        TRAIN_STEPS, "train", fails, reshape_note(reshaper))
     launches = dict(LAUNCHES)
-    wall = sum(walls) / len(walls)
-    log(f"[train] {TRAIN_STEPS} steps: mean {wall:.4f} s a step, "
-        f"{n_tok / wall:.1f} training tok/s; launches {launches}; reshape "
-        f"events {[(e.layer, e.hot_expert) for e in reshaper.events]}; peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
-        f"GiB")
+    path = loop.engine.decisions[-1]["choice"] \
+        if loop.engine.decisions else "?"
+    log(f"[train] the engine's step path {path}; reshape events "
+        f"{[(e.layer, e.hot_expert) for e in reshaper.events]}")
 
     # one more step under a CUDA-only trace: the busy share of a step
     wall_t, busy_us, by_name = device_trace(torch, lambda: loop.run(1))
@@ -3136,6 +3233,701 @@ def gemma3_phase(torch, dev, fails) -> list:
     return rows
 
 
+# [olmoe], [qwen3moe], [dense], [qwen2vl], [whisper]: the reference's last
+# six configs at their published widths, random bf16 weights drawn on the
+# card from a generator seeded SEED, depth cut only where 80 GB or the run's
+# time forces it.  olmoe-1b-7b: the forward's [B, S]; 8 served prompts of
+# two lengths, their new tokens; training's
+# layers (an f32 step of the port holds the old and the new parameters and
+# both moments, the gradients' f32 sum and its mean: about 36 B a
+# parameter, so 2 of 16 layers, 1.25 B parameters, where 4 would pass 80
+# GB), global batch, sequence, microbatches and steps
+OLMOE_FWD = (4, 1024)
+OLMOE_PROMPT_LENS = (16,) * 4 + (128,) * 4
+OLMOE_NEW = 16
+OLMOE_TRAIN = dict(layers=2, batch=4, seq=1024, mb=2, steps=3)
+# qwen3-moe-235b-a22b cut to 6 of 94 layers (36 GB of bf16 weights); the
+# forward; 4 prompts of one length served on 4 slots
+QWEN3_LAYERS = 6
+QWEN3_FWD = (2, 1024)
+QWEN3_PROMPT = (4, 48)
+QWEN3_NEW = 8
+# the dense configs and the depth each runs at (None: all of it):
+# starcoder2-7b 20 GB, yi-34b 16 of 60 layers 20 GB, command-r-plus-104b 8
+# of 64 layers 31 GB; each forward [1, 2048], 2 prompts served on 2 slots
+DENSE = (("starcoder2-7b", None), ("yi-34b", 16),
+         ("command-r-plus-104b", 8))
+DENSE_FWD = (1, 2048)
+DENSE_PROMPT = (2, 32)
+DENSE_NEW = 8
+# the new tokens of each request in a serve's rate run (after the run that
+# the static oracle checks): decode dominates its wall
+SERVE_RATE_NEW = 256
+# qwen2-vl-7b at full depth: the forward's [B, S], its first 16 x 16
+# positions a patch grid of (t, h, w) ids, the rest text; served like qwen3
+QWEN2VL_FWD = (2, 1024)
+QWEN2VL_GRID = (16, 16)
+# whisper-base at full depth: the encoder's frames [B, enc_seq, d_model],
+# the decoder's tokens (its forward and its step-by-step decode against the
+# precomputed cross K/V), the reference's forward-vs-decode tolerance
+# (tests/test_serve_consistency.py), the decode steps of each fault the
+# check must catch, training's global batch, sequence, microbatches and
+# steps
+WHISPER_B, WHISPER_SEQ = 4, 448
+WHISPER_ATOL, WHISPER_RTOL = 0.15, 0.1
+WHISPER_CONTROL_STEPS = 64
+WHISPER_TRAIN = dict(batch=4, seq=448, mb=2, steps=3)
+
+
+def fused_moe(cfg):
+    """``cfg`` with the fused gating and dispatch flags on (the kernels'
+    path)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, fused_gating=True, fused_dispatch=True))
+
+
+def cut(cfg, layers):
+    """``cfg`` cut to its first ``layers`` layers (None: all of them)."""
+    if layers is None or layers >= cfg.num_layers:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=layers,
+                               layer_pattern=cfg.pattern[:layers])
+
+
+def model_init(torch, cfg, dev, tag):
+    """Random bf16 weights drawn on the card from a generator seeded SEED
+    (drawn in bf16: an f32 draw of qwen3's 36 GB would not fit beside its
+    copy); logs the model."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, gen, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in _leaves(params))
+    moe = "" if cfg.moe is None else \
+        (f", {cfg.moe.num_experts} experts + {cfg.moe.spare_slots} spare "
+         f"slots top-{cfg.moe.top_k}, expert d_ff {cfg.moe.expert_d_ff}")
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers "
+        f"{lm.type_counts(cfg)}, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads of {cfg.hd}, {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}"
+        f"{moe}, vocab {cfg.vocab} "
+        f"({'tied' if cfg.tie_embeddings else 'untied'}); "
+        f"{n} params, {2 * n / 2 ** 30:.2f} GiB in bf16, drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def forward_main(torch, tag, cfg, params, batch, want, fails, targets=None,
+                 kinds=None):
+    """The forward's main path on ``batch``: a warm-up, then the counted
+    run (counts set to 0 just before and read just after; ``want`` {kernel:
+    launches}), then the same forward under a CUDA-only trace (busy share
+    of the counted run's wall, device time by kernel).  ``targets`` are the
+    wrappers whose last calls' inputs are kept (fresh tensors, kept as
+    they are); ``kinds`` (module, wrapper name, key) counts the counted
+    run's calls of one wrapper by ``key(args)``.  Returns (launches, the
+    kept inputs, the counts by kind)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+
+    def run():
+        return lm.forward(params, batch, cfg)[0]
+
+    with torch.no_grad():
+        run()
+        counted, by_kind = run, {}
+        if kinds is not None:
+            def counted():
+                out, found = shape_counts(torch, run, *kinds)
+                by_kind.update(found)
+                return out
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, seen = capture_kernel_inputs(torch, counted, targets or [],
+                                             clone=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        b, s = batch["tokens"].shape
+        if tuple(logits.shape) != (b, s, cfg.vocab) or \
+                not torch.isfinite(logits).all():
+            fails.append(f"{tag}: bad forward logits {tuple(logits.shape)}")
+        del logits
+        got = {k: launches[k] for k in want}
+        if got != want:
+            fails.append(f"{tag}: forward launched {got}, the code "
+                         f"predicts {want}")
+        wall_t, busy_us, by_name = device_trace(torch, run)
+    busy = busy_us / 1e6 / wall
+    log(f"[{tag}] forward {[b, s]}: {wall:.4f} s, {b * s / wall:.1f} tok/s, "
+        f"launches {_nonzero(launches)}; again under a CUDA-only trace "
+        f"(traced wall {wall_t:.4f} s): device busy {busy_us:.0f} us, busy "
+        f"{busy:.4f}, idle {1 - busy:.4f} of the counted run's wall")
+    log_trace(tag, by_name, 6)
+    return launches, seen, by_kind
+
+
+def oracle_cfg(cfg, slots, rows):
+    """The static oracle's config for an engine of ``slots`` slots checked
+    on batches of ``rows`` rows: for an MoE model a capacity at which the
+    oracle's expert products have the engine's rows (each of its slots is
+    a group of one token, so ``slots`` x capacity(1)), which drops nothing.
+    cuBLAS may round a product's rows by its height, so the heights are
+    kept the same."""
+    from repro_torch.models import moe as moe_lib
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    want = slots * moe_lib.capacity(cfg, 1)
+    cf = want * m.num_experts / (rows * m.top_k)
+    out = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=cf))
+    assert moe_lib.capacity(out, rows) == want, (cf, want)
+    return out
+
+
+def serve_static(torch, dev, tag, cfg, params, prompts, max_new, slots,
+                 fails):
+    """Greedy serving of ``prompts`` through ``BatchedServer`` on ``slots``
+    slots (a warm-up captures the tick's graph; launch counts set to 0
+    just before the served run and read just after: exactly the replays
+    of the tick's graphs times their per-replay counts, and for an MoE
+    model every MoE kernel launched); the same prompts again with
+    SERVE_RATE_NEW new tokens each for the serving rate; then every output
+    of the first run against ``generate_static`` on batches of ``slots``
+    rows of prompts of one length, filled up with copies, at
+    ``oracle_cfg``'s capacity; at a parting, the static loop's top-2
+    margin there is logged.  Returns the first run's launches."""
+    from repro_torch.runtime.serve import BatchedServer
+    max_len = max(map(len, prompts)) + max(max_new, SERVE_RATE_NEW) + 16
+    srv = BatchedServer(cfg, params, max_len=max_len, slots=slots,
+                        prefill_chunk=16, decode_chunk=4,
+                        compact_decode=False, device=dev)
+    srv.generate([p[:16] for p in prompts], 4)        # captures the graph
+    eng = srv.engine()
+    graphs = dict(eng._tick.graphs)
+    since = {n: g.replays for n, g in graphs.items()}
+    reqs, wall, launches = timed_generate(torch, eng, prompts, max_new)
+    out = np.stack([r.output() for r in reqs])
+    want = graph_launches(graphs, since)
+    if launches != want:
+        fails.append(f"{tag}: serve launches {_nonzero(launches)} are not "
+                     f"the graphs' replays' {_nonzero(want)}")
+    if cfg.moe is not None and not all(launches[k] for k in MOE_KERNELS):
+        fails.append(f"{tag}: an MoE kernel never launched in the serve")
+    log(f"[{tag}] serve {len(prompts)} requests on {slots} slots, prompts "
+        f"{[len(p) for p in prompts]}, {max_new} new each (the run the "
+        f"static oracle checks, prefill-heavy): {wall:.4f} s, "
+        f"{sum(g.replays - since[n] for n, g in graphs.items())} replays, "
+        f"launches {_nonzero(launches)} (replays x per replay)")
+    # the serving rate, where decode dominates the wall
+    since = {n: g.replays for n, g in eng._tick.graphs.items()}
+    rate_reqs, rate_wall, _ = timed_generate(torch, eng, prompts,
+                                             SERVE_RATE_NEW)
+    got = sum(len(r.output()) for r in rate_reqs)
+    replays = sum(g.replays - since.get(n, 0)
+                  for n, g in eng._tick.graphs.items())
+    log(f"[{tag}] serving rate: {len(prompts)} requests on {slots} slots, "
+        f"the same prompts, {SERVE_RATE_NEW} new each: {rate_wall:.4f} s, "
+        f"{got / rate_wall:.1f} generated tok/s, {replays} replays, "
+        f"{rate_wall / replays * 1e3:.3f} ms a replay")
+    if got != len(prompts) * SERVE_RATE_NEW:
+        fails.append(f"{tag}: the rate run generated {got} tokens")
+    del srv, eng, rate_reqs
+    ocfg = oracle_cfg(cfg, slots, slots)
+    oracle = BatchedServer(ocfg, params, max_len=max_len, device=dev)
+    t0 = time.perf_counter()
+    parted = []
+    for n in sorted({len(p) for p in prompts}):
+        idx = [i for i, p in enumerate(prompts) if len(p) == n]
+        for lo in range(0, len(idx), slots):
+            part = idx[lo:lo + slots]
+            batch = [prompts[i] for i in part]
+            batch += [batch[0]] * (slots - len(part))
+            ref, margins = static_margins(torch, oracle, batch, max_new)
+            for row, i in enumerate(part):
+                bad = np.flatnonzero(out[i] != ref[row])
+                if bad.size:
+                    parted.append((i, int(bad[0]),
+                                   float(margins[row, bad[0]])))
+    if parted:
+        fails.append(f"{tag}: ServeEngine != generate_static: (request, "
+                     f"first parting token, the static top-2 margin there) "
+                     f"{parted}")
+    cap = "" if cfg.moe is None else \
+        f", capacity factor {ocfg.moe.capacity_factor} (nothing drops)"
+    log(f"[{tag}] ServeEngine (graphed tick) vs generate_static on batches "
+        f"of {slots} rows of one prompt length{cap}: equal {not parted}, "
+        f"no request dropped {all(len(r.output()) == max_new for r in reqs)}"
+        f"; static {time.perf_counter() - t0:.4f} s")
+    del oracle
+    _free(torch)
+    return launches
+
+
+def moe_rows(torch, seen, launches, suffix, tag):
+    """The MoE kernels against their plain versions on inputs ``seen``
+    (``capture_kernel_inputs``), rows named ``<kernel>@<suffix>``."""
+    rows, shapes = check_kernels(torch, seen, launches)
+    for r in rows:
+        r["name"] += f"@{suffix}"
+    log_kernel_rows(rows, shapes)
+    log(f"[{tag}] MoE kernel rows @{suffix}: integer outputs equal, float "
+        f"outputs within their tolerance")
+    return rows
+
+
+def moe_targets():
+    """The MoE kernels' wrappers, as ``capture_kernel_inputs`` takes them."""
+    from repro_torch.kernels.moe_dispatch import ops as dops
+    from repro_torch.kernels.moe_gating import ops as gops
+    return [(gops, "gating_cuda"), (dops, "dispatch_cuda"),
+            (dops, "combine_cuda")]
+
+
+def phase_olmoe(torch, dev, fails) -> list:
+    """olmoe-1b-7b (16 layers, d_model 2048, 16 heads of 128, 64 experts +
+    16 spare slots top-8, expert d_ff 1024, vocab 50304 untied), the fused
+    gating and dispatch on: serving on 8 slots ≡ generate_static, the
+    forward on OLMOE_FWD, the ``moe`` block's forward vs decode, the MoE
+    kernels at k 8 over 80 slots at the serve and forward shapes, then
+    training at OLMOE_TRAIN's depth with the Reshape loop closed."""
+    from repro_torch.configs import get_arch
+    tag = "olmoe"
+    cfg = fused_moe(get_arch("olmoe-1b-7b"))
+    params = model_init(torch, cfg, dev, tag)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in OLMOE_PROMPT_LENS]
+    serve_launches = serve_static(torch, dev, tag, cfg, params, prompts,
+                                  OLMOE_NEW, len(prompts), fails)
+    seen = serve_kernel_inputs(torch, cfg, params, dev, rng)
+    rows = moe_rows(torch, seen, serve_launches, "olmoe", tag)
+    del seen
+    nl = cfg.num_layers
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab, OLMOE_FWD), device=dev)
+    launches, seen, _ = forward_main(
+        torch, tag, cfg, params, {"tokens": toks},
+        {"flash_fwd": nl, "moe_gating": nl, "moe_dispatch": nl,
+         "moe_combine": nl}, fails, moe_targets())
+    rows += moe_rows(torch, seen, launches, "olmoe-fwd", tag)
+    del seen, toks
+    with torch.no_grad():
+        block_decode_check(torch, cfg, params, torch.as_tensor(
+            rng.integers(1, cfg.vocab, EQUIV_FWD), device=dev), tag, fails)
+    del params
+    _free(torch)
+    olmoe_train(torch, dev, cfg, fails)
+    return rows
+
+
+def olmoe_train(torch, dev, full, fails) -> None:
+    """olmoe-1b-7b cut to OLMOE_TRAIN's layers, trained as ``train_phase``
+    trains (``reshape_train_loop``, a warm-up step, ``train_steps``)."""
+    tag = "olmoe train"
+    tr = OLMOE_TRAIN
+    cfg = cut(full, tr["layers"])
+    log(f"[{tag}] {cfg.num_layers} of {full.num_layers} layers")
+    loop, reshaper = reshape_train_loop(torch, dev, cfg, tr["batch"],
+                                        tr["seq"], tr["mb"], tag, fails)
+    loop.run(1)                                      # warm-up
+    train_steps(torch, loop, moe_step_launches(cfg.num_layers, tr["mb"]),
+                tr["steps"], tag, fails, reshape_note(reshaper))
+    del loop
+    _free(torch)
+
+
+def phase_qwen3moe(torch, dev, fails) -> list:
+    """qwen3-moe-235b-a22b cut to QWEN3_LAYERS layers (d_model 4096, 64
+    query heads of 128 over 4 KV heads, 128 experts + 16 spare slots
+    top-8, expert d_ff 1536, vocab 151936 untied), fused gating and
+    dispatch: the forward (``gating_kernel<32, 4>``, dispatch and combine
+    over 144 slots at D 4096), the MoE kernels at the forward and serve
+    shapes, and serving on 4 slots ≡ generate_static."""
+    from repro_torch.configs import get_arch
+    tag = "qwen3moe"
+    cfg = cut(fused_moe(get_arch("qwen3-moe-235b-a22b")), QWEN3_LAYERS)
+    params = model_init(torch, cfg, dev, tag)
+    wq, wo = params["moe"]["wq"], params["moe"]["wo"]
+    if tuple(wo.shape[1:]) != (8192, 4096) or wq.shape[-1] != 8192:
+        fails.append(f"{tag}: wq {tuple(wq.shape)}, wo {tuple(wo.shape)}")
+    rng = np.random.default_rng(SEED)
+    nl = cfg.num_layers
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab, QWEN3_FWD), device=dev)
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    launches, seen, _ = forward_main(
+        torch, tag, cfg, params, {"tokens": toks},
+        {"flash_fwd": nl, "moe_gating": nl, "moe_dispatch": nl,
+         "moe_combine": nl}, fails,
+        moe_targets() + [(fa, "flash_fwd_cuda")])
+    q, k = seen.pop("flash_fwd_cuda")[:2]
+    log(f"[{tag}] the flash kernel sees q {list(q.shape)}, k {list(k.shape)} "
+        f"(KV heads repeated {cfg.n_heads // cfg.n_kv_heads}x), hd "
+        f"{q.shape[-1]}")
+    if q.shape[-1] != 128 or q.shape[2] != 64:
+        fails.append(f"{tag}: flash saw q {tuple(q.shape)}")
+    del q, k
+    rows = moe_rows(torch, seen, launches, "qwen3-fwd", tag)
+    del seen, toks
+    prompts = list(rng.integers(1, cfg.vocab, QWEN3_PROMPT).astype(np.int32))
+    serve_launches = serve_static(torch, dev, tag, cfg, params, prompts,
+                                  QWEN3_NEW, len(prompts), fails)
+    rows += moe_rows(torch, serve_kernel_inputs(torch, cfg, params, dev, rng,
+                                                len(prompts)),
+                     serve_launches, "qwen3", tag)
+    del params
+    _free(torch)
+    return rows
+
+
+def phase_dense(torch, dev, fails) -> None:
+    """starcoder2-7b, yi-34b and command-r-plus-104b at DENSE's depths: each
+    forward on DENSE_FWD (one flash launch a layer) and serving on 2 slots
+    ≡ generate_static."""
+    from repro_torch.configs import get_arch
+    for arch, layers in DENSE:
+        tag = f"dense {arch}"
+        full = get_arch(arch)
+        cfg = cut(full, layers)
+        log(f"[{tag}] depth {cfg.num_layers} of {full.num_layers}")
+        params = model_init(torch, cfg, dev, tag)
+        rng = np.random.default_rng(SEED)
+        toks = torch.as_tensor(rng.integers(1, cfg.vocab, DENSE_FWD),
+                               device=dev)
+        forward_main(torch, tag, cfg, params, {"tokens": toks},
+                     {"flash_fwd": cfg.num_layers}, fails)
+        del toks
+        prompts = list(rng.integers(1, cfg.vocab, DENSE_PROMPT)
+                       .astype(np.int32))
+        serve_static(torch, dev, tag, cfg, params, prompts, DENSE_NEW,
+                     len(prompts), fails)
+        del params
+        _free(torch)
+
+
+def vision_positions3(torch, b, gh, gw, n_text, dev):
+    """[b, gh·gw + n_text, 3] M-RoPE ids: a gh × gw patch grid (t 0, h its
+    row, w its column), then text whose three ids count on from the grid's
+    largest extent."""
+    i = torch.arange(gh * gw, device=dev)
+    grid = torch.stack([torch.zeros_like(i), i // gw, i % gw], -1)
+    text = (max(gh, gw) + torch.arange(n_text, device=dev))[:, None] \
+        .expand(n_text, 3)
+    return torch.cat([grid, text])[None].expand(b, -1, 3).contiguous()
+
+
+def phase_qwen2vl(torch, dev, fails) -> None:
+    """qwen2-vl-7b at full depth (28 layers, d_model 3584, 28 heads of 128
+    over 4 KV heads, d_ff 18944, vocab 152064, M-RoPE): the forward on
+    QWEN2VL_FWD with a patch grid's (t, h, w) ids, against the same forward
+    through the plain versions (argmax equal wherever the plain top-2
+    margin exceeds twice GEMMA_ATOL), and serving on 4 slots ≡
+    generate_static."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    tag = "qwen2vl"
+    cfg = get_arch("qwen2-vl-7b")
+    params = model_init(torch, cfg, dev, tag)
+    rng = np.random.default_rng(SEED)
+    b, s = QWEN2VL_FWD
+    gh, gw = QWEN2VL_GRID
+    batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab, (b, s)),
+                                       device=dev),
+             "positions3": vision_positions3(torch, b, gh, gw, s - gh * gw,
+                                             dev)}
+    forward_main(torch, tag, cfg, params, batch,
+                 {"flash_fwd": cfg.num_layers}, fails)
+    with torch.no_grad():
+        got = lm.forward(params, batch, cfg)[0]
+        plain = lm.forward(params, batch, cfg, impl="torch")[0]
+        flat = lm.forward(params, {"tokens": batch["tokens"]}, cfg)[0]
+    top2 = plain.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * GEMMA_ATOL
+    differ = got.argmax(-1) != plain.argmax(-1)
+    log(f"[{tag}] forward with positions3 (a {gh} x {gw} grid, then "
+        f"{s - gh * gw} text positions), kernels vs plain versions: max "
+        f"|logit diff| {(got - plain).abs().max().item()} (max |logit| "
+        f"{plain.abs().max().item()}), rel L2 {_rel_l2(torch, got, plain):.4g}"
+        f"; argmax equal at {int((~differ).sum())} of {differ.numel()}, "
+        f"{int((sure & differ).sum())} differ of the {int(sure.sum())} whose "
+        f"plain top-2 margin exceeds {2 * GEMMA_ATOL}; without positions3 "
+        f"the logits move by {(flat - got).abs().max().item()}")
+    if (sure & differ).any() or not torch.isfinite(got).all():
+        fails.append(f"{tag}: the kernels' forward differs from the plain "
+                     f"one")
+    if torch.equal(flat, got):
+        fails.append(f"{tag}: positions3 changed nothing")
+    del got, plain, flat, batch
+    prompts = list(rng.integers(1, cfg.vocab, QWEN3_PROMPT).astype(np.int32))
+    serve_static(torch, dev, tag, cfg, params, prompts, QWEN3_NEW,
+                 len(prompts), fails)
+    del params
+    _free(torch)
+
+
+def shape_counts(torch, run, module, name, key):
+    """Run ``run()`` with ``module.name`` wrapped to count its calls by
+    ``key(args)``.  Returns (``run()``'s result, {key: calls})."""
+    counts = {}
+    orig = getattr(module, name)
+
+    def counted(*args, **kw):
+        k = key(args)
+        counts[k] = counts.get(k, 0) + 1
+        return orig(*args, **kw)
+
+    setattr(module, name, counted)
+    try:
+        return run(), counts
+    finally:
+        setattr(module, name, orig)
+
+
+def whisper_flash_rows(torch, tag, cases, fwd_counts, bwd_counts) -> list:
+    """The flash kernels on each captured case ((name, q, k, v), not
+    causal) against their plain version, forward and backward, timed by
+    graph replay beside ``scaled_dot_product_attention`` and aten's flash
+    backward (``is_causal=False``).  Returns the JSON rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_bwd_cuda, flash_fwd_cuda)
+    from repro_torch.models.attention import chunked_attention
+    gen = torch.Generator(device=cases[0][1].device).manual_seed(SEED)
+    rows = []
+    for case, q, k, v in cases:
+        do = torch.randn(q.shape, generator=gen, device=q.device) \
+            .to(torch.bfloat16)
+        _, o32, lse, errs, po, ps = flash_check(
+            torch, tag, f"{case}, on the forward's inputs", q, k, v, do,
+            causal=False)
+        b, sq, h, hd = q.shape
+        sk = k.shape[1]
+        qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        with torch.no_grad():
+            fwd = dict(
+                ms=graph_ms(torch, lambda: flash_fwd_cuda(q, k, v, False),
+                            reps=10),
+                plain_ms=graph_ms(torch, lambda: chunked_attention(
+                    q, k, v, causal=False), reps=10),
+                library_ms=graph_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh), reps=10))
+            bwd = dict(
+                ms=graph_ms(torch, lambda: flash_bwd_cuda(
+                    q, k, v, o32, lse, do, False), reps=10),
+                library_ms=graph_ms(torch, sdpa_backward(
+                    torch, qh, kh, vh, doh, causal=False), reps=10))
+        bwd["plain_ms"] = event_ms(torch, lambda: torch.autograd.grad(
+            po, ps, do, retain_graph=True))
+        for name, back, err, t, n in (
+                ("flash_fwd", False, errs["o"], fwd, fwd_counts[case]),
+                ("flash_bwd", True, max(errs["dq"], errs["dk"], errs["dv"]),
+                 bwd, bwd_counts[case])):
+            b_ms, b_by = flash_bound(b, sq, h, hd, 2, back, sk=sk,
+                                     causal=False)
+            rows.append(dict(
+                name=f"{name}@whisper-{case}", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:58",
+                launches=n, max_abs_err=err, ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=t["library_ms"]))
+            lib = "aten flash backward" if back else \
+                "scaled_dot_product_attention"
+            log(f"[{tag}] {name} {case} q {[b, sq, h, hd]}, k {[b, sk, h, hd]}"
+                f", not causal: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} "
+                f"ms, {lib} {t['library_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+                f"{b_by}; by CUDA-graph replay but the plain backward); "
+                f"launches on its path {n}")
+        del do, o32, lse, po, ps, qh, kh, vh, doh
+        _free(torch)
+    return rows
+
+
+def phase_whisper(torch, dev, fails) -> list:
+    """whisper-base at full depth (6 encoder and 6 decoder layers, d_model
+    512, 8 heads of 64, d_ff 2048, tied vocab 51865; no rotary): ``encode``
+    on [WHISPER_B, 1500, 512] frames, ``lm.forward`` on WHISPER_SEQ tokens
+    (18 flash launches: 6 bidirectional encoder layers, 6 causal decoder
+    self-attentions, 6 cross-attentions over the 1500 frames), step-by-step
+    ``decode_step`` against the precomputed cross K/V vs the forward, the
+    non-causal flash kernels on the encoder's and the cross-attention's
+    inputs, then training: one microbatch through the kernels vs the plain
+    versions, and TrainLoop steps, each step's launches checked."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import blocks, lm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+    from repro_torch.runtime.train import TrainHyper, build_grad_step
+    tag = "whisper"
+    cfg = get_arch("whisper-base")
+    params = model_init(torch, cfg, dev, tag)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    b, s, se = WHISPER_B, WHISPER_SEQ, cfg.enc_seq
+    frames = (0.1 * torch.randn((b, se, cfg.d_model), generator=gen,
+                                device=dev)).to(torch.bfloat16)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab, (b, s)), device=dev)
+    nl, ne = cfg.num_layers, cfg.enc_layers
+
+    def kind(args):
+        sq, sk = args[0].shape[1], args[1].shape[1]
+        return "enc" if sq == sk == se else "cross" if sk == se else "self"
+
+    with torch.no_grad():
+        lm.encode(params, frames, cfg)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc, seen = capture_kernel_inputs(
+            torch, lambda: lm.encode(params, frames, cfg),
+            [(fa, "flash_fwd_cuda")], clone=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if LAUNCHES["flash_fwd"] != ne or \
+                not torch.isfinite(enc.float()).all():
+            fails.append(f"{tag}: encode launched {LAUNCHES['flash_fwd']} "
+                         f"flash_fwd, expected {ne}")
+        log(f"[{tag}] encode {[b, se, cfg.d_model]} frames: {wall:.4f} s, "
+            f"{b * se / wall:.1f} frames/s, launches {_nonzero(LAUNCHES)}")
+        enc_case = seen["flash_fwd_cuda"]
+        batch = {"tokens": toks, "frames": frames}
+        _, seen, fwd_counts = forward_main(
+            torch, tag, cfg, params, batch, {"flash_fwd": ne + 2 * nl},
+            fails, [(fa, "flash_fwd_cuda")], (fa, "flash_fwd_cuda", kind))
+        cross_case = seen["flash_fwd_cuda"]
+        for case, args, sq in (("enc", enc_case, se),
+                               ("cross", cross_case, s)):
+            q, k, _, causal = args[:4]
+            if (q.shape[1], k.shape[1], causal) != (sq, se, False):
+                fails.append(f"{tag}: the {case} flash call saw q "
+                             f"{tuple(q.shape)}, k {tuple(k.shape)}, causal "
+                             f"{causal}")
+        if fwd_counts != {"enc": ne, "self": nl, "cross": nl}:
+            fails.append(f"{tag}: flash calls by kind {fwd_counts}")
+        enc_case, cross_case = enc_case[:3], cross_case[:3]
+        del seen
+        # decode against the precomputed cross K/V, every step's logits
+        # against the forward's; then two faults the check must catch on
+        # the first WHISPER_CONTROL_STEPS steps: the cross K/V left at zero
+        # (what the reference's engine serves) and each layer given the
+        # next layer's
+        fwd = lm.forward(params, batch, cfg)[0]
+
+        def decode(src, n):
+            state = lm.init_cache(cfg, b, s, device=dev)
+            c = state["caches"]["dec"]
+            for li in range(nl):
+                if src(li) is None:
+                    continue
+                ck, cv = blocks.cross_kv(cfg, {
+                    name: w[src(li)] for name, w in params["dec"].items()},
+                    enc)
+                c["ck"][li].copy_(ck)
+                c["cv"][li].copy_(cv)
+            out = []
+            for i in range(n):
+                lg, state = lm.decode_step(params, state, toks[:, i:i + 1],
+                                           cfg)
+                out.append(lg)
+            return torch.stack(out, 1)
+
+        def held(dec, ref):
+            diff = (dec - ref).abs()
+            return (bool((diff <= WHISPER_ATOL + WHISPER_RTOL * ref.abs())
+                         .all()), diff.max().item(), _rel_l2(torch, dec, ref))
+
+        t0 = time.perf_counter()
+        dec = decode(lambda li: li, s)
+        t_dec = time.perf_counter() - t0
+        ok, worst, rel = held(dec, fwd)
+        log(f"[{tag}] decode_step with the precomputed cross K/V vs the "
+            f"forward on {[b, s]}: max |logit diff| {worst} (max |logit| "
+            f"{fwd.abs().max().item()}, mean |logit| "
+            f"{fwd.abs().mean().item()}), rel L2 {rel:.4g}, within atol "
+            f"{WHISPER_ATOL} + rtol {WHISPER_RTOL}: {ok}; argmax equal at "
+            f"{int((dec.argmax(-1) == fwd.argmax(-1)).sum())} of {b * s}; "
+            f"{s} steps {t_dec:.4f} s")
+        if not ok:
+            fails.append(f"{tag}: decode with cross K/V does not reproduce "
+                         f"the forward")
+        n = WHISPER_CONTROL_STEPS
+        for fault, src in (("zero cross K/V", lambda li: None),
+                           ("each layer the next layer's cross K/V",
+                            lambda li: (li + 1) % nl)):
+            bad = decode(src, n)
+            caught, worst, rel = held(bad, fwd[:, :n])
+            caught = not caught
+            log(f"[{tag}] control, {fault}, first {n} steps: max |logit "
+                f"diff| {worst}, rel L2 {rel:.4g}, argmax equal at "
+                f"{int((bad.argmax(-1) == fwd[:, :n].argmax(-1)).sum())} "
+                f"of {b * n}; the check catches it: {caught}")
+            if not caught:
+                fails.append(f"{tag}: the decode check passes with "
+                             f"{fault}")
+            del bad
+        del fwd, dec, enc
+    del frames, toks
+    _free(torch)
+
+    # training: zero frames, as the loop feeds them
+    tr = WHISPER_TRAIN
+    n_mb, mb = tr["mb"], tr["batch"] // tr["mb"]
+
+    def stream():
+        return TokenStream(vocab=cfg.vocab, seq_len=tr["seq"],
+                           global_batch=tr["batch"], seed=SEED)
+
+    hyper = TrainHyper()
+    loop = TrainLoop(cfg, stream(), hyper,
+                     LoopConfig(microbatches=n_mb, device=str(dev)),
+                     seed=SEED)
+    first = {"tokens": torch.as_tensor(stream().next()["tokens"][:mb],
+                                       device=dev),
+             "frames": torch.zeros((mb, se, cfg.d_model), device=dev)}
+    res = {impl: build_grad_step(cfg, hyper, impl)[0](
+        loop.state["params"], first, None, None, 0)
+        for impl in ("auto", "torch")}
+    (gk, mk), (gp, mp) = res["auto"], res["torch"]
+    loss_k, loss_p = mk["loss"].item(), mp["loss"].item()
+    worst = max(_rel_l2(torch, a, c) for a, c in
+                zip(tree_leaves(gk), tree_leaves(gp)))
+    log(f"[{tag}] train: one microbatch {list(first['tokens'].shape)} with "
+        f"zero frames, kernels vs plain versions: loss {loss_k:.7f} vs "
+        f"{loss_p:.7f} (rel {abs(loss_k - loss_p) / loss_p:.3g}, tolerance "
+        f"{TRAIN_LOSS_RTOL}); gradient leaves worst rel L2 {worst:.4g} "
+        f"(tolerance {TRAIN_GRAD_RTOL})")
+    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * loss_p or \
+            worst > TRAIN_GRAD_RTOL:
+        fails.append(f"{tag}: the kernel training step differs from the "
+                     f"plain one")
+    del res, gk, mk, gp, mp, first
+    _free(torch)
+    loop.run(1)                                     # warm-up
+    per_step = {"flash_fwd": (ne + 2 * nl) * n_mb,
+                "flash_bwd": (ne + 2 * nl) * n_mb}
+    _, bwd_counts = shape_counts(
+        torch, lambda: train_steps(torch, loop, per_step, tr["steps"],
+                                   f"{tag} train", fails),
+        fa, "flash_bwd_cuda", kind)
+    log(f"[{tag}] train: flash_bwd launches by kind {bwd_counts}")
+    del loop
+    _free(torch)
+    rows = whisper_flash_rows(
+        torch, tag, [("enc", *enc_case), ("cross", *cross_case)],
+        fwd_counts, bwd_counts)
+    del params
+    _free(torch)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3184,9 +3976,12 @@ def main() -> int:
             if r["name"] == f"flash_fwd@{ph['tag']}":
                 r["launches"] = launches["flash_fwd"]
         phase_time(ph["tag"])
-    _free(torch)
-    rows += gemma3_phase(torch, dev, fails)
-    phase_time("gemma3")
+    for name, fn in (("gemma3", gemma3_phase), ("olmoe", phase_olmoe),
+                     ("qwen3moe", phase_qwen3moe), ("dense", phase_dense),
+                     ("qwen2vl", phase_qwen2vl), ("whisper", phase_whisper)):
+        _free(torch)
+        rows += fn(torch, dev, fails) or []
+        phase_time(name)
     if fails:
         raise AssertionError("; ".join(fails))
 

@@ -1,5 +1,5 @@
-"""Architecture registry: ``--arch <id>`` resolution for the configs the
-port serves so far."""
+"""Architecture registry: ``--arch <id>`` resolution for the reference's
+eleven configs."""
 from __future__ import annotations
 
 import importlib
@@ -7,11 +7,17 @@ import importlib
 from repro_torch.configs.base import ArchConfig, reduced
 
 _MODULES = {
+    "whisper-base": "repro_torch.configs.whisper_base",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+    "yi-34b": "repro_torch.configs.yi_34b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
-    "paper-moe-100m": "repro_torch.configs.paper_moe_100m",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "paper-moe-100m": "repro_torch.configs.paper_moe_100m",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,0 +1,17 @@
+"""yi-34b [dense]: 60L, d_model=7168, 56H (GQA kv=8), d_ff=20480, vocab=64000.
+Llama-arch GQA.  [arXiv:2403.04652; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="yi-34b",
+    family="dense",
+    num_layers=60,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    d_ff=20480,
+    vocab=64000,
+    rope_theta=5_000_000.0,
+    tie_embeddings=False,
+    source="arXiv:2403.04652",
+)

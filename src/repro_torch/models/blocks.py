@@ -1,10 +1,14 @@
-"""Per-block-type parameter definitions and apply functions for the block
-types the port runs so far: ``attn`` (full-attention decoder block),
+"""Per-block-type parameter definitions and apply functions for every
+block type of the reference: ``attn`` (full-attention decoder block),
 ``local`` (the same block over a sliding window of ``cfg.window`` keys,
 decoding from a rolling cache of that many rows), ``moe`` (attention +
 MoE-FFN decoder block), ``rwkv`` (RWKV6 time mix + channel mix),
-``mamba`` (Mamba2 SSD block) and ``shared_attn`` (zamba2's attention
-block, one weight copy shared by every occurrence).
+``mamba`` (Mamba2 SSD block), ``shared_attn`` (zamba2's attention
+block, one weight copy shared by every occurrence), and whisper's ``enc``
+(bidirectional encoder block; no decode, no cache) and ``dec`` (decoder
+block with cross-attention over the encoder's output, decoding against
+the cross K/V held in its cache).  With ``cfg.mrope`` (qwen2-vl) every
+rotary block rotates by the (t, h, w) ids ``ctx["positions3"]``.
 
 Each type defines:
   defs(cfg)                        parameter declaration (ParamDef tree)
@@ -35,19 +39,21 @@ from repro_torch.kernels.mamba2_ssd.ops import mamba2, mamba2_decode_step
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6, rwkv6_decode_step
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import apply_rope, rms_norm, swiglu
+from repro_torch.models.layers import (apply_mrope, apply_rope, rms_norm,
+                                       swiglu)
 from repro_torch.models.params import ParamDef
 
 LORA_DIM = 64
 
 
-def _attn_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+def _attn_defs(cfg: ArchConfig, cross: bool = False) -> Dict[str, ParamDef]:
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    pre = "c" if cross else ""
     return {
-        "wq": ParamDef((d, h * hd), ("embed", "qkv")),
-        "wk": ParamDef((d, kh * hd), ("embed", "qkv")),
-        "wv": ParamDef((d, kh * hd), ("embed", "qkv")),
-        "wo": ParamDef((h * hd, d), ("qkv", "embed")),
+        pre + "wq": ParamDef((d, h * hd), ("embed", "qkv")),
+        pre + "wk": ParamDef((d, kh * hd), ("embed", "qkv")),
+        pre + "wv": ParamDef((d, kh * hd), ("embed", "qkv")),
+        pre + "wo": ParamDef((h * hd, d), ("qkv", "embed")),
     }
 
 
@@ -60,10 +66,23 @@ def _mlp_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
     }
 
 
-def _rope(cfg: ArchConfig, x, positions):
+def _rope(cfg: ArchConfig, x, ctx):
+    """Rotary positions from ``ctx``: ``positions`` [B,S], or with
+    ``cfg.mrope`` the (t, h, w) ids ``positions3`` [B,S,3]; none at a
+    ``rope_theta`` of 0 (whisper)."""
     if cfg.rope_theta <= 0:
         return x
-    return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.mrope:
+        return apply_mrope(x, ctx["positions3"], cfg.rope_theta)
+    return apply_rope(x, ctx["positions"], cfg.rope_theta)
+
+
+def _step_positions(pos):
+    """A decode step's rotary positions from each row's position ``pos``
+    [B]: every M-RoPE id is the row's position, as the reference's decode
+    broadcasts its scalar one."""
+    p = pos[:, None]
+    return {"positions": p, "positions3": p[..., None].expand(-1, 1, 3)}
 
 
 def _project_qkv(cfg, p, x):
@@ -74,12 +93,12 @@ def _project_qkv(cfg, p, x):
     return q, k, v
 
 
-def _self_attention(cfg, p, x, ctx, window=None):
+def _self_attention(cfg, p, x, ctx, window=None, causal=True):
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
-    q = _rope(cfg, q, ctx["positions"])
-    k = _rope(cfg, k, ctx["positions"])
-    out = flash_attention(q, k, v, window=window,
+    q = _rope(cfg, q, ctx)
+    k = _rope(cfg, k, ctx)
+    out = flash_attention(q, k, v, causal=causal, window=window,
                           impl=ctx.get("impl", "auto"))
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
 
@@ -90,7 +109,7 @@ def _decode_attention(cfg, p, x, cache, ctx, window=None, rolling=False):
     ``rolling`` cache is a ring: row ``pos % Smax``."""
     pos = ctx["pos"]                                     # [B]
     q, k, v = _project_qkv(cfg, p, x)
-    positions = pos[:, None]
+    positions = _step_positions(pos)
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
     b = x.shape[0]
@@ -430,6 +449,93 @@ def mamba_decode(p, x, cache, ctx):
     return _mamba_out(p, x, y.reshape(b, 1, di), z, cfg)
 
 
+# ------------------------------------------------------------- whisper enc/dec
+
+def enc_defs(cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    return {"ln1": ParamDef((d,), ("embed",), "ones"),
+            "ln2": ParamDef((d,), ("embed",), "ones"),
+            **_attn_defs(cfg),
+            "w_in": ParamDef((d, f), ("embed", "mlp")),
+            "w_out": ParamDef((f, d), ("mlp", "embed"))}
+
+
+def _plain_mlp(p, x):
+    """GELU MLP; the tanh form, ``jax.nn.gelu``'s default."""
+    hdn = F.gelu(x @ p["w_in"].to(x.dtype), approximate="tanh")
+    return hdn @ p["w_out"].to(x.dtype)
+
+
+def enc_apply(p, x, ctx):
+    cfg = ctx["cfg"]
+    h = x + _self_attention(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps), ctx,
+                            causal=False)
+    return h + _plain_mlp(p, rms_norm(h, p["ln2"], cfg.norm_eps))
+
+
+def dec_defs(cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    return {"ln1": ParamDef((d,), ("embed",), "ones"),
+            "ln_c": ParamDef((d,), ("embed",), "ones"),
+            "ln2": ParamDef((d,), ("embed",), "ones"),
+            **_attn_defs(cfg), **_attn_defs(cfg, cross=True),
+            "w_in": ParamDef((d, f), ("embed", "mlp")),
+            "w_out": ParamDef((f, d), ("mlp", "embed"))}
+
+
+def cross_kv(cfg, p, enc_out):
+    """The cross K/V of one ``dec`` layer from the encoder's output [B,Se,D]:
+    (k, v) [B,Se,KH,hd]."""
+    b = enc_out.shape[0]
+    k = (enc_out @ p["cwk"].to(enc_out.dtype)).reshape(
+        b, -1, cfg.n_kv_heads, cfg.hd)
+    v = (enc_out @ p["cwv"].to(enc_out.dtype)).reshape(
+        b, -1, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def _cross_attention(cfg, p, x, enc_out, impl="auto"):
+    b, s, _ = x.shape
+    q = (x @ p["cwq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.hd)
+    k, v = cross_kv(cfg, p, enc_out.to(x.dtype))
+    out = flash_attention(q, k, v, causal=False, impl=impl)
+    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["cwo"].to(x.dtype)
+
+
+def dec_apply(p, x, ctx):
+    cfg = ctx["cfg"]
+    h = x + _self_attention(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps), ctx)
+    h = h + _cross_attention(cfg, p, rms_norm(h, p["ln_c"], cfg.norm_eps),
+                             ctx["enc_out"], ctx.get("impl", "auto"))
+    return h + _plain_mlp(p, rms_norm(h, p["ln2"], cfg.norm_eps))
+
+
+def dec_cache(cfg, batch, smax, kv_dtype, device):
+    """Self-attention K/V, and the cross K/V ``ck``/``cv`` [B,enc_seq,KH,hd]
+    bf16, zeros until the caller writes the encoder's (``cross_kv``)."""
+    c = attn_cache(cfg, batch, smax, kv_dtype, device)
+    for name in ("ck", "cv"):
+        c[name] = torch.zeros((batch, cfg.enc_seq, cfg.n_kv_heads, cfg.hd),
+                              dtype=torch.bfloat16, device=device)
+    return c
+
+
+def dec_decode(p, x, cache, ctx):
+    cfg = ctx["cfg"]
+    h = x + _decode_attention(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps),
+                              cache, ctx)
+    # cross-attention against the precomputed encoder K/V: every row sees
+    # all enc_seq frames (the reference's position enc_seq - 1)
+    xq = rms_norm(h, p["ln_c"], cfg.norm_eps)
+    b = x.shape[0]
+    qc = (xq @ p["cwq"].to(x.dtype)).reshape(b, 1, cfg.n_heads, cfg.hd)
+    last = torch.full((b,), cache["ck"].shape[1] - 1, dtype=torch.long,
+                      device=x.device)
+    co = attn_lib.decode_attention(qc, cache["ck"], cache["cv"], last)
+    h = h + co.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["cwo"].to(x.dtype)
+    return h + _plain_mlp(p, rms_norm(h, p["ln2"], cfg.norm_eps))
+
+
 BLOCKS: Dict[str, Dict[str, Any]] = {
     "attn": dict(defs=attn_defs, apply=attn_apply, decode=attn_decode,
                  cache=attn_cache, f32=()),
@@ -445,4 +551,9 @@ BLOCKS: Dict[str, Dict[str, Any]] = {
     # weight copy for all its occurrences and a KV cache per occurrence
     "shared_attn": dict(defs=attn_defs, apply=attn_apply, decode=attn_decode,
                         cache=attn_cache, f32=()),
+    # whisper: the encoder runs once over the frames (``lm.encode``)
+    "enc": dict(defs=enc_defs, apply=enc_apply, decode=None, cache=None,
+                f32=()),
+    "dec": dict(defs=dec_defs, apply=dec_apply, decode=dec_decode,
+                cache=dec_cache, f32=()),
 }

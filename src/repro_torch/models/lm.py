@@ -11,6 +11,12 @@ loop over the layer index.
 needs: ``state["pos"]`` is a per-row position ``[B]``, so one batched call
 advances rows at different depths, and ``moe_groups`` says how the MoE
 groups the batch (see ``models.moe``).
+
+An encoder-decoder (whisper: ``cfg.enc_layers``) keeps a stacked ``enc``
+group and ``enc_ln`` beside its ``dec`` layers; ``encode`` runs it over
+frame embeddings, ``forward`` takes them as ``batch["frames"]``, and a
+decode reads the cross K/V that the caller wrote into each ``dec`` layer's
+cache (``blocks.cross_kv``), as the reference's consistency test does.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.blocks import BLOCKS
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import rms_norm, sinusoidal_positions
 from repro_torch.models.params import ParamDef, init_params, map_defs, stacked
 
 
@@ -60,6 +66,10 @@ def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
         bd = BLOCKS[t]["defs"](cfg)
         d[t] = bd if t == "shared_attn" else \
             map_defs(lambda x: stacked(n, x), bd)
+    if cfg.enc_layers:
+        enc = BLOCKS["enc"]["defs"](cfg)
+        d["enc"] = map_defs(lambda x: stacked(cfg.enc_layers, x), enc)
+        d["enc_ln"] = ParamDef((cfg.d_model,), ("embed",), "ones")
     return d
 
 
@@ -87,12 +97,30 @@ def _head(params, cfg, x):
 
 # ------------------------------------------------------------------- forward
 
+def encode(params, frames, cfg: ArchConfig, impl: str = "auto"):
+    """Whisper's encoder over (stubbed) frame embeddings [B,Se,D]: plus
+    sinusoidal positions, the ``enc`` stack (bidirectional attention), then
+    ``enc_ln``."""
+    b, s, _ = frames.shape
+    x = frames + sinusoidal_positions(s, cfg.d_model, frames.device)[None] \
+        .to(frames.dtype)
+    ctx = {"cfg": cfg, "impl": impl,
+           "positions": torch.arange(s, device=frames.device)[None]
+           .expand(b, s)}
+    for li in range(cfg.enc_layers):
+        x = BLOCKS["enc"]["apply"](_layer_params(params, "enc", li), x, ctx)
+    return rms_norm(x, params["enc_ln"], cfg.norm_eps)
+
+
 def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
             token_offset: int = 0, impl: str = "auto"):
-    """batch: tokens [B,S].  Returns (logits [B,S,V] f32, aux dict with the
-    MoE metrics stacked over layers; the whole batch is one MoE group).
+    """batch: tokens [B,S], and for whisper frames [B,Se,D], for qwen2-vl
+    optionally positions3 [B,S,3] (the (t, h, w) ids; without them every id
+    is the token's position).  Returns (logits [B,S,V] f32, aux dict with
+    the MoE metrics stacked over layers; the whole batch is one MoE
+    group).
 
-    ``impl`` picks the scans' implementation: ``auto`` is the CUDA kernel
+    ``impl`` picks the kernels' implementation: ``auto`` is the CUDA kernel
     for tensors on the card and the plain torch version on the CPU (the
     reference's default is its XLA chunked form, which the port does not
     have)."""
@@ -100,9 +128,16 @@ def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
     b, s = tokens.shape
     dev = tokens.device
     x = params["embed"][tokens].to(torch.bfloat16)
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
     ctx = {"cfg": cfg, "moe_groups": "batch", "token_offset": token_offset,
-           "positions": torch.arange(s, device=dev)[None].expand(b, s),
-           "moe_metrics": [], "impl": impl}
+           "positions": pos, "moe_metrics": [], "impl": impl}
+    if cfg.mrope:
+        p3 = batch.get("positions3")
+        ctx["positions3"] = pos[..., None].expand(b, s, 3) if p3 is None \
+            else p3
+    if cfg.enc_layers:
+        ctx["enc_out"] = encode(params, batch["frames"].to(torch.bfloat16),
+                                cfg, impl)
     if plan is None and n_moe_layers(cfg):
         plan = moe_lib.identity_plan(cfg, n_moe_layers(cfg), device=dev)
     for t, count, off in pattern_runs(cfg):
@@ -127,8 +162,9 @@ def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
 def init_cache(cfg: ArchConfig, batch: int, smax: int, kv_dtype=None,
                device="cuda"):
     """Per-type stacked caches (a leading dim of one entry per occurrence:
-    attention ``k``/``v`` ``[n, B, Smax, KH, hd]``, recurrent states in the
-    dtypes their blocks give them) and a per-row position ``[B]``."""
+    attention ``k``/``v`` ``[n, B, Smax, KH, hd]``, whisper's cross K/V
+    ``ck``/``cv`` ``[n, B, enc_seq, KH, hd]`` (zeros), recurrent states in
+    the dtypes their blocks give them) and a per-row position ``[B]``."""
     caches = {}
     for t, n in type_counts(cfg).items():
         one = BLOCKS[t]["cache"](cfg, batch, smax, kv_dtype, device)

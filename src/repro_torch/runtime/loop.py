@@ -251,8 +251,8 @@ class TrainLoop:
         sums: Dict[str, Any] = {}
         mb_done = 0
         for i in range(n_mb):
-            mbd = {"tokens": self._tokens(
-                batch["tokens"][i * mb_sz:(i + 1) * mb_sz])}
+            mbd = self._model_batch(
+                batch["tokens"][i * mb_sz:(i + 1) * mb_sz])
             ps, pc = self._plan_args()
             offset = (step * n_mb + i) * mb_sz * self.stream.seq_len
             g, metrics = grad_mb(self.state["params"], mbd, ps, pc, offset)
@@ -277,7 +277,7 @@ class TrainLoop:
         fused_step = self.fused_step if fused_step is None else fused_step
         gb = batch["tokens"].shape[0]
         used = (gb // n_mb) * n_mb      # granulated path drops the remainder
-        bd = {"tokens": self._tokens(batch["tokens"][:used])}
+        bd = self._model_batch(batch["tokens"][:used])
         ps, pc = self._plan_args()
         self.state, mb_metrics, opt_m = fused_step(
             self.state, bd, ps, pc, self.lc.lr_scale, n_mb=n_mb)
@@ -297,6 +297,16 @@ class TrainLoop:
             for k, v in mb_host.items()}
         step_metrics.update({k: np.asarray(v) for k, v in opt_host.items()})
         return step_metrics
+
+    def _model_batch(self, tokens: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The model's batch for ``tokens``; an encoder-decoder also gets
+        zero frames [B, enc_seq, d_model] f32, as the reference's loop."""
+        bd = {"tokens": self._tokens(tokens)}
+        if self.cfg.enc_layers:
+            bd["frames"] = torch.zeros(
+                (tokens.shape[0], self.cfg.enc_seq, self.cfg.d_model),
+                dtype=torch.float32, device=bd["tokens"].device)
+        return bd
 
     def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(tokens),

@@ -25,6 +25,11 @@ from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
 
+# the batch entries the model reads: tokens, whisper's frames and
+# qwen2-vl's (t, h, w) position ids
+BATCH_KEYS = ("tokens", "frames", "positions3")
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainHyper:
     opt: adamw.AdamWCfg = adamw.AdamWCfg()
@@ -121,7 +126,8 @@ def build_fused_step(cfg: ArchConfig, hyper: TrainHyper, impl: str = "auto"):
                         state["params"])
         per_mb: List[Dict[str, torch.Tensor]] = []
         for i in range(n_mb):
-            mbd = {"tokens": tokens[i * mb:(i + 1) * mb]}
+            mbd = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()
+                   if k in BATCH_KEYS}
             offset = (int(state["step"]) * n_mb + i) * (mb * s)
             _, metrics, grads = value_and_grad(params_bf, mbd, cfg, hyper,
                                                plan, offset, impl)
