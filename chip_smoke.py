@@ -79,7 +79,9 @@
    around pool 0's retirement;
    the MoE kernels also on inputs at compact heights 1 and 2 and on pools
    1's and 2's rows, against their plain versions;
-6. ``[train]``: trains ``paper-moe-100m`` at full width with ``TrainLoop``
+6. ``[train]``: first ``adamw.apply_`` (in place) against ``adamw.apply``
+   bit for bit over 5 steps on ``paper-moe-100m``'s f32 tree; then trains
+   ``paper-moe-100m`` at full width with ``TrainLoop``
    (fused gating and dispatch, ``MoEReshaper`` closing the Reshape loop,
    a skewed ``TokenStream``, global batch 8 x 1024 in 2 microbatches):
    first, from the initial state, one step through the kernels against
@@ -146,10 +148,17 @@
     engine's rows); the MoE kernels at k 8 over
     80 slots against their plain versions on the serve tick's and the
     forward's inputs (``gating_kernel<32, 2>``); the forward on ``[4,
-    1024]``; the ``moe`` block's forward vs decode; then ``[olmoe train]``
-    at 2 of 16 layers (an f32 step of the port holds about 36 B a
-    parameter): ``train_compare``, then 3 ``TrainLoop`` steps of 4 x 1024
-    with ``MoEReshaper``, each step's launches checked; ``[qwen3moe]``
+    1024]``; the ``moe`` block's forward vs decode; then ``[olmoe train]``:
+    ``train_compare`` at 2 of 16 layers, then 3 ``TrainLoop`` steps of 4 x
+    1024 with ``MoEReshaper`` at 4 of 16 layers (the step updates its state
+    in place), each step's launches checked; ``[ep]``: one olmoe MoE layer
+    at full width on the forward's 4096 tokens with its experts over 2
+    ranks on the one card (processes in a gloo group over CUDA tensors),
+    ``moe_ffn_sharded`` against the unsharded ``moe_ffn`` (integers equal,
+    y within 2e-2), each rank's launches (the dispatch with a ``valid``
+    mask false on the other rank's slots), the bytes it handed to
+    collectives beside ``analysis.flops``', the MoE kernels against their
+    plain versions on rank 0's inputs; ``[qwen3moe]``
     ``qwen3-moe-235b-a22b`` at 6 of 94 layers (128 experts + 16 spare
     slots top-8, q dim 8192 against d_model 4096): the forward on ``[2,
     1024]`` (``gating_kernel<32, 4>``; the flash kernel at hd 128 with 16
@@ -170,7 +179,14 @@
     the encoder's and the cross-attention's captured inputs against their
     plain version, timed beside ``scaled_dot_product_attention`` and aten's
     flash backward;
-11. prints the kernels' JSON line, the card's name and power limit, and
+11. after every forward and training step it times: ``[mfu]``, the
+    model FLOPs of ``analysis.flops.step_flops`` over the wall time and
+    989e12 FLOP/s, and the wall against the roofline's least time
+    (``analysis.roofline``, the H100's constants), with the card's name and
+    power limit; ``[dryrun]``, the meta dry run's bytes for the same step
+    on one card (``launch.dryrun``) beside the peak device memory measured
+    over it;
+12. prints the kernels' JSON line, the card's name and power limit, and
     last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or without
@@ -179,6 +195,7 @@ the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import subprocess
@@ -246,6 +263,57 @@ def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+@functools.lru_cache(maxsize=1)
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def step_shape(kind, batch, seq, mb=1):
+    from repro_torch.configs import ShapeCfg
+    return ShapeCfg(f"{kind} [{batch}, {seq}]", seq, batch, kind, mb)
+
+
+def mfu_line(tag, cfg, kind, batch, seq, wall, mb=1) -> None:
+    """``[mfu]``: a timed forward (``prefill``) or training step's model
+    FLOPs (``analysis.flops.step_flops``) over its wall time and the bf16
+    peak, and the roofline's least time for it (``analysis.roofline`` on
+    one card) over that wall."""
+    from repro_torch.analysis import flops, roofline
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    shape = step_shape(kind, batch, seq, mb)
+    fc = flops.step_flops(cfg, shape)
+    rl = roofline.analyze(cfg, shape, {"data": 1, "model": 1})
+    log(f"[mfu] {tag} {shape.name}: model FLOPs {fc.model_flops:.6g} (the "
+        f"step runs {fc.hlo_flops:.6g}), wall {wall:.4f} s: mfu "
+        f"{fc.model_flops / (wall * PEAK_FLOPS_BF16):.4f} of "
+        f"{PEAK_FLOPS_BF16:.4g} FLOP/s; roofline (compute "
+        f"{rl.compute_s:.4g} s, memory {rl.memory_s:.4g} s) "
+        f"{rl.bound_s:.4g} s, bound by {rl.dominant}: the step runs at "
+        f"{rl.bound_s / wall:.4f} of its roofline (analytic fraction "
+        f"{rl.roofline_fraction:.4f}); {card()}")
+
+
+def dry_line(torch, tag, cfg, kind, batch, seq, peak, mb=1):
+    """``[dryrun]``: the meta dry run's bytes on one card for this step
+    (``launch.dryrun``) beside the peak device memory measured over it."""
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime.sharding import parse_mesh
+    t0 = time.perf_counter()
+    rec = dryrun.dry_cell(cfg, step_shape(kind, batch, seq, mb),
+                          [parse_mesh("1x1")])[0]
+    b = rec["bytes_per_device"]
+    gib = {k: round(v / 2 ** 30, 3) for k, v in b.items()}
+    log(f"[dryrun] {tag} {kind} [{batch}, {seq}] in {mb} microbatches, "
+        f"{cfg.num_layers} layers: predicted {gib['total']} GiB ({gib}), "
+        f"measured peak {peak / 2 ** 30:.3f} GiB (predicted/measured "
+        f"{b['total'] / max(peak, 1):.4f}); traced on meta in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -671,12 +739,14 @@ def ssm_phase(torch, dev, ph, fails) -> tuple:
         toks = tokens(ph["batch"], FWD_LEN)
         reset_launches()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         (logits, _), seen = capture_kernel_inputs(
             torch, lambda: lm.forward(params, {"tokens": toks}, cfg),
             [(ops_mod, SCANS[name][1])], clone=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         launches = dict(LAUNCHES)
         want = counts[ph["block"]]
         if launches[name] != want:
@@ -693,6 +763,8 @@ def ssm_phase(torch, dev, ph, fails) -> tuple:
         n_tok = ph["batch"] * FWD_LEN
         log(f"[{tag}] forward {list(toks.shape)}: {wall:.4f} s, "
             f"{n_tok / wall:.1f} tok/s, launches {launches}")
+        mfu_line(tag, cfg, "prefill", ph["batch"], FWD_LEN, wall)
+        dry_line(torch, tag, cfg, "prefill", ph["batch"], FWD_LEN, peak)
         del logits
         # the same forward again under a CUDA-only trace: device time by
         # kernel, and the busy share of the untraced forward's wall
@@ -2775,12 +2847,13 @@ def train_compare(torch, cfg, hyper, state, tokens, plan, fails, n_mb=None,
     del s2, sk, mk, ok, gk
 
 
-def reshape_train_loop(torch, dev, cfg, batch, seq, n_mb, tag, fails):
+def reshape_train_loop(torch, dev, cfg, batch, seq, n_mb, tag, fails,
+                       compare=True):
     """``TrainLoop`` on ``cfg`` (f32 master weights) over a skewed
     ``TokenStream`` of ``batch`` x ``seq`` tokens a step in ``n_mb``
     microbatches, with ``MoEReshaper`` closing the loop (ep_ranks 2, tau
-    0.2), and ``train_compare`` from its initial state before it trains.
-    Returns (the loop, its reshaper)."""
+    0.2), and (``compare``) ``train_compare`` from its initial state
+    before it trains.  Returns (the loop, its reshaper)."""
     from repro_torch.core.reshape_moe import MoEReshaper
     from repro_torch.core.skew import SkewParams
     from repro_torch.data.synthetic import TokenStream
@@ -2805,10 +2878,11 @@ def reshape_train_loop(torch, dev, cfg, batch, seq, n_mb, tag, fails):
         f"{cfg.vocab}, {sum(p.numel() for p in _leaves(loop.state['params']))}"
         f" f32 params; global batch {batch} x {seq} in {n_mb} microbatches, "
         f"TokenStream class_alpha {TRAIN_ALPHA}, Reshape ep_ranks 2, tau 0.2")
-    tokens = torch.as_tensor(stream().next()["tokens"], device=dev)
-    train_compare(torch, cfg, hyper, loop.state, tokens, loop._plan_args(),
-                  fails, n_mb=n_mb, tag=tag)
-    _free(torch)
+    if compare:
+        tokens = torch.as_tensor(stream().next()["tokens"], device=dev)
+        train_compare(torch, cfg, hyper, loop.state, tokens,
+                      loop._plan_args(), fails, n_mb=n_mb, tag=tag)
+        _free(torch)
     return loop, reshaper
 
 
@@ -2852,11 +2926,14 @@ def train_steps(torch, loop, per_step, n, tag, fails, note=None) -> float:
             f"{walls[-1]:.4f} s, {n_tok / walls[-1]:.1f} training tok/s; "
             f"launches {delta}")
     wall = sum(walls) / len(walls)
-    log(f"[{tag}] {n} steps of {loop.stream.global_batch} x "
-        f"{loop.stream.seq_len}: mean {wall:.4f} s a step, "
+    peak = torch.cuda.max_memory_allocated()
+    gb, seq, mb = loop.stream.global_batch, loop.stream.seq_len, \
+        loop.lc.microbatches
+    log(f"[{tag}] {n} steps of {gb} x {seq}: mean {wall:.4f} s a step, "
         f"{n_tok / wall:.1f} training tok/s; launches {_nonzero(LAUNCHES)}; "
-        f"peak device memory in these steps "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"peak device memory in these steps {peak / 2 ** 30:.2f} GiB")
+    mfu_line(tag, loop.cfg, "train", gb, seq, wall, mb)
+    dry_line(torch, tag, loop.cfg, "train", gb, seq, peak, mb)
     return wall
 
 
@@ -2872,6 +2949,54 @@ def reshape_note(reshaper):
     return note
 
 
+ADAMW_STEPS = 5
+
+
+def adamw_check(torch, dev, cfg, fails) -> None:
+    """``adamw.apply_`` (in place) against ``adamw.apply`` on the card:
+    ADAMW_STEPS steps on ``cfg``'s f32 tree from one seed, gradients from
+    the seed too, clipped in every other step; every leaf of the
+    parameters and both moments bit for bit (the card's kernels may
+    contract a multiply and an add where the CPU's do not: both paths must
+    round at the same points)."""
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    opt = adamw.AdamWCfg(lr=1e-2, warmup_steps=2, total_steps=10)
+    p_f = lm.init(cfg, gen, device=dev)
+    p_i = tree_map(torch.clone, p_f)
+    s_f, s_i = adamw.init(p_f), adamw.init(p_i)
+    n = sum(x.numel() for x in tree_leaves(p_f))
+    t0 = time.perf_counter()
+    clipped = 0
+    for step in range(ADAMW_STEPS):
+        # a global norm about 3 (clipped to 1) or about 0.1 (not clipped)
+        scale = (3.0 if step % 2 else 0.1) / n ** 0.5
+        g = tree_map(lambda p: scale * torch.randn(
+            p.shape, generator=gen, device=dev), p_f)
+        p_f, s_f, m_f = adamw.apply(p_f, g, s_f, opt)
+        count, m_i = adamw.apply_(p_i, g, s_i, opt)
+        s_i = adamw.OptState(s_i.m, s_i.v, count)
+        clipped += bool(m_f["grad_norm"] > opt.clip_norm)
+    torch.cuda.synchronize()
+    pairs = list(zip(tree_leaves(p_f) + tree_leaves(s_f.m) +
+                     tree_leaves(s_f.v), tree_leaves(p_i) +
+                     tree_leaves(s_i.m) + tree_leaves(s_i.v)))
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    same = all(torch.equal(m_f[k], m_i[k]) for k in ("grad_norm", "lr"))
+    log(f"[train] adamw.apply_ vs adamw.apply on {cfg.name}'s tree ({n} "
+        f"f32 params), {ADAMW_STEPS} steps, clipped in {clipped}: leaves of "
+        f"the parameters and moments that differ: {differ} of {len(pairs)}"
+        f"; grad_norm and lr equal {same}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    if differ or not same:
+        fails.append("train: adamw.apply_ is not bit-equal to adamw.apply "
+                     "on the card")
+    del p_f, p_i, s_f, s_i, g
+    _free(torch)
+
+
 def train_phase(torch, dev, fails):
     """The training main path: ``TrainLoop.run`` on paper-moe-100m at full
     width through the kernels, with the Reshape loop closed.  Returns
@@ -2881,6 +3006,7 @@ def train_phase(torch, dev, fails):
     from repro_torch.models import lm
 
     cfg = moe_cfg()
+    adamw_check(torch, dev, cfg, fails)
     loop, reshaper = reshape_train_loop(torch, dev, cfg, TRAIN_BATCH,
                                         TRAIN_SEQ, TRAIN_MB, "train", fails)
 
@@ -3008,12 +3134,14 @@ def gemma3_phase(torch, dev, fails) -> list:
         toks = tokens(*GEMMA_FWD)
         reset_launches()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         (logits, _), seen = capture_kernel_inputs(
             torch, lambda: lm.forward(params, {"tokens": toks}, cfg),
             [(fa, "flash_fwd_cuda")], clone=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         fwd_launches = dict(LAUNCHES)
         if fwd_launches["flash_fwd"] != n_layers:
             fails.append(f"{tag}: {fwd_launches['flash_fwd']} flash_fwd "
@@ -3024,6 +3152,8 @@ def gemma3_phase(torch, dev, fails) -> list:
         n_tok = GEMMA_FWD[0] * GEMMA_FWD[1]
         log(f"[{tag}] forward {list(GEMMA_FWD)}: {wall:.4f} s, "
             f"{n_tok / wall:.1f} tok/s, launches {_nonzero(fwd_launches)}")
+        mfu_line(tag, cfg, "prefill", *GEMMA_FWD, wall)
+        dry_line(torch, tag, cfg, "prefill", *GEMMA_FWD, peak)
         del logits
         wall_t, busy_us, by_name = device_trace(
             torch, lambda: lm.forward(params, {"tokens": toks}, cfg),
@@ -3201,6 +3331,7 @@ def gemma3_phase(torch, dev, fails) -> list:
     loop.run(1)                                 # warm-up
     per_step = {"flash_fwd": n_layers * n_mb, "flash_bwd": n_layers * n_mb}
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     prev, walls = dict(LAUNCHES), []
     for _ in range(GEMMA_STEPS):
         torch.cuda.synchronize()
@@ -3226,6 +3357,9 @@ def gemma3_phase(torch, dev, fails) -> list:
         f"microbatches: mean {wall:.4f} s a step, {gb * seq / wall:.1f} "
         f"training tok/s; launches {_nonzero(train_launches)}; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    mfu_line(tag, cfg, "train", gb, seq, wall, n_mb)
+    dry_line(torch, tag, cfg, "train", gb, seq,
+             torch.cuda.max_memory_allocated(), n_mb)
     rows[1]["launches"] = train_launches["flash_bwd"]
     del loop
     _free(torch)
@@ -3237,15 +3371,17 @@ def gemma3_phase(torch, dev, fails) -> list:
 # six configs at their published widths, random bf16 weights drawn on the
 # card from a generator seeded SEED, depth cut only where 80 GB or the run's
 # time forces it.  olmoe-1b-7b: the forward's [B, S]; 8 served prompts of
-# two lengths, their new tokens; training's
-# layers (an f32 step of the port holds the old and the new parameters and
-# both moments, the gradients' f32 sum and its mean: about 36 B a
-# parameter, so 2 of 16 layers, 1.25 B parameters, where 4 would pass 80
-# GB), global batch, sequence, microbatches and steps
+# two lengths, their new tokens; training's layers (the TrainLoop's step
+# updates the parameters and moments in place: 16 B a parameter of state,
+# the f32 gradient sum and a bf16 copy of the weights, so 4 of 16 layers,
+# 2.29 B parameters), the layers of ``train_compare`` (its functional steps
+# hold a second state beside the first, so 2), global batch, sequence,
+# microbatches and steps
 OLMOE_FWD = (4, 1024)
 OLMOE_PROMPT_LENS = (16,) * 4 + (128,) * 4
 OLMOE_NEW = 16
-OLMOE_TRAIN = dict(layers=2, batch=4, seq=1024, mb=2, steps=3)
+OLMOE_TRAIN = dict(layers=4, compare_layers=2, batch=4, seq=1024, mb=2,
+                   steps=3)
 # qwen3-moe-235b-a22b cut to 6 of 94 layers (36 GB of bf16 weights); the
 # forward; 4 prompts of one length served on 4 slots
 QWEN3_LAYERS = 6
@@ -3343,11 +3479,13 @@ def forward_main(torch, tag, cfg, params, batch, want, fails, targets=None,
                 return out
         reset_launches()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         logits, seen = capture_kernel_inputs(torch, counted, targets or [],
                                              clone=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         launches = dict(LAUNCHES)
         b, s = batch["tokens"].shape
         if tuple(logits.shape) != (b, s, cfg.vocab) or \
@@ -3365,6 +3503,8 @@ def forward_main(torch, tag, cfg, params, batch, want, fails, targets=None,
         f"(traced wall {wall_t:.4f} s): device busy {busy_us:.0f} us, busy "
         f"{busy:.4f}, idle {1 - busy:.4f} of the counted run's wall")
     log_trace(tag, by_name, 6)
+    mfu_line(tag, cfg, "prefill", b, s, wall)
+    dry_line(torch, tag, cfg, "prefill", b, s, peak)
     return launches, seen, by_kind
 
 
@@ -3524,18 +3664,201 @@ def phase_olmoe(torch, dev, fails) -> list:
 
 def olmoe_train(torch, dev, full, fails) -> None:
     """olmoe-1b-7b cut to OLMOE_TRAIN's layers, trained as ``train_phase``
-    trains (``reshape_train_loop``, a warm-up step, ``train_steps``)."""
+    trains (``reshape_train_loop``, a warm-up step, ``train_steps``), after
+    ``train_compare`` on a cut of its own."""
     tag = "olmoe train"
     tr = OLMOE_TRAIN
+    ccfg = cut(full, tr["compare_layers"])
+    log(f"[{tag}] train_compare at {ccfg.num_layers} of {full.num_layers} "
+        f"layers")
+    loop, _ = reshape_train_loop(torch, dev, ccfg, tr["batch"], tr["seq"],
+                                 tr["mb"], tag, fails)
+    del loop
+    _free(torch)
     cfg = cut(full, tr["layers"])
-    log(f"[{tag}] {cfg.num_layers} of {full.num_layers} layers")
+    log(f"[{tag}] the TrainLoop at {cfg.num_layers} of {full.num_layers} "
+        f"layers")
     loop, reshaper = reshape_train_loop(torch, dev, cfg, tr["batch"],
-                                        tr["seq"], tr["mb"], tag, fails)
+                                        tr["seq"], tr["mb"], tag, fails,
+                                        compare=False)
     loop.run(1)                                      # warm-up
     train_steps(torch, loop, moe_step_launches(cfg.num_layers, tr["mb"]),
                 tr["steps"], tag, fails, reshape_note(reshaper))
     del loop
     _free(torch)
+
+
+# [ep]: one olmoe-1b-7b MoE layer at full width with its experts over
+# EP_WORLD ranks on the one card (each rank a process; a gloo group, since
+# NCCL refuses two ranks on one device, carries the CUDA tensors), on the
+# forward's 4096 tokens; y against the unsharded layer within the port's
+# bf16 MoE tolerance (tests/test_torch_moe.py)
+EP_WORLD = 2
+EP_TOKENS = OLMOE_FWD[0] * OLMOE_FWD[1]
+EP_TOL = 2e-2
+
+
+def ep_layer(torch, dev, cfg):
+    """One MoE layer's router and experts and its input x [1, EP_TOKENS,
+    d_model], bf16, drawn on the card from a generator seeded SEED (every
+    rank draws the same)."""
+    from repro_torch.models import blocks
+    from repro_torch.models.params import init_params
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    defs = blocks.moe_defs(cfg)
+    p = init_params({k: defs[k] for k in ("router", "w_gate", "w_up",
+                                          "w_down")},
+                    gen, torch.bfloat16, dev)
+    x = torch.randn((1, EP_TOKENS, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    return p, x
+
+
+def ep_rank(rank, world, tmp):
+    """One rank of [ep] (a process of its own): its slots of the layer,
+    ``moe_ffn_sharded`` once to warm up, then once counted (launch counts
+    and collective bytes set to 0 just before, read just after), its
+    results saved for the parent; rank 0 also keeps the kernels' inputs."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as moe_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/init",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((1, world), ("data", "model"))
+        cfg = fused_moe(get_arch("olmoe-1b-7b"))
+        p, x = ep_layer(torch, dev, cfg)
+        p = {k: v if k == "router" else
+             moe_lib.local_experts(v, cfg, mesh).contiguous()
+             for k, v in p.items()}
+        plan = moe_lib.identity_plan(cfg, 1, device=dev)
+
+        def run():
+            return moe_lib.moe_ffn_sharded(p, x, plan.slots[0], plan.cum[0],
+                                           cfg, mesh, 0)
+
+        with torch.no_grad():
+            run()
+            torch.cuda.synchronize()
+            dist.barrier()
+            reset_launches()
+            moe_lib.reset_collective_bytes()
+            t0 = time.perf_counter()
+            (y, met), seen = capture_kernel_inputs(torch, run, clone=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out = {"y": y.cpu(), "metrics": {k: v.cpu() for k, v in met.items()},
+               "launches": dict(LAUNCHES), "wall": wall,
+               "bytes": dict(moe_lib.COLLECTIVE_BYTES),
+               "slots": p["w_gate"].shape[0]}
+        if rank == 0:
+            out["seen"] = {k: tuple(a.cpu() if torch.is_tensor(a) else a
+                                    for a in v) for k, v in seen.items()}
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ep(torch, dev, fails) -> list:
+    """[ep]: ``moe_ffn_sharded`` on EP_WORLD ranks (``data`` 1 x ``model``
+    EP_WORLD) against the unsharded ``moe_ffn`` on the same card: integer
+    metrics equal, y within EP_TOL; each rank's launches (gating, dispatch
+    with a ``valid`` mask false on the other rank's slots, combine), the
+    bytes it handed to collectives beside the analytic model's, its wall;
+    the MoE kernels against their plain versions on rank 0's inputs."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.analysis import flops, roofline
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import NVLINK_BW
+    from repro_torch.models import moe as moe_lib
+    tag = "ep"
+    cfg = fused_moe(get_arch("olmoe-1b-7b"))
+    p, x = ep_layer(torch, dev, cfg)
+    plan = moe_lib.identity_plan(cfg, 1, device=dev)
+    off = torch.zeros(1, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        moe_lib.moe_ffn(p, x, plan.slots[0], plan.cum[0], cfg, off)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_ref, m_ref = moe_lib.moe_ffn(p, x, plan.slots[0], plan.cum[0], cfg,
+                                       off)
+        torch.cuda.synchronize()
+        wall_ref = time.perf_counter() - t0
+    del p
+    _free(torch)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(ep_rank, args=(EP_WORLD, tmp), nprocs=EP_WORLD,
+                           join=True, start_method="spawn")
+        res = [torch.load(f"{tmp}/rank{r}.pt") for r in range(EP_WORLD)]
+    log(f"[{tag}] {EP_WORLD} ranks (gloo over CUDA tensors, one card) "
+        f"started, ran and joined in {time.perf_counter() - t0:.1f} s")
+    y = res[0]["y"].to(dev)
+    err = (y.float() - y_ref.float()).abs()
+    bad = int((err > EP_TOL + EP_TOL * y_ref.float().abs()).sum())
+    ints = {k: all(torch.equal(r["metrics"][k].to(dev), m_ref[k])
+                   for r in res)
+            for k in ("kept_counts", "dropped", "expert_counts")}
+    same_y = all(torch.equal(r["y"], res[0]["y"]) for r in res)
+    log(f"[{tag}] olmoe-1b-7b MoE layer (d_model {cfg.d_model}, "
+        f"{cfg.moe.num_experts} experts + {cfg.moe.spare_slots} spare slots "
+        f"top-{cfg.moe.top_k}, expert d_ff {cfg.moe.expert_d_ff}), x "
+        f"{list(x.shape)} bf16, data 1 x model {EP_WORLD}, "
+        f"{res[0]['slots']} slots a rank: sharded vs unsharded y max |err| "
+        f"{err.max().item()}, {int((err > 0).sum())} of {err.numel()} "
+        f"elements differ, {bad} beyond atol = rtol = {EP_TOL}; y the same "
+        f"on every rank {same_y}; integer metrics equal {ints} (dropped "
+        f"{int(m_ref['dropped'][0])}, kept {int(m_ref['kept_counts'].sum())}"
+        f" of {EP_TOKENS * cfg.moe.top_k} assignments)")
+    if bad or not same_y or not all(ints.values()) or \
+            not torch.isfinite(y.float()).all():
+        fails.append(f"{tag}: the sharded layer differs from the unsharded "
+                     f"one")
+    shape = step_shape("prefill", 1, EP_TOKENS)
+    m = EP_WORLD
+    moe_term = 2 * EP_TOKENS * cfg.moe.top_k * cfg.d_model * flops.BF16 * \
+        (m - 1) / m
+    one = cut(cfg, 1)
+    for r, out in enumerate(res):
+        la = out["launches"]
+        hit = {k: la[k] for k in MOE_KERNELS}
+        handed = out["bytes"]["all_reduce"]
+        rl = roofline.analyze(one, shape, {"data": 1, "model": m},
+                              hlo_collective_bytes=2 * handed * (m - 1) / m)
+        log(f"[{tag}] rank {r}: launches {hit}, wall {out['wall']:.4f} s "
+            f"(unsharded {wall_ref:.4f} s); handed to all_reduce {handed} "
+            f"B (a ring moves 2 (m-1)/m of it a device: "
+            f"{rl.hlo_collective_bytes:.0f} B), to all_gather "
+            f"{out['bytes']['all_gather']} B; the analytic model "
+            f"(analysis.flops.collective_bytes_per_device, one layer, "
+            f"model {m}): {flops.collective_bytes_per_device(one, shape, {'data': 1, 'model': m}):.0f}"
+            f" B a device, its MoE term (dispatch and combine all-to-alls "
+            f"of bf16 rows) {moe_term:.0f} B; the roofline's collective "
+            f"term over NVLink: analytic {rl.collective_s:.4g} s, from the "
+            f"measured count {rl.hlo_collective_bytes / NVLINK_BW:.4g} s")
+        if not all(hit.values()):
+            fails.append(f"{tag}: rank {r} launched {hit}")
+    seen = {k: tuple(a.to(dev) if torch.is_tensor(a) else a for a in v)
+            for k, v in res[0]["seen"].items()}
+    valid = seen["dispatch_cuda"][3]
+    log(f"[{tag}] rank 0's dispatch: valid false at "
+        f"{int((valid == 0).sum())} of {valid.numel()} assignments (the "
+        f"other rank's slots)")
+    if not (valid == 0).any():
+        fails.append(f"{tag}: the dispatch saw no false valid entry")
+    rows = moe_rows(torch, seen, res[0]["launches"], "ep", tag)
+    del res, seen, y, y_ref, x
+    _free(torch)
+    return rows
 
 
 def phase_qwen3moe(torch, dev, fails) -> list:
@@ -3977,6 +4300,7 @@ def main() -> int:
                 r["launches"] = launches["flash_fwd"]
         phase_time(ph["tag"])
     for name, fn in (("gemma3", gemma3_phase), ("olmoe", phase_olmoe),
+                     ("ep", phase_ep),
                      ("qwen3moe", phase_qwen3moe), ("dense", phase_dense),
                      ("qwen2vl", phase_qwen2vl), ("whisper", phase_whisper)):
         _free(torch)
@@ -3986,11 +4310,7 @@ def main() -> int:
         raise AssertionError("; ".join(fails))
 
     print(json.dumps({"kernels": rows}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

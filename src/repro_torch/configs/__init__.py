@@ -1,5 +1,7 @@
-from repro_torch.configs.base import ArchConfig, MoECfg, SSMCfg, reduced
-from repro_torch.configs.registry import ARCH_IDS, get_arch
+from repro_torch.configs.base import (SHAPES, ArchConfig, MoECfg, SSMCfg,
+                                      ShapeCfg, reduced)
+from repro_torch.configs.registry import (ARCH_IDS, cell_applicable, get_arch,
+                                          get_shape)
 
-__all__ = ["ArchConfig", "MoECfg", "SSMCfg", "reduced", "get_arch",
-           "ARCH_IDS"]
+__all__ = ["ArchConfig", "MoECfg", "SSMCfg", "ShapeCfg", "SHAPES", "reduced",
+           "get_arch", "get_shape", "ARCH_IDS", "cell_applicable"]

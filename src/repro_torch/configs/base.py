@@ -195,6 +195,15 @@ class ArchConfig:
             return ("moe",) * self.num_layers
         return ("attn",) * self.num_layers
 
+    def n_params(self) -> int:
+        """Total parameter count (embedding included once if tied)."""
+        from repro_torch.analysis.flops import param_count
+        return param_count(self)
+
+    def n_active_params(self) -> int:
+        from repro_torch.analysis.flops import param_count
+        return param_count(self, active_only=True)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCfg:

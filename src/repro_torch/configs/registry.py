@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig, reduced
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCfg, reduced
 
 _MODULES = {
     "whisper-base": "repro_torch.configs.whisper_base",
@@ -29,3 +29,16 @@ def get_arch(name: str) -> ArchConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[name]).CONFIG
+
+
+def get_shape(name: str) -> ShapeCfg:
+    return SHAPES[name]
+
+
+def cell_applicable(arch: ArchConfig, shape: ShapeCfg) -> tuple[bool, str]:
+    """Is this (arch x shape) dry-run cell runnable?  The reference's rule:
+    a 512k-token decode only for a sub-quadratic arch."""
+    if shape.name == "long_500k" and not arch.subquadratic:
+        return False, ("pure full-attention arch: 512k dense KV cache per "
+                       "layer is the non-sub-quadratic case")
+    return True, ""

@@ -113,11 +113,14 @@ class Combine(torch.autograd.Function):
 
 
 def dispatch_combine(x, slot, weight, expert_fn, n_slots: int, cap: int,
-                     valid=None, impl: str = "auto"):
+                     valid=None, impl: str = "auto", out_dtype=None):
     """The fused counterpart of ``models.moe.dispatch_combine``: x
     [G,T,D]; slot/weight [G,T,k].  Returns (y [G,T,D], metrics) with drop
     decisions and Reshape load metrics bit-identical to the argsort path:
-    slot_counts (routed phi) and kept_counts [G,S], dropped [G].
+    slot_counts (routed phi) and kept_counts [G,S], dropped [G].  y is in
+    x's dtype, or ``out_dtype``: f32 keeps the combine's f32 sum unrounded
+    (the experts' outputs are combined in f32), for a caller that adds
+    partial sums (``models.moe.moe_ffn_sharded``) and rounds once.
 
     On the card the kernels run forward and backward (``Dispatch``,
     ``Combine``); with the plain versions autograd differentiates them
@@ -131,12 +134,13 @@ def dispatch_combine(x, slot, weight, expert_fn, n_slots: int, cap: int,
     if resolve(impl, x) == "torch":
         buf, rank, keep, routed, kept = dispatch_ref(x, ones, slot, valid_i,
                                                      n_slots, cap)
-        y = combine_ref(expert_fn(buf), weight.float(), slot, rank, keep)
+        y = combine_ref(expert_fn(buf).to(out_dtype or buf.dtype),
+                        weight.float(), slot, rank, keep)
     else:
         buf, rank, keep, routed, kept = Dispatch.apply(
             x, ones, slot, valid_i, n_slots, cap, impl)
-        y = Combine.apply(expert_fn(buf), weight.float(), slot, rank, keep,
-                          valid_i, impl)
+        y = Combine.apply(expert_fn(buf).to(out_dtype or buf.dtype),
+                          weight.float(), slot, rank, keep, valid_i, impl)
     dropped = valid_i.sum((1, 2)) - keep.sum((1, 2))
-    return y.to(x.dtype), {"slot_counts": routed, "kept_counts": kept,
-                           "dropped": dropped}
+    return y.to(out_dtype or x.dtype), {
+        "slot_counts": routed, "kept_counts": kept, "dropped": dropped}

@@ -196,7 +196,10 @@ def _moe_ffn(p, h, ctx):
     """RMSNorm + MoE over h [B,S,D], grouped as ``ctx["moe_groups"]``
     says: "batch" is one group of all B·S tokens hashed from
     ``ctx["token_offset"]`` (a scalar), "row" is one group per row hashed
-    from that row's position."""
+    from that row's position.  With a ``ctx["mesh"]`` (a ``DeviceMesh``;
+    "batch" groups only) the experts are parallel over its ``model`` dim
+    (``moe.moe_ffn_sharded``): ``p`` holds this rank's slots and ``h``
+    this rank's rows."""
     cfg = ctx["cfg"]
     b, s, d = h.shape
     xn = rms_norm(h, p["ln2"], cfg.norm_eps)
@@ -206,8 +209,14 @@ def _moe_ffn(p, h, ctx):
         flat = xn.reshape(1, b * s, d)
         offset = torch.as_tensor(ctx["token_offset"],
                                  device=h.device).reshape(1)
-    y, metrics = moe_lib.moe_ffn(p, flat, ctx["plan_slots"], ctx["plan_cum"],
-                                 cfg, offset, ctx.get("impl", "auto"))
+    if ctx.get("mesh") is not None:
+        y, metrics = moe_lib.moe_ffn_sharded(
+            p, flat, ctx["plan_slots"], ctx["plan_cum"], cfg, ctx["mesh"],
+            offset, impl=ctx.get("impl", "auto"))
+    else:
+        y, metrics = moe_lib.moe_ffn(p, flat, ctx["plan_slots"],
+                                     ctx["plan_cum"], cfg, offset,
+                                     ctx.get("impl", "auto"))
     ctx["moe_metrics"].append(metrics)
     return h + y.reshape(b, s, d)
 

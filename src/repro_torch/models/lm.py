@@ -30,7 +30,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.blocks import BLOCKS
 from repro_torch.models.layers import rms_norm, sinusoidal_positions
-from repro_torch.models.params import ParamDef, init_params, map_defs, stacked
+from repro_torch.models.params import (ParamDef, abstract_params,
+                                       init_params, map_defs, stacked)
 
 
 # ----------------------------------------------------------------- structure
@@ -79,6 +80,11 @@ def init(cfg: ArchConfig, generator: torch.Generator, dtype=torch.float32,
     return init_params(model_defs(cfg), generator, dtype, device)
 
 
+def abstract(cfg: ArchConfig, dtype=torch.float32):
+    """The parameter tree on the ``meta`` device (no storage, no draw)."""
+    return abstract_params(model_defs(cfg), dtype)
+
+
 def _layer_params(params, t: str, li: int):
     """Block type ``t``'s weights for its ``li``-th occurrence."""
     if t == "shared_attn":
@@ -113,7 +119,7 @@ def encode(params, frames, cfg: ArchConfig, impl: str = "auto"):
 
 
 def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
-            token_offset: int = 0, impl: str = "auto"):
+            token_offset: int = 0, impl: str = "auto", mesh=None):
     """batch: tokens [B,S], and for whisper frames [B,Se,D], for qwen2-vl
     optionally positions3 [B,S,3] (the (t, h, w) ids; without them every id
     is the token's position).  Returns (logits [B,S,V] f32, aux dict with
@@ -123,14 +129,21 @@ def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
     ``impl`` picks the kernels' implementation: ``auto`` is the CUDA kernel
     for tensors on the card and the plain torch version on the CPU (the
     reference's default is its XLA chunked form, which the port does not
-    have)."""
+    have).
+
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with dims ``model``
+    and optionally ``data``) runs every MoE layer expert-parallel
+    (``moe.moe_ffn_sharded``): each rank passes its data row's share of
+    the batch and ``params`` with its own expert slots
+    (``moe.shard_experts``); the rest of the model runs on each rank as it
+    is."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
     x = params["embed"][tokens].to(torch.bfloat16)
     pos = torch.arange(s, device=dev)[None].expand(b, s)
     ctx = {"cfg": cfg, "moe_groups": "batch", "token_offset": token_offset,
-           "positions": pos, "moe_metrics": [], "impl": impl}
+           "positions": pos, "moe_metrics": [], "impl": impl, "mesh": mesh}
     if cfg.mrope:
         p3 = batch.get("positions3")
         ctx["positions3"] = pos[..., None].expand(b, s, 3) if p3 is None \

@@ -17,10 +17,12 @@ them.
   phi from the fused gating kernel) are side outputs of the layer.
 * Dispatch is either the argsort pipeline below or the fused kernel family
   (``cfg.moe.fused_dispatch``); both make the same drop decisions.
+* ``moe_ffn_sharded`` is the expert-parallel path over ``torch.distributed``
+  (experts over a mesh's ``model`` dim, tokens over ``data``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +31,18 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.moe_dispatch import ops as dispatch_ops
 from repro_torch.kernels.moe_gating.ops import gating
 from repro_torch.kernels.moe_gating.ref import top_k_rounds
+
+# Bytes that moe_ffn_sharded hands to each kind of collective (counted where
+# it calls one with more than one rank, and nowhere else), as
+# kernels.LAUNCHES counts launches: the port's count of what an HLO parse
+# counted for the reference.
+COLLECTIVE_BYTES = {"all_reduce": 0, "all_gather": 0}
+
+
+def reset_collective_bytes() -> None:
+    for k in COLLECTIVE_BYTES:
+        COLLECTIVE_BYTES[k] = 0
+
 
 class RoutingPlan(NamedTuple):
     """Per-layer partitioning logic: logical expert -> physical slots."""
@@ -98,17 +112,20 @@ def route(router_w, x, plan_slots, plan_cum, cfg: ArchConfig, token_offset,
 
 
 def dispatch_combine(x, slot, weight, expert_fn, n_slots: int, cap: int,
-                     valid=None, fused: bool = False, impl: str = "auto"):
+                     valid=None, fused: bool = False, impl: str = "auto",
+                     out_dtype=None):
     """Capacity dispatch -> per-slot ``expert_fn`` -> weighted combine.
 
     x [G,T,D]; slot/weight [G,T,k]; ``valid`` [G,T,k] masks assignments.
     Returns (y [G,T,D], metrics: slot_counts/kept_counts [G,S], dropped
-    [G]).  ``fused=True`` runs the fused kernel family; otherwise the
-    stable argsort + searchsorted + scatter pipeline of the reference."""
+    [G]).  ``fused=True`` runs the fused kernel family (``out_dtype``: the
+    dtype its f32 combine is returned in, x's by default); otherwise the
+    stable argsort + searchsorted + scatter pipeline of the reference,
+    which sums in x's dtype."""
     if fused:
         return dispatch_ops.dispatch_combine(x, slot, weight, expert_fn,
                                              n_slots, cap, valid=valid,
-                                             impl=impl)
+                                             impl=impl, out_dtype=out_dtype)
     g, t, d = x.shape
     k = slot.shape[-1]
     tk = t * k
@@ -200,3 +217,154 @@ def moe_ffn(p, x, plan_slots, plan_cum, cfg: ArchConfig, token_offset,
     metrics["router_z"] = torch.logsumexp(
         torch.log(probs + 1e-9), dim=-1).square().mean(-1)
     return y, metrics
+
+
+# ------------------------------------------------------ expert parallelism
+
+def _data_axis(mesh):
+    """(this rank's data row, the number of rows, their process group or
+    None) of ``mesh``: dims ``model`` and, optionally, ``data``."""
+    names = tuple(mesh.mesh_dim_names)
+    if set(names) - {"data", "model"} or "model" not in names:
+        raise ValueError(f"mesh dims {names}: want ('data', 'model') or "
+                         f"('model',)")
+    if "data" not in names:
+        return 0, 1, None
+    return (mesh.get_local_rank("data"), mesh.shape[names.index("data")],
+            mesh.get_group("data"))
+
+
+def slots_per_rank(cfg: ArchConfig, mesh) -> int:
+    mdl = mesh.shape[tuple(mesh.mesh_dim_names).index("model")]
+    s = num_slots(cfg)
+    if s % mdl:
+        raise ValueError(f"{s} slots do not split over model {mdl}")
+    return s // mdl
+
+
+def local_experts(w: torch.Tensor, cfg: ArchConfig, mesh, dim: int = 0):
+    """This rank's slots of an expert-stacked leaf (slots on ``dim``: 0 for
+    one layer's ``[S, D, F]``, 1 for the model's stacked ``[L, S, D,
+    F]``)."""
+    spr = slots_per_rank(cfg, mesh)
+    lo = mesh.get_local_rank("model") * spr
+    return w.narrow(dim, lo, spr)
+
+
+def shard_experts(params: Dict, cfg: ArchConfig, mesh) -> Dict:
+    """A model's parameter tree with every ``moe`` layer's experts cut to
+    this rank's slots (the rest is shared), as ``lm.forward(mesh=...)``
+    takes it."""
+    out = dict(params)
+    out["moe"] = {k: (local_experts(v, cfg, mesh, 1).contiguous()
+                      if k in ("w_gate", "w_up", "w_down") else v)
+                  for k, v in params["moe"].items()}
+    return out
+
+
+def _all_reduce(x, group):
+    """``x`` summed in place over ``group``'s ranks, its bytes counted."""
+    import torch.distributed as dist
+    COLLECTIVE_BYTES["all_reduce"] += x.numel() * x.element_size()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def moe_ffn_sharded(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
+                    token_offset, impl: str = "auto"):
+    """Expert-parallel MoE FFN over a ``torch.distributed`` ``DeviceMesh``
+    with dims ``model`` and, optionally, ``data``: the JAX
+    package's ``moe_ffn_sharded`` (its shard_map's body run by each rank).
+
+    Each rank holds its ``num_slots // |model|`` expert slots (``p``'s
+    expert leaves ``[spr, D, F]``, ``local_experts``) and its data row's
+    share of the tokens, ``x [1, T_loc, D]``, hashed from ``token_offset +
+    row * T_loc``.  Every rank routes
+    its rows over all experts, then dispatches only the assignments to its
+    own slots (``valid``, local slot ids, capacity ``capacity(cfg,
+    T_loc)``) through the dispatch kernels when ``cfg.moe.fused_dispatch``
+    is set, and the partial outputs are summed by one ``all_reduce`` over
+    ``model``.  The fused path's partial sums stay in f32 and are rounded
+    to x's dtype once, after that sum, as the one-device combine rounds its
+    f32 sum once (so with 2 ranks and k 2 the result is the one-device
+    result bit for bit); the argsort path sums in x's dtype, as it does on
+    one device.
+
+    Forward only: the collectives are plain ``torch.distributed`` calls
+    that autograd does not see, so it raises where autograd would record
+    (the reference's shard_map also sums the router's gradient over
+    ``model``, which no training path here does yet).
+
+    Returns (y [1, T_loc, D], metrics with the reference's keys, a leading
+    group dim of 1): ``slot_counts`` = ``kept_counts`` [1, S] (each slot's
+    kept assignments, gathered over ``model`` and summed over ``data``, as
+    the reference's sharded path reports them), ``expert_counts`` [1, E]
+    summed over ``data``, ``dropped`` [1] summed over every rank (the
+    reference reports the first ``model`` column's alone), ``aux_loss`` and
+    ``router_z`` [1] from the ``data``-averaged router statistics."""
+    import torch.distributed as dist
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            v.requires_grad for v in p.values())):
+        raise RuntimeError("moe_ffn_sharded is forward only: run it under "
+                           "torch.no_grad()")
+    m = cfg.moe
+    names = tuple(mesh.mesh_dim_names)
+    mdl = mesh.shape[names.index("model")]
+    col = mesh.get_local_rank("model")
+    spr = slots_per_rank(cfg, mesh)
+    row, dp, data_group = _data_axis(mesh)
+    t_loc = x.shape[1]
+    base = torch.as_tensor(token_offset, device=x.device).reshape(1) + \
+        row * t_loc
+    slot, weight, probs, top_e, r_counts = route(
+        p["router"], x, plan_slots, plan_cum, cfg, base, impl)
+    lo = col * spr
+    mine = (slot >= lo) & (slot < lo + spr)
+    local = torch.where(mine, slot - lo, 0).to(torch.int32)
+    y, met = dispatch_combine(
+        x, local, torch.where(mine, weight, 0.0),
+        lambda buf: expert_ffn(p, buf), spr, capacity(cfg, t_loc),
+        valid=mine, fused=m.fused_dispatch, impl=impl,
+        out_dtype=torch.float32 if mdl > 1 else None)
+    if mdl > 1:
+        y = _all_reduce(y.contiguous(), mesh.get_group("model")).to(x.dtype)
+
+    # integer metrics: summed over data in one all-reduce, then each model
+    # rank's kept counts and drops gathered
+    kept = met["kept_counts"][0]
+    dropped = met["slot_counts"][0].sum() - kept.sum()
+    if r_counts is not None:
+        e_counts = r_counts[0].to(torch.int32)
+    else:
+        e_counts = torch.zeros(m.num_experts, dtype=torch.int32,
+                               device=x.device)
+        e_counts.scatter_add_(0, top_e.reshape(-1),
+                              torch.ones(top_e.numel(), dtype=torch.int32,
+                                         device=x.device))
+    ints = torch.cat([kept, e_counts, dropped.reshape(1)]).to(torch.int32)
+    if dp > 1:
+        ints = _all_reduce(ints, data_group)
+    e_counts = ints[spr:spr + m.num_experts]
+    mine_ints = torch.cat([ints[:spr], ints[-1:]])
+    if mdl > 1:
+        parts = [torch.empty_like(mine_ints) for _ in range(mdl)]
+        COLLECTIVE_BYTES["all_gather"] += \
+            mine_ints.numel() * mine_ints.element_size()
+        dist.all_gather(parts, mine_ints, group=mesh.get_group("model"))
+    else:
+        parts = [mine_ints]
+    slot_counts = torch.cat([q[:spr] for q in parts])
+    dropped = sum(q[spr] for q in parts)
+
+    # router statistics averaged over data (f32), as the reference's pmean
+    rz = torch.logsumexp(torch.log(probs[0] + 1e-9), dim=-1).square().mean()
+    stats = torch.cat([probs[0].mean(0), rz.reshape(1)])
+    if dp > 1:
+        stats = _all_reduce(stats, data_group) / dp
+    pbar, rz = stats[:m.num_experts], stats[m.num_experts]
+    f = e_counts.float() / torch.clamp(e_counts.sum().float(), min=1.0)
+    aux = m.num_experts * (f * pbar).sum()
+    return y, {"slot_counts": slot_counts[None], "kept_counts":
+               slot_counts[None], "dropped": dropped.reshape(1),
+               "aux_loss": aux.reshape(1), "expert_counts": e_counts[None],
+               "router_z": rz.reshape(1)}

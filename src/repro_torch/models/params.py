@@ -61,3 +61,10 @@ def init_params(defs, generator: torch.Generator, dtype=torch.float32,
 
     return walk(defs)
 
+
+
+def abstract_params(defs, dtype=torch.float32) -> Dict[str, Any]:
+    """The tree of ``defs`` as tensors on the ``meta`` device: shapes and
+    dtypes, no storage, nothing drawn (the dry run's stand-ins)."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=dtype,
+                                          device="meta"), defs)

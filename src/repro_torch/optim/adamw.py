@@ -4,10 +4,13 @@ of tensors — the JAX package's ``optim/adamw.py`` written out in torch.
 Every operation is the reference's, in the reference's order and in f32:
 the schedule reads the count *before* the increment, weight decay applies
 to every leaf, and gradients are clipped by their global norm (leaves
-summed in sorted-key order, the JAX flatten order).  The update is
+summed in sorted-key order, the JAX flatten order).  ``apply`` is
 functional: it returns new tensors and leaves its inputs untouched, as the
-reference's pure function does, so a checkpoint snapshot or a step
-compared with another never sees a buffer change under it.
+reference's pure function does, so a step compared with another never sees
+a buffer change under it.  ``apply_`` is the same update in place, for a
+caller that hands its state over (the reference's donated step reuses the
+parameters' and moments' buffers the same way): bit for bit ``apply``'s
+result, with one temporary the size of the leaf at a time.
 """
 from __future__ import annotations
 
@@ -94,6 +97,41 @@ def apply(params, grads, state: OptState, cfg: AdamWCfg, lr_scale=1.0):
     out = tree_map(upd, params, grads, state.m, state.v)
     return _select(out, 0), OptState(_select(out, 1), _select(out, 2),
                                      count), {"grad_norm": gnorm, "lr": lr}
+
+
+def apply_(params, grads, state: OptState, cfg: AdamWCfg, lr_scale=1.0):
+    """``apply`` in place: the parameters and both moments are updated in
+    their own buffers and ``grads`` is consumed (its f32 leaves are used as
+    scratch).  Returns (new count, metrics {grad_norm, lr}); the caller's
+    new ``OptState`` is ``OptState(state.m, state.v, count)``.
+
+    Every leaf goes through ``apply``'s operations in ``apply``'s order,
+    each rounded where ``apply`` rounds it (``b1·m`` and ``(1-b1)·g``
+    rounded, then added), so the two agree bit for bit: no fused
+    multiply-add (``add_(x, alpha=...)``, ``addcmul_``) that would round
+    once where ``apply`` rounds twice."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    count = state.count + 1
+    lr = schedule(cfg, state.count) * lr_scale
+    b1c = 1 - cfg.b1 ** count.float()
+    b2c = 1 - cfg.b2 ** count.float()
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state.m), tree_leaves(state.v)):
+        g = g.mul_(scale) if g.dtype == torch.float32 else \
+            (g * scale).float()
+        tmp = g * (1 - cfg.b2)
+        v.mul_(cfg.b2).add_(tmp.mul_(g))
+        m.mul_(cfg.b1).add_(g.mul_(1 - cfg.b1))
+        step = torch.div(m, b1c, out=g)                  # mh
+        step.div_(torch.div(v, b2c, out=tmp).sqrt_().add_(cfg.eps))
+        step.add_(torch.mul(p.float(), cfg.weight_decay, out=tmp))
+        step.mul_(lr)
+        if p.dtype == torch.float32:
+            p.sub_(step)
+        else:
+            p.copy_(p.float() - step)
+    return count, {"grad_norm": gnorm, "lr": lr}
 
 
 def _select(tree, i):

@@ -257,7 +257,7 @@ class TrainLoop:
             offset = (step * n_mb + i) * mb_sz * self.stream.seq_len
             g, metrics = grad_mb(self.state["params"], mbd, ps, pc, offset)
             grads = g if grads is None else tree_map(
-                lambda a, b: a + b, grads, g)
+                lambda a, b: a.add_(b), grads, g)
             m_host = _to_host(metrics)
             sums = _merge_metrics(sums, m_host)
             mb_done += 1
@@ -267,20 +267,23 @@ class TrainLoop:
                 return None, True
         step_metrics = _finalize_metrics(sums, mb_done)
         self.state, opt_m = self.apply(self.state, grads, n_mb,
-                                       self.lc.lr_scale)
+                                       self.lc.lr_scale, donate=True)
         step_metrics.update(_to_host(opt_m))
         return step_metrics, False
 
-    def _step_fused(self, batch, n_mb: int, fused_step=None) -> Dict[str, Any]:
+    def _step_fused(self, step: int, batch, n_mb: int,
+                    fused_step=None) -> Dict[str, Any]:
         """One training step through the fused step: all microbatches in one
-        call, one device->host metrics fetch."""
+        call, one device->host metrics fetch.  The state is handed over
+        and updated in place."""
         fused_step = self.fused_step if fused_step is None else fused_step
         gb = batch["tokens"].shape[0]
         used = (gb // n_mb) * n_mb      # granulated path drops the remainder
         bd = self._model_batch(batch["tokens"][:used])
         ps, pc = self._plan_args()
         self.state, mb_metrics, opt_m = fused_step(
-            self.state, bd, ps, pc, self.lc.lr_scale, n_mb=n_mb)
+            self.state, bd, ps, pc, self.lc.lr_scale, n_mb=n_mb, step=step,
+            donate=True)
         mb_host, opt_host = _to_host(mb_metrics), _to_host(opt_m)
         if self.local_bps or self.global_bps:
             # forced step_path="fused" with registered breakpoints (auto
@@ -337,7 +340,7 @@ class TrainLoop:
             if fused_path:
                 step_metrics = self.engine.run_job(
                     Job("train_step_fused", tokens=n_tok, meta=meta),
-                    lambda: self._step_fused(batch, n_mb, fused_step),
+                    lambda: self._step_fused(step, batch, n_mb, fused_step),
                     extra=extra)
             else:
                 t0 = time.perf_counter()

@@ -1,0 +1,182 @@
+"""Sharding rules: logical parameter axes -> mesh axes, batch and cache
+specs, and the per-device bytes they imply — the JAX package's
+``runtime/sharding.py`` on a plain mesh description.
+
+A mesh is described by its axis names and sizes (``Mesh``: ``("data",
+"model")`` for ``1x4``, ``("pod", "data", "model")`` for ``2x16x16``).  A
+spec is a tuple with one entry per dim of its leaf: ``None``
+(replicated), a mesh-axis name, or a tuple of names (the dim split over
+their product), as the reference's ``PartitionSpec`` entries are.
+
+Baseline layout (the reference's): every big matrix splits its output dim
+over ``model`` (Megatron-style tensor parallelism) and its input/embed dim
+over ``data`` (+``pod``) (FSDP/ZeRO-style), experts over ``model``.  A dim
+that its axes do not divide falls back to replication, per leaf (whisper's
+vocab of 51865).  The port runs only the experts' split so far
+(``models.moe.moe_ffn_sharded``); the rest is what the dry run prices.
+The reference's other layouts (no FSDP, batch over ``model`` too,
+weight-stationary decode) are options no caller here sets, so the port
+has only the baseline.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+from repro_torch.configs.base import ArchConfig, ShapeCfg
+from repro_torch.models.params import ParamDef, map_defs
+
+
+class Mesh(NamedTuple):
+    """A device mesh's axis names and sizes."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def devices(self) -> int:
+        return math.prod(self.sizes)
+
+    def __str__(self) -> str:
+        return "x".join(str(s) for s in self.sizes)
+
+
+def parse_mesh(text: str) -> Mesh:
+    """``"1x4"`` -> (data 1, model 4); ``"2x16x16"`` -> (pod, data, model)."""
+    sizes = tuple(int(s) for s in text.lower().split("x"))
+    names = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(
+        len(sizes))
+    if names is None:
+        raise ValueError(f"mesh {text!r}: give 2 or 3 sizes, as 1x4")
+    return Mesh(names, sizes)
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def axis_size(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    return int(math.prod(mesh.shape[a] for a in axes))
+
+
+def logical_rules(mesh) -> Dict[str, object]:
+    return {
+        "vocab": "model",
+        "embed": data_axes(mesh),
+        "qkv": "model",
+        "mlp": "model",
+        "experts": "model",
+        "layers": None,
+    }
+
+
+def param_specs(cfg: ArchConfig, mesh):
+    """Spec tree of ``lm.model_defs(cfg)`` with the per-leaf divisibility
+    fallback."""
+    from repro_torch.models.lm import model_defs
+    rules = logical_rules(mesh)
+
+    def spec(d: ParamDef):
+        parts = []
+        for dim, ax in zip(d.shape, d.axes):
+            target = rules.get(ax) if ax is not None else None
+            if target is None:
+                parts.append(None)
+            elif dim % axis_size(mesh, target) == 0:
+                parts.append(target)
+            else:
+                parts.append(None)           # non-divisible -> replicate
+        return tuple(parts)
+
+    return map_defs(spec, model_defs(cfg))
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeCfg, mesh):
+    da = data_axes(mesh)
+    dp = axis_size(mesh, da)
+    seq_sharded = shape.global_batch < dp        # long_500k: batch of 1
+    tok = (None, da) if seq_sharded else (da, None)
+    out = {"tokens": tok}
+    rows = (None, None, None) if seq_sharded else (da, None, None)
+    if cfg.enc_layers:
+        out["frames"] = rows
+    if cfg.mrope:
+        out["positions3"] = rows
+    return out
+
+
+def _model_dim_part(mesh, *dims) -> Optional[int]:
+    """The first dim (by index into ``dims``) divisible by |model|."""
+    m = axis_size(mesh, "model")
+    for i, d in enumerate(dims):
+        if d % m == 0:
+            return i
+    return None
+
+
+KV_TYPES = ("attn", "local", "moe", "shared_attn", "dec")
+
+
+def cache_specs(cfg: ArchConfig, mesh, shape: ShapeCfg, cache_tree):
+    """Spec tree matching ``lm.init_cache``'s output.  decode_*: batch over
+    data; long_500k (batch < dp): KV sequence over data, SSM state over
+    model."""
+    da = data_axes(mesh)
+    dp = axis_size(mesh, da)
+    seq_sharded = shape.global_batch < dp
+    batch = None if seq_sharded else da
+
+    def leaf_spec(btype, x):
+        shp = tuple(x.shape)
+        nd = len(shp)
+        if btype in KV_TYPES and nd == 5:     # [n, B, S, KH, hd]
+            i = _model_dim_part(mesh, shp[3], shp[4])
+            kv = [None, None]
+            if i is not None:
+                kv[i] = "model"
+            seq = da if seq_sharded else None
+            return (None, batch, seq, *kv)
+        if nd >= 4:                           # SSM states: [n,B,H,...] etc.
+            i = _model_dim_part(mesh, *shp[2:])
+            tail = [None] * (nd - 2)
+            if i is not None:
+                tail[i] = "model"
+            return (None, batch, *tail)
+        if nd == 3:                           # x_tm/x_cm [n, B, D]
+            return (None, batch, None)
+        return (None,) * nd
+
+    caches = {t: {k: leaf_spec(t, v) for k, v in leaves.items()}
+              for t, leaves in cache_tree["caches"].items()}
+    return {"caches": caches, "pos": ()}
+
+
+def opt_state_specs(param_spec_tree):
+    from repro_torch.optim.adamw import OptState
+    return OptState(param_spec_tree, param_spec_tree, ())
+
+
+def shard_numel(shape: Sequence[int], spec, mesh) -> int:
+    """Elements of one device's shard of a leaf of ``shape`` under
+    ``spec`` (a replicated dim is whole on every device)."""
+    n = 1
+    for i, dim in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        n *= dim // axis_size(mesh, ax) if ax else dim
+    return n
+
+
+def bytes_per_device(tree, spec_tree, mesh) -> int:
+    """Bytes one device holds of a nested dict of tensors (``meta`` ones
+    too) under the matching spec tree."""
+    if isinstance(tree, dict):
+        return sum(bytes_per_device(tree[k], spec_tree[k], mesh)
+                   for k in tree)
+    return shard_numel(tree.shape, spec_tree, mesh) * tree.element_size()

@@ -6,9 +6,12 @@ metrics (phi) as free step outputs — the JAX package's
 PyTorch runs eagerly, so a "step function" here is a plain closure.  The
 two step paths keep the reference's numerics: per-microbatch gradients
 are summed in f32 in microbatch order and divided once by the microbatch
-count before ``adamw.apply``.  Activations are kept for the backward (no
-remat); remat policies and the mesh/layout arguments belong to the
-multi-device slice.
+count before the AdamW update.  A caller that hands its state over
+(``donate=True``, as the training loop does; the reference donates it to
+its jitted step) gets the update in place (``adamw.apply_``); otherwise the
+old state is left as it was (``adamw.apply``).  Activations are kept for
+the backward (no remat); remat policies and the layout arguments belong to
+a later multi-device slice.
 """
 from __future__ import annotations
 
@@ -102,6 +105,21 @@ def _unflatten(tree, it):
     return next(it)
 
 
+def _update(state, grads, hyper: TrainHyper, lr_scale, donate: bool):
+    """The AdamW update of ``state`` by ``grads`` (already divided by the
+    microbatch count): in place when the caller donates ``state`` (and
+    ``grads``), else into new tensors.  Returns (new state, metrics)."""
+    if donate:
+        count, m = adamw.apply_(state["params"], grads, state["opt"],
+                                hyper.opt, lr_scale)
+        params = state["params"]
+        opt = adamw.OptState(state["opt"].m, state["opt"].v, count)
+    else:
+        params, opt, m = adamw.apply(state["params"], grads, state["opt"],
+                                     hyper.opt, lr_scale)
+    return {"params": params, "opt": opt, "step": state["step"] + 1}, m
+
+
 def build_fused_step(cfg: ArchConfig, hyper: TrainHyper, impl: str = "auto"):
     """The fused fast path of the interactive loop: every microbatch in
     one call with gradient accumulation, then the optimizer apply, and the
@@ -112,14 +130,21 @@ def build_fused_step(cfg: ArchConfig, hyper: TrainHyper, impl: str = "auto"):
     Numerics mirror the granulated path exactly: the f32->bf16 cast is
     hoisted out of the microbatch loop and the gradients taken with
     respect to the bf16 leaves, whose f32 upcast is what the cast's
-    backward would give; they are summed in f32 in microbatch order and
-    divided once by ``n_mb``."""
+    backward would give; they are summed in place into one f32 buffer per
+    leaf in microbatch order (``a + f32(g)``, rounded once) and divided
+    once by ``n_mb``.
 
-    def fused(state, batch, plan_slots, plan_cum, lr_scale, n_mb: int):
+    ``step`` is the state's step as a host int (read from the state when
+    None; the loop knows it, and a trace on the ``meta`` device cannot read
+    it); ``donate=True`` updates ``state`` in place (see ``_update``)."""
+
+    def fused(state, batch, plan_slots, plan_cum, lr_scale, n_mb: int,
+              step=None, donate: bool = False):
         plan = _plan(cfg, plan_slots, plan_cum)
         tokens = batch["tokens"]
         gb, s = tokens.shape
         mb = gb // n_mb
+        step = int(state["step"]) if step is None else step
         params_bf = _bf16(state["params"])
         gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                               device=p.device),
@@ -128,18 +153,18 @@ def build_fused_step(cfg: ArchConfig, hyper: TrainHyper, impl: str = "auto"):
         for i in range(n_mb):
             mbd = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()
                    if k in BATCH_KEYS}
-            offset = (int(state["step"]) * n_mb + i) * (mb * s)
+            offset = (step * n_mb + i) * (mb * s)
             _, metrics, grads = value_and_grad(params_bf, mbd, cfg, hyper,
                                                plan, offset, impl)
-            gacc = tree_map(lambda a, g: a + g.float(), gacc, grads)
+            tree_map(lambda a, g: a.add_(g), gacc, grads)
+            del grads
             per_mb.append(metrics)
-        grads = tree_map(lambda g: g / n_mb, gacc)
-        params, opt, opt_m = adamw.apply(state["params"], grads,
-                                         state["opt"], hyper.opt, lr_scale)
+        del params_bf
+        tree_map(lambda g: g.div_(n_mb), gacc)
+        new, opt_m = _update(state, gacc, hyper, lr_scale, donate)
         mb_metrics = {k: torch.stack([m[k] for m in per_mb])
                       for k in per_mb[0]}
-        return {"params": params, "opt": opt,
-                "step": state["step"] + 1}, mb_metrics, opt_m
+        return new, mb_metrics, opt_m
 
     return fused
 
@@ -155,11 +180,12 @@ def build_grad_step(cfg: ArchConfig, hyper: TrainHyper, impl: str = "auto"):
             int(offset), impl)
         return grads, metrics
 
-    def apply(state, grads, n_mb: int, lr_scale):
-        grads = tree_map(lambda g: g / n_mb, grads)
-        params, opt, m = adamw.apply(state["params"], grads, state["opt"],
-                                     hyper.opt, lr_scale)
-        return {"params": params, "opt": opt, "step": state["step"] + 1}, m
+    def apply(state, grads, n_mb: int, lr_scale, donate: bool = False):
+        """``donate=True``: ``state`` and ``grads`` are handed over and
+        updated in place (see ``_update``)."""
+        grads = tree_map(lambda g: g.div_(n_mb) if donate else g / n_mb,
+                         grads)
+        return _update(state, grads, hyper, lr_scale, donate)
 
     def migrate(state, src_dst):
         """Expert state migration: copy slot src -> dst on every
