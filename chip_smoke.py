@@ -54,7 +54,8 @@
    the reference's ``priority_starvation`` and ``steady_poisson``
    scenarios (prompts scaled to 16-128 tokens): per class TTFT median and
    largest in virtual ticks and seconds, generated tok/s and
-   ``max_deferred``, which must stay within its class's bound; every
+   ``max_deferred``, which must stay within its class's bound plus one
+   (the tick the second pool waits when both pools age at once); every
    output equal to ``generate_static`` on 4 copies of its prompt; every
    MoE launch one that a replay of a pool's graph made (counts set to 0
    just before each drive and read just after); per pool its graphs'
@@ -114,7 +115,18 @@
    ``BatchedServer.generate`` on 4 prompts of 16..64 tokens (after a
    warm-up that captures the tick's graph); greedy
    ``ServeEngine`` against ``generate_static`` on ``[4, 32] + 16``.  Each
-   model is freed before the next;
+   model is freed before the next.  After each, ``[rwkv6 train]`` and
+   ``[zamba2 train]``: ``train_compare`` (the kernel step against the
+   plain one, granulated against fused, the kernel step against a repeat
+   of itself bit for bit) on 2 x 128 tokens of two full-width blocks
+   (rwkv6's two ``rwkv``; zamba2's one ``mamba`` and one ``shared_attn``),
+   then ``TrainLoop`` on 2 x 1024 tokens in 2 microbatches (rwkv6 at all
+   24 layers, zamba2 at 30 of 81): a warm-up step, whose last scan
+   backward call's inputs and dy are kept, and 3 steps of the main path,
+   each launching one forward and one backward scan per recurrent layer
+   and microbatch (and flash's forward and backward per shared_attn
+   occurrence); the scan backward kernel against its plain backward on
+   those inputs, timed by graph replay;
 9. ``[gemma3]``: ``gemma3-1b`` at full width (26 layers: 22 ``local``
    over a sliding window of 1024 keys with a rolling decode cache and 4
    ``attn``; d_model 1152, 4 heads of 256 with one KV head, d_ff 6912, a
@@ -158,7 +170,13 @@
     y within 2e-2), each rank's launches (the dispatch with a ``valid``
     mask false on the other rank's slots), the bytes it handed to
     collectives beside ``analysis.flops``', the MoE kernels against their
-    plain versions on rank 0's inputs; ``[qwen3moe]``
+    plain versions on rank 0's inputs; then the all-to-all layout on the
+    same layer (``moe_ffn(..., layout="dp")``: 2048 tokens a rank,
+    bucketed by destination rank with the dispatch kernel, exchanged with
+    ``all_to_all``, combined at the source with the combine kernel) at a
+    capacity where nothing drops, against the unsharded layer (integers
+    equal, y within one bf16 ulp at its scale), with the bytes each rank
+    handed to ``all_to_all`` beside the analytic a2a term; ``[qwen3moe]``
     ``qwen3-moe-235b-a22b`` at 6 of 94 layers (128 experts + 16 spare
     slots top-8, q dim 8192 against d_model 4096): the forward on ``[2,
     1024]`` (``gating_kernel<32, 4>``; the flash kernel at hd 128 with 16
@@ -569,6 +587,39 @@ def log_kernel_rows(rows, shapes) -> None:
             f"its path {r['launches']}")
 
 
+def rwkv6_chunked_flops(b, h, t, n):
+    """The tensor-core products of RWKV6's chunked form, per token and
+    head, each f32 operand in two bf16 pieces (three products where both
+    operands are f32, two where one is v): its row of y_state, (r.Gpre) S
+    (3 x 2N^2), and of the state update, (k.Gpost)^T v (2 x 2N^2); per
+    chunk, A_ij = q k^T for the pairs of distinct sub-chunks (3 x 2N a
+    (t, s) pair) and A V over the sub-chunk blocks on or below the
+    diagonal (2 x 2N a pair).  The diagonal blocks' A and the decays run
+    on the CUDA cores beside the products and are left out."""
+    from repro_torch.kernels.rwkv6_scan.rwkv6_scan import CHUNK, SUB
+    ns = CHUNK // SUB
+    chunks = t / CHUNK
+    pairs_qk = SUB * SUB * ns * (ns - 1) // 2 * chunks
+    pairs_av = SUB * SUB * ns * (ns + 1) // 2 * chunks
+    return b * h * (10 * n * n * t + 6 * n * pairs_qk + 4 * n * pairs_av)
+
+
+def mamba2_chunked_flops(b, h, t, p, n):
+    """The tensor-core products of Mamba2's chunked form: per token and
+    head, its row of the chunk's state, x.w B (2PN), and C h_in^T (2PN);
+    per pair of a token and one at or before it in its chunk, and head,
+    (C B^T . L) x (2P); each with its f32 operand in two bf16 pieces; per
+    pair, C B^T (2N) once for all heads.  The f32 element-wise work (about
+    5P a token and head, one exp a pair and head) runs on the CUDA cores
+    beside the products and takes less time than they do, so it is left
+    out."""
+    from repro_torch.kernels.mamba2_ssd.mamba2_ssd import CHUNK
+    full, rest = divmod(t, CHUNK)
+    pairs = full * CHUNK * (CHUNK + 1) // 2 + rest * (rest + 1) // 2
+    return b * h * (2 * 4 * p * n * t + 2 * 2 * p * pairs) + \
+        b * 2 * n * pairs
+
+
 def scan_rwkv6(torch, args):
     """The RWKV6 scan on one captured call's inputs: (kernel call, plain
     call, bytes moved, (operations, their peak rate), shapes).  bf16 runs
@@ -576,8 +627,7 @@ def scan_rwkv6(torch, args):
     form's products at the bf16 rate; f32 runs the exact recurrence on the
     CUDA cores."""
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
-    from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (CHUNK, SUB,
-                                                           rwkv6_cuda)
+    from repro_torch.kernels.rwkv6_scan.rwkv6_scan import rwkv6_cuda
     r, k, v, w, u, s0 = args
     b, h, t, n = r.shape
     # r, k, v, w read once and y written once; u; s0 (if any) and sT
@@ -585,20 +635,7 @@ def scan_rwkv6(torch, args):
     nbytes = r.element_size() * 5 * b * h * t * n + \
         4 * (h * n + n_states * b * h * n * n)
     if r.dtype == torch.bfloat16:
-        # per token and head, each f32 operand in two bf16 pieces (three
-        # products where both operands are f32, two where one is v): its
-        # row of y_state, (r.Gpre) S (3 x 2N^2), and of the state update,
-        # (k.Gpost)^T v (2 x 2N^2); per chunk, A_ij = q k^T for the pairs
-        # of distinct sub-chunks (3 x 2N a (t, s) pair) and A V over the
-        # sub-chunk blocks on or below the diagonal (2 x 2N a pair).  The
-        # diagonal blocks' A and the decays run on the CUDA cores beside
-        # the products and are left out.
-        ns = CHUNK // SUB
-        chunks = t / CHUNK
-        pairs_qk = SUB * SUB * ns * (ns - 1) // 2 * chunks
-        pairs_av = SUB * SUB * ns * (ns + 1) // 2 * chunks
-        ops = (b * h * (10 * n * n * t + 6 * n * pairs_qk +
-                        4 * n * pairs_av), BF16_FLOP_PER_S)
+        ops = (rwkv6_chunked_flops(b, h, t, n), BF16_FLOP_PER_S)
     else:
         # per token and head: y = r.S (2N^2), r*u*k summed (3N), + bonus*v
         # (2N), S = w*S + k*v (3N^2)
@@ -614,7 +651,7 @@ def scan_mamba2(torch, args):
     the chunked form on the tensor cores, so its operations are the chunked
     form's products at the bf16 rate; f32 runs the exact recurrence on the
     CUDA cores."""
-    from repro_torch.kernels.mamba2_ssd.mamba2_ssd import CHUNK, mamba2_cuda
+    from repro_torch.kernels.mamba2_ssd.mamba2_ssd import mamba2_cuda
     from repro_torch.kernels.mamba2_ssd.ref import mamba2_ref
     x, dt, a, bm, c, d, h0 = args
     b, h, t, p = x.shape
@@ -626,18 +663,7 @@ def scan_mamba2(torch, args):
     nbytes = es * (2 * b * h * t * p + 2 * b * t * n) + \
         4 * (b * h * t + 2 * h + n_states * b * h * p * n)
     if x.dtype == torch.bfloat16:
-        # per token and head: its row of the chunk's state, x.w B (2PN),
-        # and C h_in^T (2PN); per pair of a token and one at or before it
-        # in its chunk, and head, (C B^T . L) x (2P); each with its f32
-        # operand in two bf16 pieces; per pair, C B^T (2N) once for all
-        # heads.  The f32
-        # element-wise work (about 5P a token and head, one exp a pair and
-        # head) runs on the CUDA cores beside the products and takes less
-        # time than they do, so it is left out.
-        full, rest = divmod(t, CHUNK)
-        pairs = full * CHUNK * (CHUNK + 1) // 2 + rest * (rest + 1) // 2
-        ops = (b * h * (2 * 4 * p * n * t + 2 * 2 * p * pairs) +
-               b * 2 * n * pairs, BF16_FLOP_PER_S)
+        ops = (mamba2_chunked_flops(b, h, t, p, n), BF16_FLOP_PER_S)
     else:
         # per token and head: exp(dt a) (2), dt*x (P), h = h*dec + xd*B
         # (3PN), y = h.C (2PN), + D x (2P)
@@ -841,6 +867,194 @@ def ssm_phase(torch, dev, ph, fails) -> tuple:
         f"engine "
         f"{t_engine:.4f} s, static {t_static:.4f} s")
     return row, launches
+
+
+# [rwkv6 train] and [zamba2 train]: the recurrent families trained through
+# the scans' backward kernels, after their forward phases.  Each runs
+# train_compare on a cut of its own (``compare``: the layer pattern, at
+# full width, on 2 x ``compare_seq`` tokens; the plain step's per-token
+# autograd keeps every state), then TrainLoop at ``layers`` (rwkv6 not cut;
+# zamba2 cut to 30 of 81 layers, 25 mamba and 5 shared_attn, where the dry
+# run admits 44 at this batch: the headroom covers the allocator's rounding
+# and the run's other live bytes), a warm-up step whose last scan backward
+# call is captured, and ``steps`` steps of the main path.  zamba2's compare
+# cut is one mamba and one shared_attn block (so flash's backward at hd 112
+# is held too): the random-weight model amplifies a one-ulp change of a
+# scan's bf16 output layer by layer (scripts/scan_jitter_check.py: 0.6 %
+# of a gradient's norm through 1 mamba layer, 11 % through 5), so a deeper
+# cut measures that amplification rather than the kernels.
+SSM_TRAIN = (
+    dict(tag="rwkv6 train", arch="rwkv6-1.6b", layers=None, batch=2,
+         seq=1024, mb=2, steps=3, compare=("rwkv", "rwkv"), compare_seq=128,
+         kernel="rwkv6_scan", block="rwkv"),
+    dict(tag="zamba2 train", arch="zamba2-7b", layers=30, batch=2,
+         seq=1024, mb=2, steps=3, compare=("mamba", "shared_attn"),
+         compare_seq=128, kernel="mamba2_ssd", block="mamba"),
+)
+
+
+def scan_bwd_rwkv6(torch, args):
+    """The RWKV6 backward on one captured call's inputs: (kernel call,
+    plain call, bytes moved, (operations, their peak rate), shapes).  In
+    bf16 the function is bounded as the bf16 forward is, by the chunked
+    form on the tensor cores: each of its products has two of the same
+    size in the backward (one for each operand's gradient).  In f32 its
+    work per token and head is the exact recurrence's on the CUDA cores:
+    the states once (S = w S + k v^T, 3N^2) and the walk back (dr, dk, dw,
+    dv sums and the G update, 11N^2)."""
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_bwd_ref
+    from repro_torch.kernels.rwkv6_scan.rwkv6_scan import rwkv6_bwd_cuda
+    r, k, v, w, u, dy, s0, ds_t = args
+    b, h, t, n = r.shape
+    # r, k, v, w, dy read once, dr, dk, dv, dw written once; u and du;
+    # s0/ds0 and dsT where given
+    n_states = sum(x is not None for x in (s0, s0, ds_t))
+    nbytes = r.element_size() * 9 * b * h * t * n + \
+        4 * (2 * h * n + n_states * b * h * n * n)
+    if r.dtype == torch.bfloat16:
+        ops = (2 * rwkv6_chunked_flops(b, h, t, n), BF16_FLOP_PER_S)
+    else:
+        ops = (b * h * t * 14 * n * n, F32_FLOP_PER_S)
+    return (lambda: rwkv6_bwd_cuda(*args)), (lambda: rwkv6_bwd_ref(*args)), \
+        nbytes, ops, {"r,k,v,w,dy": [b, h, t, n], "dtype": str(r.dtype),
+                      "s0": s0 is not None, "dsT": ds_t is not None}
+
+
+def scan_bwd_mamba2(torch, args):
+    """The Mamba2 backward on one captured call's inputs, as
+    ``scan_bwd_rwkv6``: in bf16 twice the chunked form's products at the
+    bf16 rate; in f32, per token and head, the states once (3PN) and the
+    walk back (G, the dx, ddt, dB, dC sums, 11PN) on the CUDA cores."""
+    from repro_torch.kernels.mamba2_ssd.mamba2_ssd import mamba2_bwd_cuda
+    from repro_torch.kernels.mamba2_ssd.ref import mamba2_bwd_ref
+    x, dt, a, bm, c, d, dy, h0, dh_t = args
+    b, h, t, p = x.shape
+    n = bm.shape[-1]
+    es = x.element_size()
+    n_states = sum(z is not None for z in (h0, h0, dh_t))
+    # x, dy read and dx written; dt read and ddt written; B, C read and
+    # dB, dC written; a, d, da, dd; h0/dh0 and dhT where given
+    nbytes = es * (3 * b * h * t * p + 4 * b * t * n) + \
+        4 * (2 * b * h * t + 4 * h + n_states * b * h * p * n)
+    if x.dtype == torch.bfloat16:
+        ops = (2 * mamba2_chunked_flops(b, h, t, p, n), BF16_FLOP_PER_S)
+    else:
+        ops = (b * h * t * 14 * p * n, F32_FLOP_PER_S)
+    return (lambda: mamba2_bwd_cuda(*args)), \
+        (lambda: mamba2_bwd_ref(*args)), nbytes, ops, \
+        {"x,dy": [b, h, t, p], "B,C": [b, t, n], "dtype": str(x.dtype),
+         "h0": h0 is not None, "dhT": dh_t is not None}
+
+
+# kernel -> (timed calls, its wrapper's name, the TPU kernel whose
+# function's gradient it computes: the reference differentiates its jnp
+# scan)
+SCAN_BWDS = {"rwkv6_scan_bwd": (scan_bwd_rwkv6, "rwkv6_bwd_cuda",
+                                "src/repro/kernels/rwkv6_scan/"
+                                "rwkv6_scan.py:59"),
+             "mamba2_ssd_bwd": (scan_bwd_mamba2, "mamba2_bwd_cuda",
+                                "src/repro/kernels/mamba2_ssd/"
+                                "mamba2_ssd.py:52")}
+
+
+def check_scan_bwd(torch, name, args, launches, tag):
+    """A scan backward kernel against its plain backward on one layer's
+    captured inputs and dy, both timed; returns the kernels JSON row.
+    Tolerance, each gradient element-wise: one ulp of its dtype (2^-7
+    relative in bf16, 1e-4 in f32: the kernel sums in another order, so a
+    bf16 value may round to the neighbouring ulp) plus 1e-4 of the
+    gradient's scale (sums over up to T tokens that cancel)."""
+    scan, _, replaces = SCAN_BWDS[name]
+    kern, plain, nbytes, ops, shapes = scan(torch, args)
+    got, want = kern(), plain()
+    worst, report = 0.0, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None:
+            continue
+        ulp = 2.0 ** -7 if g.dtype == torch.bfloat16 else 1e-4
+        err = (g.float() - w.float()).abs()
+        scale = w.float().abs().max().item()
+        over = int((err > ulp * w.float().abs() + 1e-4 * scale).sum())
+        worst = max(worst, err.max().item())
+        report.append(f"{i}: {err.max().item():.3g} of {scale:.3g}"
+                      f"{f' ({over} over)' if over else ''}")
+        if over or g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{name}: gradient {i} differs from the "
+                                 f"plain backward: {report[-1]}")
+    b_ms, b_by = bound_ms(nbytes, *ops)
+    row = dict(name=name, route="cuda",
+               source=f"src/repro_torch/kernels/csrc/{name}.cu",
+               replaces=replaces, launches=launches, max_abs_err=worst,
+               ms=graph_ms(torch, kern, reps=10),
+               plain_ms=graph_ms(torch, plain, reps=1),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[{tag}] kernel {name}: {row['ms'] * 1e3:.2f} us (plain "
+        f"{row['plain_ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us by "
+        f"{b_by}); max |err| per gradient (of its max |ref|) "
+        f"{'; '.join(report)}; tolerance: within one ulp of its dtype "
+        f"(2^-7 bf16, 1e-4 f32) of |ref| + 1e-4*max|ref|; shapes {shapes}")
+    return row
+
+
+def ssm_train(torch, dev, tr, fails) -> list:
+    """One recurrent family trained on the card (``SSM_TRAIN``); returns
+    its scan backward kernel's JSON row."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.mamba2_ssd import ops as mops
+    from repro_torch.kernels.rwkv6_scan import ops as rops
+    from repro_torch.models import lm
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+    from repro_torch.runtime.train import TrainHyper
+    tag, n_mb = tr["tag"], tr["mb"]
+    full = get_arch(tr["arch"])
+    hyper = TrainHyper()
+
+    def loop_for(cfg, batch, seq):
+        stream = TokenStream(vocab=cfg.vocab, seq_len=seq,
+                             global_batch=batch, seed=SEED)
+        loop = TrainLoop(cfg, stream, hyper,
+                         LoopConfig(microbatches=n_mb, device=str(dev)),
+                         seed=SEED)
+        log(f"[{tag}] {cfg.name} at {cfg.num_layers} of {full.num_layers} "
+            f"layers {lm.type_counts(cfg)}, d_model {cfg.d_model}, ssm "
+            f"{cfg.ssm}, vocab {cfg.vocab}, "
+            f"{sum(p.numel() for p in _leaves(loop.state['params']))} f32 "
+            f"params; global batch {batch} x {seq} in {n_mb} microbatches")
+        return loop, TokenStream(vocab=cfg.vocab, seq_len=seq,
+                                 global_batch=batch, seed=SEED)
+
+    ccfg = dataclasses.replace(full, num_layers=len(tr["compare"]),
+                               layer_pattern=tr["compare"])
+    loop, stream = loop_for(ccfg, tr["batch"], tr["compare_seq"])
+    train_compare(torch, ccfg, hyper, loop.state,
+                  torch.as_tensor(stream.next()["tokens"], device=dev),
+                  loop._plan_args(), fails, n_mb=n_mb, tag=tag)
+    del loop
+    _free(torch)
+
+    cfg = cut(full, tr["layers"])
+    loop, _ = loop_for(cfg, tr["batch"], tr["seq"])
+    ops_mod = rops if tr["kernel"] == "rwkv6_scan" else mops
+    bwd = f"{tr['kernel']}_bwd"
+    # the warm-up step; the scan backward's last call's inputs kept
+    _, seen = capture_kernel_inputs(torch, lambda: loop.run(1),
+                                    [(ops_mod, SCAN_BWDS[bwd][1])])
+    counts = lm.type_counts(cfg)
+    rec, attn = counts[tr["block"]] * n_mb, \
+        counts.get("shared_attn", 0) * n_mb
+    per_step = {k: 0 for k in LAUNCHES}
+    per_step.update({tr["kernel"]: rec, bwd: rec, "flash_fwd": attn,
+                     "flash_bwd": attn})
+    train_steps(torch, loop, per_step, tr["steps"], tag, fails)
+    launches = LAUNCHES[bwd]
+    del loop
+    _free(torch)
+    row = check_scan_bwd(torch, bwd, seen[SCAN_BWDS[bwd][1]], launches, tag)
+    del seen
+    _free(torch)
+    return [row]
 
 
 def forward_decode_check(torch, cfg, params, toks, tag, atol, kernel,
@@ -1696,7 +1910,12 @@ def class_report(tag, name, spec, res, wall, oracle, fails,
     those partings' (request, token, margin)."""
     from repro_torch.core.scheduler import grade_slo
     from repro_torch.engine import loadgen as lg
-    bound = {n: d for n, _, d in STARVE_CLASSES}
+    # choose_serve_job serves one pool a tick, most overdue first: when
+    # the POOLS pools' prefills reach max_defer in the same round, the
+    # last one served waits POOLS - 1 ticks past it (the reference's
+    # engine alike; tests/test_torch_serve_priority.py
+    # test_aging_bound_with_both_pools_aging_at_once)
+    bound = {n: d + POOLS - 1 for n, _, d in STARVE_CLASSES}
     by = {}
     for tr in res.traces:
         by.setdefault(tr.req.priority, []).append(tr)
@@ -1709,7 +1928,7 @@ def class_report(tag, name, spec, res, wall, oracle, fails,
             f"{np.median(ticks)} and largest {max(ticks)} ticks, median "
             f"{np.median(secs):.6f} and largest {max(secs):.6f} s; "
             f"{toks / wall:.1f} generated tok/s; max_deferred {md} (bound "
-            f"{bound[cls]})")
+            f"{bound[cls]}: max_defer + {POOLS - 1} for {POOLS} pools)")
         if md > bound[cls]:
             fails.append(f"{tag} {name}: class {cls} deferred {md} ticks, "
                          f"over its bound {bound[cls]}")
@@ -2708,19 +2927,18 @@ def train_compare(torch, cfg, hyper, state, tokens, plan, fails, n_mb=None,
     """Checks from one state on one batch ``tokens`` [B, S] in ``n_mb``
     (default TRAIN_MB) microbatches, before the loop trains: the full step
     through the kernels against the same step through the plain versions
-    (every one of them; the MoE ones only, with the attention kernel in
-    both arms), the granulated step against the fused one, and the kernel
-    step run twice.  Of each step's new state only the parameters are
-    kept."""
-    from repro_torch.models import blocks, lm
-    from repro_torch.models import moe as moe_lib
+    (every one of them; for a MoE model also the MoE ones only, with the
+    attention kernel in both arms), the granulated step against the fused
+    one, and the kernel step run twice (the same bits).  Of each step's new
+    state only the parameters are kept."""
+    from repro_torch.models import lm
     from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.runtime.train import build_fused_step, build_grad_step
     n_mb = n_mb or TRAIN_MB
     ps, pc = plan
     mb, seq = tokens.shape[0] // n_mb, tokens.shape[1]
-    ints = ("expert_counts", "slot_counts", "dropped")
-    gating = moe_lib.gating
+    moe = lm.n_moe_layers(cfg) > 0
+    ints = ("expert_counts", "slot_counts", "dropped") if moe else ()
 
     def step(impl):
         new, metrics, opt_m = build_fused_step(cfg, hyper, impl)(
@@ -2735,16 +2953,93 @@ def train_compare(torch, cfg, hyper, state, tokens, plan, fails, n_mb=None,
         return max(_rel_l2(torch, x, y) for x, y in
                    zip(tree_leaves(a), tree_leaves(b)))
 
+    if moe:
+        sk, mk, gk = _moe_step_compare(torch, cfg, tag, step, mb0_grads,
+                                       ints, worst_leaf, fails)
+    else:
+        # no routing: the kernel step against the plain one directly
+        sk, mk, _ = step("auto")
+        gk, _ = mb0_grads("auto")
+        sr, mr, _ = step("torch")
+        gr, _ = mb0_grads("torch")
+        loss_k, loss_r = mk["loss"].mean().item(), mr["loss"].mean().item()
+        worst = worst_leaf(gk, gr)
+        by_leaf = sorted(((_rel_l2(torch, x, y), name) for name, x, y in zip(
+            _leaf_names(gk), tree_leaves(gk), tree_leaves(gr))),
+            reverse=True)[:4]
+        log(f"[{tag}] one step, kernels vs every plain version (same state "
+            f"and batch {list(tokens.shape)} in {n_mb} microbatches): loss "
+            f"{loss_k:.7f} vs {loss_r:.7f} (rel "
+            f"{abs(loss_k - loss_r) / loss_r:.3g}, tolerance "
+            f"{TRAIN_LOSS_RTOL}); microbatch-0 gradient leaves worst rel L2 "
+            f"{worst:.4g} (tolerance {TRAIN_GRAD_RTOL}); the worst leaves "
+            f"{[(n, round(e, 5)) for e, n in by_leaf]}")
+        if not np.isfinite(loss_k) or \
+                abs(loss_k - loss_r) > TRAIN_LOSS_RTOL * loss_r or \
+                worst > TRAIN_GRAD_RTOL:
+            fails.append(f"{tag}: the kernel step differs from the plain "
+                         f"step")
+        del sr, mr, gr
+    # granulated (gradient per microbatch, summed, then apply) vs fused
+    grad_mb, apply, _ = build_grad_step(cfg, hyper)
+    acc, metrics = None, []
+    for i in range(n_mb):
+        g, m = grad_mb(state["params"],
+                       {"tokens": tokens[i * mb:(i + 1) * mb]}, ps, pc,
+                       i * mb * seq)
+        acc = g if acc is None else tree_map(lambda a, b: a + b, acc, g)
+        metrics.append(m)
+    sg, _ = apply(state, acc, n_mb, 1.0)
+    int_eq = all(torch.equal(torch.stack([m[key] for m in metrics]), mk[key])
+                 for key in ints)
+    pairs = list(zip(tree_leaves(sg["params"]), tree_leaves(sk)))
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    worst = max(_rel_l2(torch, a, b) for a, b in pairs)
+    log(f"[{tag}] granulated vs fused step: integer metrics equal {int_eq}, "
+        f"updated params equal bit for bit {bitwise} (worst rel L2 "
+        f"{worst:.3g})")
+    if not int_eq or worst > 1e-6:
+        fails.append(f"{tag}: granulated and fused steps differ")
+    del sg, acc, metrics
+    # the kernel step again: the same bits?
+    s2, _, _ = step("auto")
+    again = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(s2), tree_leaves(sk)))
+    log(f"[{tag}] the kernel step run twice from the same state gives the "
+        f"same parameters bit for bit: {again}")
+    if not again:
+        fails.append(f"{tag}: the kernel step is not the same bits twice")
+    del s2, sk, mk, gk
+
+
+def _leaf_names(tree, prefix=""):
+    """The leaves' paths in ``tree_leaves``' order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def _moe_step_compare(torch, cfg, tag, step, mb0_grads, ints, worst_leaf,
+                      fails):
+    """``train_compare``'s kernel-vs-plain checks of a MoE model: the full
+    kernel step against the plain one (router flips held to near-ties, the
+    arithmetic on a plain step replaying the kernel step's expert choices),
+    then against the MoE kernels' plain versions with the attention kernel
+    in both.  Returns the kernel step's (params, metrics, microbatch-0
+    gradients)."""
+    from repro_torch.models import blocks, lm
+    from repro_torch.models import moe as moe_lib
+    gating = moe_lib.gating
     step_routes, mb0_routes = [], []
     try:
         moe_lib.gating = _gating_tap(torch, record=step_routes)
-        sk, mk, ok = step("auto")
+        sk, mk, _ = step("auto")
         moe_lib.gating = _gating_tap(torch, record=mb0_routes)
         gk, _ = mb0_grads("auto")
     finally:
         moe_lib.gating = gating
     loss_k = mk["loss"].mean().item()
-
     # every plain version: near-tied router logits can send a token to
     # another expert (the attention kernel and the plain attention round
     # bf16 at other points), and a flip changes the later layers' inputs.
@@ -2817,34 +3112,7 @@ def train_compare(torch, cfg, hyper, state, tokens, plan, fails, n_mb=None,
         fails.append(f"{tag}: the MoE kernels' step differs from their plain "
                      f"versions'")
     del sm, mm, gm
-    # granulated (gradient per microbatch, summed, then apply) vs fused
-    grad_mb, apply, _ = build_grad_step(cfg, hyper)
-    acc, metrics = None, []
-    for i in range(n_mb):
-        g, m = grad_mb(state["params"],
-                       {"tokens": tokens[i * mb:(i + 1) * mb]}, ps, pc,
-                       i * mb * seq)
-        acc = g if acc is None else tree_map(lambda a, b: a + b, acc, g)
-        metrics.append(m)
-    sg, _ = apply(state, acc, n_mb, 1.0)
-    int_eq = all(torch.equal(torch.stack([m[key] for m in metrics]), mk[key])
-                 for key in ints)
-    pairs = list(zip(tree_leaves(sg["params"]), tree_leaves(sk)))
-    bitwise = all(torch.equal(a, b) for a, b in pairs)
-    worst = max(_rel_l2(torch, a, b) for a, b in pairs)
-    log(f"[{tag}] granulated vs fused step: integer metrics equal {int_eq}, "
-        f"updated params equal bit for bit {bitwise} (worst rel L2 "
-        f"{worst:.3g})")
-    if not int_eq or worst > 1e-6:
-        fails.append(f"{tag}: granulated and fused steps differ")
-    del sg, acc, metrics
-    # the kernel step again: the same bits?
-    s2, _, _ = step("auto")
-    again = all(torch.equal(a, b) for a, b in zip(
-        tree_leaves(s2), tree_leaves(sk)))
-    log(f"[{tag}] the kernel step run twice from the same state gives the "
-        f"same parameters bit for bit: {again}")
-    del s2, sk, mk, ok, gk
+    return sk, mk, gk
 
 
 def reshape_train_loop(torch, dev, cfg, batch, seq, n_mb, tag, fails,
@@ -3696,6 +3964,23 @@ def olmoe_train(torch, dev, full, fails) -> None:
 EP_WORLD = 2
 EP_TOKENS = OLMOE_FWD[0] * OLMOE_FWD[1]
 EP_TOL = 2e-2
+# [ep]'s all-to-all layout (moe_ffn_a2a): each rank EP_TOKENS / EP_WORLD of
+# the tokens; at this capacity factor nothing drops (cap_s = T_loc k: a
+# bucket holds every assignment; cap2 = 1638 and the unsharded capacity
+# 1024 rows a slot, against about 512 routed a slot)
+EP_A2A_CF = 2.0
+
+
+def ep_a2a_cfg(cfg):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=EP_A2A_CF))
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at the magnitude of ``x`` (element-wise)."""
+    tiny = torch.finfo(torch.bfloat16).tiny
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(
+        tiny))) - 7)
 
 
 def ep_layer(torch, dev, cfg):
@@ -3712,6 +3997,7 @@ def ep_layer(torch, dev, cfg):
     x = torch.randn((1, EP_TOKENS, cfg.d_model), generator=gen,
                     device=dev).to(torch.bfloat16)
     return p, x
+
 
 
 def ep_rank(rank, world, tmp):
@@ -3760,6 +4046,31 @@ def ep_rank(rank, world, tmp):
         if rank == 0:
             out["seen"] = {k: tuple(a.cpu() if torch.is_tensor(a) else a
                                     for a in v) for k, v in seen.items()}
+        del seen, y
+        # the all-to-all layout: this rank's rows over data x model (its
+        # index is its rank on this 1 x EP_WORLD mesh)
+        acfg = ep_a2a_cfg(cfg)
+        t_loc = EP_TOKENS // world
+        xa = x[:, rank * t_loc:(rank + 1) * t_loc]
+
+        def run_a2a():
+            return moe_lib.moe_ffn(p, xa, plan.slots[0], plan.cum[0], acfg,
+                                   0, mesh=mesh, layout="dp")
+
+        with torch.no_grad():
+            run_a2a()
+            torch.cuda.synchronize()
+            dist.barrier()
+            reset_launches()
+            moe_lib.reset_collective_bytes()
+            t0 = time.perf_counter()
+            ya, ma = run_a2a()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["a2a"] = {"y": ya.cpu(),
+                      "metrics": {k: v.cpu() for k, v in ma.items()},
+                      "launches": dict(LAUNCHES), "wall": wall,
+                      "bytes": dict(moe_lib.COLLECTIVE_BYTES)}
         torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -3793,6 +4104,8 @@ def phase_ep(torch, dev, fails) -> list:
                                        off)
         torch.cuda.synchronize()
         wall_ref = time.perf_counter() - t0
+        ya_ref, ma_ref = moe_lib.moe_ffn(p, x, plan.slots[0], plan.cum[0],
+                                         ep_a2a_cfg(cfg), off)
     del p
     _free(torch)
     t0 = time.perf_counter()
@@ -3855,10 +4168,73 @@ def phase_ep(torch, dev, fails) -> list:
         f"other rank's slots)")
     if not (valid == 0).any():
         fails.append(f"{tag}: the dispatch saw no false valid entry")
+    ep_a2a_report(torch, dev, cfg, res, ya_ref, ma_ref, fails)
     rows = moe_rows(torch, seen, res[0]["launches"], "ep", tag)
-    del res, seen, y, y_ref, x
+    del res, seen, y, y_ref, x, ya_ref
     _free(torch)
     return rows
+
+
+def ep_a2a_report(torch, dev, cfg, res, y_ref, m_ref, fails) -> None:
+    """[ep]'s all-to-all layout against the unsharded layer at the same
+    capacity factor: integer metrics equal, nothing dropped, y within one
+    bf16 ulp at the layer output's scale (its largest |y|: an element is a
+    weighted sum of k bf16 expert rows, and the experts' GEMMs run on
+    buckets of other heights than the unsharded layer's, so a row may
+    round to its neighbouring ulp and a sum that cancels keeps that
+    error); each rank's launches, the bytes it handed to all_to_all beside
+    the analytic a2a term, its wall.  Control: y with the first and the
+    last token's rows swapped (each rank's result brought back to the
+    other's token, as a misrouted bucket would) must fail that gate."""
+    from repro_torch.analysis import flops
+    tag, m = "ep", EP_WORLD
+    outs = [r["a2a"] for r in res]
+    y = torch.cat([o["y"] for o in outs], 1).to(dev)
+    err = (y.float() - y_ref.float()).abs()
+    scale_ulp = bf16_ulp(torch, y_ref.float().abs().max()).item()
+    own = err / bf16_ulp(torch, y_ref)
+    wrong = y.clone()
+    wrong[:, [0, -1]] = y[:, [-1, 0]]
+    ctl = (wrong.float() - y_ref.float()).abs().max().item()
+    ints = {k: all(torch.equal(o["metrics"][k].to(dev), m_ref[k])
+                   for o in outs)
+            for k in ("kept_counts", "dropped", "expert_counts")}
+    dropped = [int(o["metrics"]["dropped"][0]) for o in outs]
+    log(f"[{tag}] all-to-all layout (moe_ffn_a2a, layout \"dp\"): "
+        f"{EP_TOKENS // m} tokens a rank over data 1 x model {m}, capacity "
+        f"factor {EP_A2A_CF}: vs the unsharded layer y max |err| "
+        f"{err.max().item()} (tolerance one bf16 ulp at max |y| "
+        f"{y_ref.float().abs().max().item():.4g}: {scale_ulp}), "
+        f"{int((err > 0).sum())} of {err.numel()} elements differ, "
+        f"{int((own > 1).sum())} by more than one ulp of their own "
+        f"magnitude; "
+        f"integer metrics equal {ints} (dropped {dropped}, unsharded "
+        f"{int(m_ref['dropped'][0])}); gloo carried the CUDA tensors; "
+        f"control, two tokens' rows swapped: max |err| {ctl}")
+    if err.max().item() > scale_ulp or not all(ints.values()) or \
+            any(dropped) or not torch.isfinite(y.float()).all():
+        fails.append(f"{tag}: the all-to-all layer differs from the "
+                     f"unsharded one")
+    if ctl <= scale_ulp:
+        fails.append(f"{tag}: the all-to-all gate passes y with two tokens' "
+                     f"rows swapped")
+    toks_dev = EP_TOKENS / m
+    analytic = 2 * toks_dev * cfg.moe.top_k * cfg.d_model * flops.BF16 * \
+        (m - 1) / m
+    for r, o in enumerate(outs):
+        hit = {k: o["launches"][k] for k in MOE_KERNELS}
+        handed = o["bytes"]["all_to_all"]
+        log(f"[{tag}] a2a rank {r}: launches {hit}, wall {o['wall']:.4f} "
+            f"s; handed to all_to_all {handed} B (x and y buckets "
+            f"[{m}, cap_s, D] bf16, and their slot ids), of which "
+            f"{handed * (m - 1) // m} B leave the rank; the analytic a2a "
+            f"term (analysis.flops.collective_bytes_per_device, layout "
+            f"\"dp\": dispatch and combine of T_loc k bf16 rows, one layer) "
+            f"{analytic:.0f} B a device (the buckets are padded to cap_s = "
+            f"T_loc k cf / m rows a destination); to all_reduce "
+            f"{o['bytes']['all_reduce']} B")
+        if hit != {"moe_gating": 1, "moe_dispatch": 2, "moe_combine": 2}:
+            fails.append(f"{tag}: a2a rank {r} launched {hit}")
 
 
 def phase_qwen3moe(torch, dev, fails) -> list:
@@ -4291,7 +4667,7 @@ def main() -> int:
     flash_rows = flash_phase(torch, dev, train_launches)
     rows += flash_rows + train_rows
     phase_time("flash")
-    for ph in SSM_PHASES:
+    for ph, tr in zip(SSM_PHASES, SSM_TRAIN):
         _free(torch)
         row, launches = ssm_phase(torch, dev, ph, fails)
         rows.append(row)
@@ -4299,6 +4675,9 @@ def main() -> int:
             if r["name"] == f"flash_fwd@{ph['tag']}":
                 r["launches"] = launches["flash_fwd"]
         phase_time(ph["tag"])
+        _free(torch)
+        rows += ssm_train(torch, dev, tr, fails)
+        phase_time(tr["tag"])
     for name, fn in (("gemma3", gemma3_phase), ("olmoe", phase_olmoe),
                      ("ep", phase_ep),
                      ("qwen3moe", phase_qwen3moe), ("dense", phase_dense),

@@ -23,7 +23,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("moe_gating", "moe_dispatch", "rwkv6_scan", "mamba2_ssd",
-           "flash_attention")
+           "flash_attention", "rwkv6_scan_bwd", "mamba2_ssd_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]

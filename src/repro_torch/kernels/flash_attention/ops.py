@@ -6,9 +6,9 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.kernels import resolve
 from repro_torch.kernels.flash_attention.flash_attention import \
     FlashAttention
-from repro_torch.kernels.moe_gating.ops import resolve
 from repro_torch.models.attention import chunked_attention, repeat_kv
 
 

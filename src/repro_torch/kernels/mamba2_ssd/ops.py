@@ -6,14 +6,22 @@ plain version computes the exact recurrence; the kernel's bf16 route the
 chunked form at its own chunk length, which matches it at any chunk
 length up to rounding (the decay matrix is at most 1 on the causal
 triangle), so there is no chunk length here.
+
+Gradients: on the card, where autograd would record, ``mamba2`` runs
+``Mamba2Scan``, the forward kernel differentiated by the backward kernel
+(``mamba2_bwd_cuda``); under ``torch.no_grad()`` it launches the forward
+kernel alone, as serving does.  On the CPU autograd differentiates the
+plain forward.  The Function also takes ``impl="torch"`` (the plain
+forward and ``ref.mamba2_bwd_ref``), so the CPU tests run its plumbing.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.mamba2_ssd.mamba2_ssd import mamba2_cuda
-from repro_torch.kernels.mamba2_ssd.ref import mamba2_ref
-from repro_torch.kernels.moe_gating.ops import resolve
+from repro_torch.kernels import records, resolve
+from repro_torch.kernels.mamba2_ssd.mamba2_ssd import (mamba2_bwd_cuda,
+                                                       mamba2_cuda)
+from repro_torch.kernels.mamba2_ssd.ref import mamba2_bwd_ref, mamba2_ref
 
 
 def mamba2(x, dt, a, bm, c, d, h0=None, impl: str = "auto"):
@@ -22,7 +30,36 @@ def mamba2(x, dt, a, bm, c, d, h0=None, impl: str = "auto"):
     f32)."""
     if resolve(impl, x) == "torch":
         return mamba2_ref(x, dt, a, bm, c, d, h0)
+    if records(x, dt, a, bm, c, d, h0):
+        return Mamba2Scan.apply(x, dt, a, bm, c, d, h0, "cuda")
     return mamba2_cuda(x, dt, a, bm, c, d, h0)
+
+
+class Mamba2Scan(torch.autograd.Function):
+    """(x, dt, a, bm, c, d, h0) -> (y, hT) through the forward kernel
+    (``impl "cuda"``) or the plain forward (``"torch"``), differentiated by
+    the matching backward.  Gradients come back in each input's dtype; an
+    unused y or hT has no cotangent (None, not zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bm, c, d, h0, impl):
+        fwd = mamba2_cuda if impl == "cuda" else mamba2_ref
+        y, h_t = fwd(x, dt, a, bm, c, d, h0)
+        ctx.save_for_backward(x, dt, a, bm, c, d, h0)
+        ctx.impl = impl
+        ctx.set_materialize_grads(False)
+        return y, h_t
+
+    @staticmethod
+    def backward(ctx, dy, dh_t):
+        x, dt, a, bm, c, d, h0 = ctx.saved_tensors
+        bwd = mamba2_bwd_cuda if ctx.impl == "cuda" else mamba2_bwd_ref
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype)
+        grads = bwd(x, dt, a, bm, c, d, dy, h0, dh_t)
+        ins = (x, dt, a, bm, c, d, h0)
+        return (*(g.to(z.dtype) if need else None
+                  for g, z, need in zip(grads, ins, ctx.needs_input_grad)),
+                None)
 
 
 def mamba2_decode_step(xt, dtt, a, bt, ct, d, hs):

@@ -26,10 +26,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import resolve
 from repro_torch.kernels.moe_dispatch.moe_dispatch import (combine_cuda,
                                                            dispatch_cuda)
 from repro_torch.kernels.moe_dispatch.ref import combine_ref, dispatch_ref
-from repro_torch.kernels.moe_gating.ops import resolve
 
 
 def dispatch(v, w, slot, valid, n_slots: int, cap: int, impl: str = "auto"):

@@ -2,18 +2,9 @@
 card, the plain torch version for a tensor on the CPU."""
 from __future__ import annotations
 
+from repro_torch.kernels import resolve
 from repro_torch.kernels.moe_gating.moe_gating import gating_cuda
 from repro_torch.kernels.moe_gating.ref import gating_ref
-
-
-def resolve(impl: str, x) -> str:
-    """``auto`` -> ``cuda`` for a CUDA tensor, ``torch`` (the plain version)
-    for a CPU tensor.  ``cuda`` on a CPU tensor raises in the wrapper."""
-    if impl == "auto":
-        return "cuda" if x.is_cuda else "torch"
-    if impl not in ("cuda", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
-    return impl
 
 
 def gating(logits, k: int, impl: str = "auto"):

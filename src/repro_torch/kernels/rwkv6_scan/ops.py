@@ -11,14 +11,22 @@ not ported: its decay factoring clamps the cumulative in-chunk decay at
 e^-30 and is wrong at the model's own chunk of 128 tokens with
 model-range decays.  The model has no chunk length to pass: the kernel's
 is fixed (``rwkv6_scan.CHUNK``).
+
+Gradients: on the card, where autograd would record, ``rwkv6`` runs
+``RWKV6Scan``, the forward kernel differentiated by the backward kernel
+(``rwkv6_bwd_cuda``); under ``torch.no_grad()`` it launches the forward
+kernel alone, as serving does.  On the CPU autograd differentiates the
+plain forward.  The Function also takes ``impl="torch"`` (the plain
+forward and ``ref.rwkv6_bwd_ref``), so the CPU tests run its plumbing.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.moe_gating.ops import resolve
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
-from repro_torch.kernels.rwkv6_scan.rwkv6_scan import rwkv6_cuda
+from repro_torch.kernels import records, resolve
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_bwd_ref, rwkv6_ref
+from repro_torch.kernels.rwkv6_scan.rwkv6_scan import (rwkv6_bwd_cuda,
+                                                       rwkv6_cuda)
 
 
 def rwkv6(r, k, v, w, u, s0=None, impl: str = "auto"):
@@ -26,7 +34,36 @@ def rwkv6(r, k, v, w, u, s0=None, impl: str = "auto"):
     (y [B,H,T,N] in r's dtype, sT [B,H,N,N] f32)."""
     if resolve(impl, r) == "torch":
         return rwkv6_ref(r, k, v, w, u, s0)
+    if records(r, k, v, w, u, s0):
+        return RWKV6Scan.apply(r, k, v, w, u, s0, "cuda")
     return rwkv6_cuda(r, k, v, w, u, s0)
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """(r, k, v, w, u, s0) -> (y, sT) through the forward kernel (``impl
+    "cuda"``) or the plain forward (``"torch"``), differentiated by the
+    matching backward.  Gradients come back in each input's dtype; an
+    unused y or sT has no cotangent (None, not zeros)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, impl):
+        fwd = rwkv6_cuda if impl == "cuda" else rwkv6_ref
+        y, s_t = fwd(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.impl = impl
+        ctx.set_materialize_grads(False)
+        return y, s_t
+
+    @staticmethod
+    def backward(ctx, dy, ds_t):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        bwd = rwkv6_bwd_cuda if ctx.impl == "cuda" else rwkv6_bwd_ref
+        dy = torch.zeros_like(r) if dy is None else dy.to(r.dtype)
+        grads = bwd(r, k, v, w, u, dy, s0, ds_t)
+        ins = (r, k, v, w, u, s0)
+        return (*(g.to(x.dtype) if need else None
+                  for g, x, need in zip(grads, ins, ctx.needs_input_grad)),
+                None)
 
 
 def rwkv6_decode_step(rt, kt, vt, wt, u, s):

@@ -17,9 +17,9 @@ For every cell that ``cell_applicable`` admits it
     ``meta_kernels`` stands in for their wrappers while it traces: each
     makes its outputs' shapes and launches nothing.  The host values the
     card's code reads from the device are passed in: the fused step's
-    ``step`` as a Python int.  ``train`` cells of the recurrent configs
-    are SKIPs: the card's scan kernels have no backward, so no path
-    trains them on the card;
+    ``step`` as a Python int.  A training step of the recurrent configs
+    runs the scans' backward kernels, whose stand-ins make their
+    checkpoint scratch too, so its bytes count;
 (c) records per device, for each mesh: parameter, optimizer, gradient
     and cache bytes from ``runtime.sharding``'s spec tree, the peak of
     the step's other live bytes (``MemTrace``: activations, the bf16
@@ -56,6 +56,10 @@ from repro_torch.analysis import flops as F
 from repro_torch.analysis import roofline as RL
 from repro_torch.configs import (ARCH_IDS, SHAPES, ArchConfig, ShapeCfg,
                                  cell_applicable, get_arch)
+from repro_torch.kernels.mamba2_ssd.mamba2_ssd import \
+    bwd_scratch as mamba2_scratch
+from repro_torch.kernels.rwkv6_scan.rwkv6_scan import \
+    bwd_scratch as rwkv6_scratch
 from repro_torch.launch.mesh import HBM_BYTES
 from repro_torch.models import lm
 from repro_torch.models import moe as moe_lib
@@ -64,17 +68,7 @@ from repro_torch.runtime import sharding as SH
 from repro_torch.runtime.train import TrainHyper, build_fused_step
 
 META = torch.device("meta")
-SCAN_BLOCKS = {"rwkv", "mamba"}
 F32, I32 = torch.float32, torch.int32
-
-
-def card_skip(cfg: ArchConfig, shape: ShapeCfg) -> Optional[str]:
-    """Why the card cannot run a cell that ``cell_applicable`` admits, or
-    None."""
-    if shape.kind == "train" and SCAN_BLOCKS & set(cfg.pattern):
-        return ("the card's scan kernels (rwkv6, mamba2) have no backward: "
-                "no path trains this config on the card")
-    return None
 
 
 def _empty(shape, dtype):
@@ -124,6 +118,29 @@ def _mamba2(x, dt, a, bm, c, d, h0=None):
     return _empty(x.shape, x.dtype), _empty((b, h, p, bm.shape[-1]), F32)
 
 
+def _rwkv6_bwd(r, k, v, w, u, dy, s0=None, ds_t=None):
+    b, h, t, n = r.shape
+    out = tuple(_empty(r.shape, r.dtype) for _ in range(4)) + \
+        (_empty((h, n), F32),
+         None if s0 is None else _empty((b, h, n, n), F32))
+    scratch = [_empty(s, F32) for s in rwkv6_scratch(b, h, t, n).values()]
+    del scratch
+    return out
+
+
+def _mamba2_bwd(x, dt, a, bm, c, d, dy, h0=None, dh_t=None):
+    b, h, t, p = x.shape
+    n = bm.shape[-1]
+    out = (_empty(x.shape, x.dtype), _empty(dt.shape, F32),
+           _empty((h,), F32), _empty((b, t, n), x.dtype),
+           _empty((b, t, n), x.dtype), _empty((h,), F32),
+           None if h0 is None else _empty((b, h, p, n), F32))
+    scratch = [_empty(s, F32)
+               for s in mamba2_scratch(b, h, t, p, n).values()]
+    del scratch
+    return out
+
+
 @contextlib.contextmanager
 def meta_kernels():
     """While it is open, the kernels' dispatchers send a ``meta`` tensor
@@ -145,7 +162,8 @@ def meta_kernels():
              (md, "combine_cuda", _combine),
              (fa, "flash_fwd_cuda", _flash_fwd),
              (fa, "flash_bwd_cuda", _flash_bwd), (rw, "rwkv6_cuda", _rwkv6),
-             (mb, "mamba2_cuda", _mamba2)]
+             (mb, "mamba2_cuda", _mamba2), (rw, "rwkv6_bwd_cuda", _rwkv6_bwd),
+             (mb, "mamba2_bwd_cuda", _mamba2_bwd)]
     fakes += [(m, "resolve", resolve) for m in (mg, md, fa_ops, rw, mb)]
     with contextlib.ExitStack() as stack:
         for mod, name, fn in fakes:
@@ -238,9 +256,6 @@ def trace_step(cfg: ArchConfig, shape: ShapeCfg) -> Dict[str, Any]:
     """(a) and (b): the state on ``meta`` and the step traced over it.
     Returns the state (``params``, and ``cache`` for decode) and the peak
     of the step's own live bytes."""
-    why = card_skip(cfg, shape)
-    if why:
-        raise ValueError(why)
     rows = batch_rows(shape)
     nl = lm.n_moe_layers(cfg)
     plan = moe_lib.identity_plan(cfg, nl, device=META) if nl else None
@@ -360,8 +375,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         for s in shapes:
             shape = SHAPES[s]
             ok, why = cell_applicable(cfg, shape)
-            if ok and card_skip(cfg, shape):
-                ok, why = False, card_skip(cfg, shape)
             if not ok:
                 for mesh in meshes:
                     print(f"SKIP {a} x {s} x {mesh}: {why}", flush=True)

@@ -119,7 +119,8 @@ def encode(params, frames, cfg: ArchConfig, impl: str = "auto"):
 
 
 def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
-            token_offset: int = 0, impl: str = "auto", mesh=None):
+            token_offset: int = 0, impl: str = "auto", mesh=None,
+            layout: str = "tp"):
     """batch: tokens [B,S], and for whisper frames [B,Se,D], for qwen2-vl
     optionally positions3 [B,S,3] (the (t, h, w) ids; without them every id
     is the token's position).  Returns (logits [B,S,V] f32, aux dict with
@@ -132,18 +133,20 @@ def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
     have).
 
     ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with dims ``model``
-    and optionally ``data``) runs every MoE layer expert-parallel
-    (``moe.moe_ffn_sharded``): each rank passes its data row's share of
-    the batch and ``params`` with its own expert slots
-    (``moe.shard_experts``); the rest of the model runs on each rank as it
-    is."""
+    and optionally ``data``) runs every MoE layer expert-parallel, as
+    ``layout`` says: "tp" (``moe.moe_ffn_sharded``) with each rank passing
+    its data row's share of the batch, "dp" (``moe.moe_ffn_a2a``) with
+    each rank passing its share over data x model; ``params`` hold the
+    rank's own expert slots (``moe.shard_experts``), and the rest of the
+    model runs on each rank as it is."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
     x = params["embed"][tokens].to(torch.bfloat16)
     pos = torch.arange(s, device=dev)[None].expand(b, s)
     ctx = {"cfg": cfg, "moe_groups": "batch", "token_offset": token_offset,
-           "positions": pos, "moe_metrics": [], "impl": impl, "mesh": mesh}
+           "positions": pos, "moe_metrics": [], "impl": impl, "mesh": mesh,
+           "layout": layout}
     if cfg.mrope:
         p3 = batch.get("positions3")
         ctx["positions3"] = pos[..., None].expand(b, s, 3) if p3 is None \

@@ -18,7 +18,10 @@ them.
 * Dispatch is either the argsort pipeline below or the fused kernel family
   (``cfg.moe.fused_dispatch``); both make the same drop decisions.
 * ``moe_ffn_sharded`` is the expert-parallel path over ``torch.distributed``
-  (experts over a mesh's ``model`` dim, tokens over ``data``).
+  (experts over a mesh's ``model`` dim, tokens over ``data``), and
+  ``moe_ffn_a2a`` its all-to-all variant (tokens over ``data`` x ``model``,
+  exchanged with the experts' ranks); ``moe_ffn(..., mesh, layout)``
+  picks among the three.
 """
 from __future__ import annotations
 
@@ -32,11 +35,11 @@ from repro_torch.kernels.moe_dispatch import ops as dispatch_ops
 from repro_torch.kernels.moe_gating.ops import gating
 from repro_torch.kernels.moe_gating.ref import top_k_rounds
 
-# Bytes that moe_ffn_sharded hands to each kind of collective (counted where
-# it calls one with more than one rank, and nowhere else), as
-# kernels.LAUNCHES counts launches: the port's count of what an HLO parse
-# counted for the reference.
-COLLECTIVE_BYTES = {"all_reduce": 0, "all_gather": 0}
+# Bytes that moe_ffn_sharded and moe_ffn_a2a hand to each kind of
+# collective (counted where they call one with more than one rank, and
+# nowhere else), as kernels.LAUNCHES counts launches: the port's count of
+# what an HLO parse counted for the reference.
+COLLECTIVE_BYTES = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
 
 
 def reset_collective_bytes() -> None:
@@ -183,14 +186,23 @@ def expert_ffn(p, buf):
 
 
 def moe_ffn(p, x, plan_slots, plan_cum, cfg: ArchConfig, token_offset,
-            impl: str = "auto"):
+            impl: str = "auto", mesh=None, layout: str = "tp"):
     """Full MoE FFN over groups.  p: dict(router, w_gate [S,D,F], w_up,
     w_down [S,F,D]); x [G,T,D]; token_offset [G]; ``impl`` picks the
-    kernels or their plain versions (``kernels.*.ops``).
+    kernels or their plain versions (``kernels.*.ops``).  With a ``mesh``
+    (one group) the layer is expert-parallel, as the reference's
+    ``moe_ffn``: ``layout="tp"`` runs ``moe_ffn_sharded``, ``"dp"``
+    ``moe_ffn_a2a``.
 
     Returns (y [G,T,D], metrics), every metric with a leading group dim:
     slot_counts/kept_counts [G,S] (the Reshape load metric phi per physical
     slot), dropped [G], aux_loss [G], expert_counts [G,E], router_z [G]."""
+    if mesh is not None:
+        if layout not in ("tp", "dp"):
+            raise ValueError(f"unknown layout {layout!r}")
+        ffn = moe_ffn_a2a if layout == "dp" else moe_ffn_sharded
+        return ffn(p, x, plan_slots, plan_cum, cfg, mesh, token_offset,
+                   impl)
     m = cfg.moe
     t = x.shape[1]
     slot, weight, probs, top_e, r_counts = route(
@@ -270,6 +282,26 @@ def _all_reduce(x, group):
     return x
 
 
+def _all_to_all(x, group):
+    """``x`` [m * C, ...] cut into ``m`` equal blocks along dim 0: block j
+    goes to rank j of ``group``, and block j of the result came from rank j
+    (``lax.all_to_all`` with split and concat axis 0); its bytes
+    counted."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    COLLECTIVE_BYTES["all_to_all"] += x.numel() * x.element_size()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _forward_only(name, x, p):
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            v.requires_grad for v in p.values())):
+        raise RuntimeError(f"{name} is forward only: run it under "
+                           f"torch.no_grad()")
+
+
 def moe_ffn_sharded(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
                     token_offset, impl: str = "auto"):
     """Expert-parallel MoE FFN over a ``torch.distributed`` ``DeviceMesh``
@@ -303,10 +335,7 @@ def moe_ffn_sharded(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
     reference reports the first ``model`` column's alone), ``aux_loss`` and
     ``router_z`` [1] from the ``data``-averaged router statistics."""
     import torch.distributed as dist
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            v.requires_grad for v in p.values())):
-        raise RuntimeError("moe_ffn_sharded is forward only: run it under "
-                           "torch.no_grad()")
+    _forward_only("moe_ffn_sharded", x, p)
     m = cfg.moe
     names = tuple(mesh.mesh_dim_names)
     mdl = mesh.shape[names.index("model")]
@@ -366,5 +395,127 @@ def moe_ffn_sharded(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
     aux = m.num_experts * (f * pbar).sum()
     return y, {"slot_counts": slot_counts[None], "kept_counts":
                slot_counts[None], "dropped": dropped.reshape(1),
+               "aux_loss": aux.reshape(1), "expert_counts": e_counts[None],
+               "router_z": rz.reshape(1)}
+
+
+def moe_ffn_a2a(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
+                token_offset, impl: str = "auto"):
+    """All-to-all expert parallelism over a ``torch.distributed``
+    ``DeviceMesh`` (dims ``model`` and, optionally, ``data``; it spans the
+    default process group): the JAX package's ``moe_ffn_a2a`` (its
+    shard_map's body run by each rank).
+
+    Each rank holds its ``num_slots // |model|`` expert slots (as
+    ``moe_ffn_sharded``) and its share of the tokens over ``data`` x
+    ``model``, ``x [1, T_loc, D]``, the rows ``idx * T_loc ...`` of the
+    flattened batch with ``idx = data_row * |model| + model_col``, hashed
+    from ``token_offset + idx * T_loc``.  It routes them over all experts,
+    buckets each assignment by its destination column ``slot // spr`` into
+    ``[|model|, cap_s, D]`` with ``cap_s = max(4, int(T_loc k cf /
+    |model|))`` (the dispatch kernel when ``cfg.moe.fused_dispatch`` is
+    set, else a stable sort), exchanges the buckets and their slot ids
+    with one ``all_to_all`` over ``model`` each, runs the rows it received
+    through its own slots (``dispatch_combine`` at capacity ``cap2 =
+    max(4, int(|model| cap_s cf / spr))``, ``valid`` where a row holds an
+    assignment), returns them with a second ``all_to_all``, and combines
+    them at the source (the combine kernel when fused, rounded once to x's
+    dtype).
+
+    Forward only, as ``moe_ffn_sharded``.  Returns (y [1, T_loc, D],
+    metrics with the reference's keys and a leading group dim of 1):
+    ``slot_counts`` = ``kept_counts`` [1, S] (each slot's kept rows, summed
+    over ``data``), ``expert_counts`` [1, E], ``dropped`` [1] (assignments
+    past a bucket's ``cap_s`` at the source plus rows past ``cap2`` at the
+    experts) summed over every rank, ``aux_loss`` and ``router_z`` [1]
+    from the router statistics averaged over every rank."""
+    import torch.distributed as dist
+    _forward_only("moe_ffn_a2a", x, p)
+    m = cfg.moe
+    names = tuple(mesh.mesh_dim_names)
+    mdl = mesh.shape[names.index("model")]
+    col = mesh.get_local_rank("model")
+    spr = slots_per_rank(cfg, mesh)
+    row, _, _ = _data_axis(mesh)
+    world = dist.get_world_size()
+    t_loc, d = x.shape[1:]
+    k = m.top_k
+    tk = t_loc * k
+    dev = x.device
+    base = torch.as_tensor(token_offset, device=dev).reshape(1) + \
+        (row * mdl + col) * t_loc
+    slot, weight, probs, top_e, r_counts = route(
+        p["router"], x, plan_slots, plan_cum, cfg, base, impl)
+    col_of = torch.div(slot, spr, rounding_mode="floor").to(torch.int32)
+    flat_col, flat_slot = col_of.reshape(tk).long(), slot.reshape(tk)
+    cap_s = max(4, int(tk * m.capacity_factor / mdl))
+    if m.fused_dispatch:
+        ones = torch.ones((1, t_loc, k), dtype=torch.float32, device=dev)
+        send, rank2, keep2, _, _ = dispatch_ops.dispatch(
+            x, ones, col_of, torch.ones_like(col_of), mdl, cap_s, impl)
+        pos, keep = rank2.reshape(tk).long(), keep2.reshape(tk) != 0
+        send = send[0]                               # [mdl, cap_s, D]
+    else:
+        sort_idx = torch.argsort(flat_col, stable=True)
+        sorted_col = flat_col[sort_idx]
+        seg = torch.searchsorted(sorted_col, torch.arange(mdl, device=dev))
+        pos = torch.empty_like(sort_idx).scatter_(
+            0, sort_idx, torch.arange(tk, device=dev) - seg[sorted_col])
+        keep = pos < cap_s
+    dest = torch.where(keep, flat_col * cap_s + pos, mdl * cap_s)
+    tok = torch.arange(t_loc, device=dev).repeat_interleave(k)
+    if not m.fused_dispatch:
+        send = torch.zeros((mdl * cap_s + 1, d), dtype=x.dtype, device=dev)
+        send[dest[keep]] = x[0, tok[keep]]
+        send = send[:-1].reshape(mdl, cap_s, d)
+    send_slot = torch.full((mdl * cap_s + 1,), -1, dtype=torch.int32,
+                           device=dev)
+    send_slot[dest[keep]] = flat_slot[keep]
+    group = mesh.get_group("model")
+    rx = _all_to_all(send.reshape(mdl * cap_s, d), group)
+    rs = _all_to_all(send_slot[:-1], group)
+    valid = rs >= 0
+    local = torch.where(valid, rs - col * spr, 0).to(torch.int32)
+    cap2 = max(4, int(mdl * cap_s * m.capacity_factor / spr))
+    y_rx, met = dispatch_combine(
+        rx[None], local[None, :, None], valid[None, :, None].float(),
+        lambda buf: expert_ffn(p, buf), spr, cap2,
+        valid=valid[None, :, None], fused=m.fused_dispatch, impl=impl)
+    y_back = _all_to_all(y_rx[0], group)             # [mdl * cap_s, D]
+    if m.fused_dispatch:
+        y = dispatch_ops.combine(y_back.reshape(1, mdl, cap_s, d),
+                                 weight.float(), col_of, rank2, keep2,
+                                 impl).to(x.dtype)
+    else:
+        gathered = y_back[torch.where(keep, dest, 0)]
+        y = torch.zeros((1, t_loc, d), dtype=x.dtype, device=dev)
+        y[0].index_add_(0, tok, gathered * (weight.reshape(tk) * keep)
+                        [:, None].to(x.dtype))
+
+    # integer metrics over every rank in one all-reduce: each column's kept
+    # counts in its own slots' places (so the sum is the data sum of each
+    # column's), the expert histogram, the drops
+    kept = torch.zeros(num_slots(cfg), dtype=torch.int32, device=dev)
+    kept[col * spr:(col + 1) * spr] = met["kept_counts"][0]
+    if r_counts is not None:
+        e_counts = r_counts[0].to(torch.int32)
+    else:
+        e_counts = torch.zeros(m.num_experts, dtype=torch.int32, device=dev)
+        e_counts.scatter_add_(0, top_e.reshape(-1),
+                              torch.ones(tk, dtype=torch.int32, device=dev))
+    dropped = (tk - keep.sum()) + met["dropped"][0]
+    ints = torch.cat([kept, e_counts, dropped.reshape(1).to(torch.int32)])
+    rz = torch.logsumexp(torch.log(probs[0] + 1e-9), dim=-1).square().mean()
+    stats = torch.cat([probs[0].mean(0), rz.reshape(1)])
+    if world > 1:
+        ints = _all_reduce(ints, None)
+        stats = _all_reduce(stats, None) / world
+    s = num_slots(cfg)
+    slot_counts, e_counts = ints[:s], ints[s:s + m.num_experts]
+    pbar, rz = stats[:m.num_experts], stats[m.num_experts]
+    f = e_counts.float() / torch.clamp(e_counts.sum().float(), min=1.0)
+    aux = m.num_experts * (f * pbar).sum()
+    return y, {"slot_counts": slot_counts[None], "kept_counts":
+               slot_counts[None], "dropped": ints[-1:],
                "aux_loss": aux.reshape(1), "expert_counts": e_counts[None],
                "router_z": rz.reshape(1)}

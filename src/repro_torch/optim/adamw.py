@@ -47,6 +47,21 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """A nested dict shaped as ``tree`` holding ``leaves`` (an iterable, in
+    ``tree_leaves``' sorted-key order)."""
+    return _unflatten(tree, iter(leaves))
+
+
+def _unflatten(tree, it):
+    # a module-level recursion: a nested recursive closure would make a
+    # reference cycle that keeps ``leaves`` (a step's gradients) alive
+    # until the garbage collector runs
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
 def tree_map(fn, *trees):
     """``fn`` over the leaves of nested dicts of the same structure."""
     if isinstance(trees[0], dict):

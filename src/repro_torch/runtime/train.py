@@ -25,7 +25,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
 from repro_torch.models import moe as moe_lib
 from repro_torch.optim import adamw
-from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
 
 
 # the batch entries the model reads: tokens, whisper's frames and
@@ -95,14 +95,8 @@ def value_and_grad(params, batch, cfg, hyper, plan, token_offset,
     loss, metrics = loss_fn(leaves, batch, cfg, hyper, plan, token_offset,
                             impl)
     grads = torch.autograd.grad(loss, tree_leaves(leaves))
-    grads = _unflatten(leaves, iter(grads))
+    grads = tree_unflatten(leaves, grads)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
-
-
-def _unflatten(tree, it):
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], it) for k in sorted(tree)}
-    return next(it)
 
 
 def _update(state, grads, hyper: TrainHyper, lr_scale, donate: bool):

@@ -165,3 +165,23 @@ def test_donated_granulated_equals_fused():
                                                  acc, g)
         b, _ = apply(b, acc, n_mb, 1.0, donate=True)
     _same_state(a, b)
+
+
+def test_tree_unflatten_frees_its_leaves_without_the_collector():
+    """``tree_unflatten`` (how ``train.value_and_grad`` shapes a step's
+    gradients) keeps no reference cycle: once its tree is dropped, the
+    leaves are freed at once, not when the garbage collector next runs,
+    so a step's gradients do not outlive their microbatch."""
+    import gc
+    import weakref
+    leaves = tuple(torch.ones(n) for n in (3, 4, 5))
+    refs = [weakref.ref(x) for x in leaves]
+    gc.disable()
+    try:
+        tree = adamw.tree_unflatten({"b": {"c": 0, "a": 0}, "a": 0}, leaves)
+        assert [tree["a"].numel(), tree["b"]["a"].numel(),
+                tree["b"]["c"].numel()] == [3, 4, 5]
+        del tree, leaves
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()

@@ -72,28 +72,37 @@ def test_cli_reports_a_failed_cell(tmp_path, capsys, monkeypatch):
 
 
 def test_recurrent_training_is_a_skip(tmp_path, capsys):
-    """The card's scan kernels have no backward: a ``train`` cell of a
-    recurrent config is a SKIP with that reason, and ``dry_cell`` refuses
-    it."""
+    """A ``train`` cell of a recurrent config is not a SKIP (the name is
+    the one this test had when it pinned that SKIP, before the scan kernels
+    had a backward): the CLI decides it by memory like every other cell
+    (PASS), and ``dry_cell`` traces it through the scans' backward
+    stand-ins."""
     rc = dryrun.main(["--arch", "rwkv6-1.6b,zamba2-7b", "--shape",
                       "train_4k", "--mesh", "1x1",
                       "--out", str(tmp_path / "d.json")])
     text = capsys.readouterr().out
     assert rc == 0
     for arch in ("rwkv6-1.6b", "zamba2-7b"):
-        assert f"SKIP {arch} x train_4k x 1x1: the card's scan kernels" in \
-            text
-    with pytest.raises(ValueError, match="no backward"):
-        dryrun.dry_cell(get_arch("zamba2-7b"), SHAPES["train_4k"], MESHES)
+        assert f"PASS {arch} x train_4k x 1x1" in text
+        assert f"SKIP {arch} x train_4k" not in text
+    recs = json.loads((tmp_path / "d.json").read_text())
+    assert [r["ok"] for r in recs] == [True, True]
+    (one,) = dryrun.dry_cell(get_arch("rwkv6-1.6b"), SHAPES["train_4k"],
+                             MESHES[:1])
+    n = get_arch("rwkv6-1.6b").n_params()
+    b = one["bytes_per_device"]
+    assert (b["params"], b["optimizer"]) == (4 * n, 8 * n)
+    assert b["transient"] > 0
 
 
 def _plain_and_fake(rng):
     """(plain version's outputs on the CPU, the dry run's stand-in's on
     ``meta``) for each kernel wrapper, on the same small inputs."""
-    from repro_torch.kernels.mamba2_ssd.ref import mamba2_ref
+    from repro_torch.kernels.mamba2_ssd.ref import (mamba2_bwd_ref,
+                                                    mamba2_ref)
     from repro_torch.kernels.moe_dispatch.ref import combine_ref, dispatch_ref
     from repro_torch.kernels.moe_gating.ref import gating_ref
-    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_bwd_ref, rwkv6_ref
 
     def t(*shape, dtype=torch.float32):
         return torch.from_numpy(rng.standard_normal(shape)).to(dtype)
@@ -116,6 +125,19 @@ def _plain_and_fake(rng):
         "mamba2": (mamba2_ref, dryrun._mamba2,
                    (t(1, 2, 5, 3), torch.rand(1, 2, 5), -torch.rand(2),
                     t(1, 5, 4), t(1, 5, 4), t(2))),
+        # the backwards with s0 / h0 given (their gradients returned too)
+        "rwkv6_bwd": (rwkv6_bwd_ref, dryrun._rwkv6_bwd,
+                      (*(t(1, 2, 5, 4, dtype=torch.bfloat16)
+                         for _ in range(3)),
+                       torch.rand(1, 2, 5, 4).to(torch.bfloat16), t(2, 4),
+                       t(1, 2, 5, 4, dtype=torch.bfloat16), t(1, 2, 4, 4))),
+        "mamba2_bwd": (mamba2_bwd_ref, dryrun._mamba2_bwd,
+                       (t(1, 2, 5, 3, dtype=torch.bfloat16),
+                        torch.rand(1, 2, 5), -torch.rand(2),
+                        t(1, 5, 4, dtype=torch.bfloat16),
+                        t(1, 5, 4, dtype=torch.bfloat16), t(2),
+                        t(1, 2, 5, 3, dtype=torch.bfloat16),
+                        t(1, 2, 3, 4))),
     }
     for name, (plain, fake, args) in calls.items():
         meta = [a.to("meta") if torch.is_tensor(a) else a for a in args]
@@ -143,3 +165,23 @@ def test_stand_ins_make_the_wrappers_outputs():
         assert mg.gating_cuda is dryrun._gating
     assert (mg.resolve, mg.gating_cuda, fa.flash_fwd_cuda) == before
     assert mg.resolve("auto", q) == "torch"
+    # the scans' backward stand-ins make their checkpoint scratch too, so
+    # its bytes count in a trace's peak (outputs and scratch live at once)
+    from repro_torch.kernels.mamba2_ssd.mamba2_ssd import \
+        bwd_scratch as mamba2_scratch
+    from repro_torch.kernels.rwkv6_scan.rwkv6_scan import \
+        bwd_scratch as rwkv6_scratch
+    r = torch.empty((1, 2, 70, 16), dtype=torch.bfloat16, device="meta")
+    u = torch.empty((2, 16), device="meta")
+    with dryrun.MemTrace() as mem:
+        dryrun._rwkv6_bwd(r, r, r, r, u, r)
+    assert mem.peak == 4 * r.numel() * 2 + 2 * 16 * 4 + sum(
+        4 * math.prod(s) for s in rwkv6_scratch(1, 2, 70, 16).values())
+    dt = torch.empty((1, 2, 70), device="meta")
+    bm = torch.empty((1, 70, 16), dtype=torch.bfloat16, device="meta")
+    a = torch.empty((2,), device="meta")
+    with dryrun.MemTrace() as mem:
+        dryrun._mamba2_bwd(r, dt, a, bm, bm, a, r)
+    assert mem.peak == 2 * r.numel() + 4 * dt.numel() + 2 * 4 * 2 + \
+        2 * 2 * bm.numel() + sum(4 * math.prod(s) for s in
+                                 mamba2_scratch(1, 2, 70, 16, 16).values())
