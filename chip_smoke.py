@@ -7,8 +7,10 @@
    (one ``nvcc`` per source, all started together), prints each kernel's
    registers and spills, and fails unless every bf16 flash (12 kernels:
    forward, dK/dV and dQ at each of head dims 64, 112, 128 and 256),
-   Mamba2 SSD and RWKV6 chunk kernel issues tensor-core instructions (HMMA
-   in its SASS) and spills nothing;
+   Mamba2 SSD and RWKV6 chunk kernel, and every kernel of the scans' bf16
+   backwards that multiplies (12: the Mamba2 and RWKV6 state and chunk
+   kernels at state or head sizes 16, 32 and 64), issues tensor-core
+   instructions (HMMA in its SASS) and spills nothing;
 2. ``[serve]``: serves ``paper-moe-100m`` at full width (8 layers, d_model
    512, 16 experts + 2 spare slots, vocab 32000; random weights from a
    seed) with the fused gating and dispatch flags on, through
@@ -126,7 +128,8 @@
    each launching one forward and one backward scan per recurrent layer
    and microbatch (and flash's forward and backward per shared_attn
    occurrence); the scan backward kernel against its plain backward on
-   those inputs, timed by graph replay;
+   those inputs, timed by graph replay; one more step under a CUDA-only
+   trace gives a step's device time and each backward kernel's by name;
 9. ``[gemma3]``: ``gemma3-1b`` at full width (26 layers: 22 ``local``
    over a sliding window of 1024 keys with a rolling decode cache and 4
    ``attn``; d_model 1152, 4 heads of 256 with one KV head, d_ff 6912, a
@@ -356,7 +359,11 @@ TENSOR_CORE_KERNELS = {
     "flash_attention": (("_mma_kernel",), 12),
     "mamba2_ssd": (("mamba2_ssd_state_kernel", "mamba2_ssd_scan_kernel"),
                    8),
-    "rwkv6_scan": (("rwkv6_scan_chunk_kernel",), 4)}
+    "rwkv6_scan": (("rwkv6_scan_chunk_kernel",), 4),
+    "mamba2_ssd_bwd": (("mamba2_ssd_bwd_state_kernel",
+                        "mamba2_ssd_bwd_chunk_kernel"), 6),
+    "rwkv6_scan_bwd": (("rwkv6_scan_bwd_state_kernel",
+                        "rwkv6_scan_bwd_chunk_kernel"), 6)}
 NO_SPILLS = tuple(m for marks, _ in TENSOR_CORE_KERNELS.values()
                   for m in marks)
 
@@ -999,6 +1006,7 @@ def check_scan_bwd(torch, name, args, launches, tag):
 def ssm_train(torch, dev, tr, fails) -> list:
     """One recurrent family trained on the card (``SSM_TRAIN``); returns
     its scan backward kernel's JSON row."""
+    import re
     from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import LAUNCHES
@@ -1047,8 +1055,20 @@ def ssm_train(torch, dev, tr, fails) -> list:
     per_step = {k: 0 for k in LAUNCHES}
     per_step.update({tr["kernel"]: rec, bwd: rec, "flash_fwd": attn,
                      "flash_bwd": attn})
-    train_steps(torch, loop, per_step, tr["steps"], tag, fails)
+    wall = train_steps(torch, loop, per_step, tr["steps"], tag, fails)
     launches = LAUNCHES[bwd]
+    # one more step under a CUDA-only trace: a step's device time, and the
+    # backward's kernels by name
+    wall_t, busy_us, by_name = device_trace(torch, lambda: loop.run(1))
+    log(f"[{tag}] one more step under a CUDA-only trace (traced wall "
+        f"{wall_t:.4f} s): device busy {busy_us:.0f} us; over the untraced "
+        f"steps' mean wall {wall:.4f} s: busy {busy_us / 1e6 / wall:.4f}")
+    log_trace(tag, by_name, 10)
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        kernel = re.search(r"(\w+_kernel(?:<[^>]*>)?)\(", name)
+        if kernel and kernel.group(1).startswith(f"{bwd}_"):
+            log(f"[{tag}] backward kernel {kernel.group(1)}: {n} launches, "
+                f"{us:.1f} us, {us / n:.2f} us a launch")
     del loop
     _free(torch)
     row = check_scan_bwd(torch, bwd, seen[SCAN_BWDS[bwd][1]], launches, tag)

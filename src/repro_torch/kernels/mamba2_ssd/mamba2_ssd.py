@@ -13,8 +13,10 @@ x's strides where x is dense; for a non-dense x, such as the model's
 column slice, it is dense in the dimension order of x's strides
 (``[B,T,H,P]`` there), so the caller's transpose back is free.
 
-``mamba2_bwd_cuda`` wraps the backward (``csrc/mamba2_ssd_bwd.cu``): the
-exact reverse recurrence in f32 on the CUDA cores for both dtypes, with
+``mamba2_bwd_cuda`` wraps the backward (``csrc/mamba2_ssd_bwd.cu``): for
+bf16 the chunked form on the tensor cores at the forward's chunk
+(``CHUNK``), all chunks in parallel, the boundary states recomputed by the
+forward's passes; for f32 the exact reverse recurrence on the CUDA cores,
 the states recomputed from checkpoints every ``BWD_CHUNK`` tokens.
 """
 from __future__ import annotations
@@ -31,9 +33,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_SIZES = (16, 32, 64, 128)
 MAX_HEAD_DIM = 1024
 CHUNK = 64                # tokens per chunk of the bf16 route (the kernel's Q)
-# the backward's head dims and state sizes (its threads keep a row or a
-# column of the state in registers), and the tokens between its
-# checkpoints (the kernel's L; the library reports it)
+# the backward's head dims and state sizes (the f32 route's threads keep a
+# row or a column of the state in registers; the bf16 route's blocks take
+# 64 head channels), and the tokens between the f32 route's checkpoints
+# (the kernel's L; the library reports it and the bf16 route's CHUNK)
 BWD_SIZES = (16, 32, 64)
 BWD_CHUNK = 32
 
@@ -113,26 +116,37 @@ def mamba2_cuda(x, dt, a, bm, c, d, h0=None):
 @functools.lru_cache(maxsize=None)
 def _bwd_fn():
     so = lib("mamba2_ssd_bwd")
-    if so.mamba2_ssd_bwd_chunk() != BWD_CHUNK:
-        raise RuntimeError(f"libmamba2_ssd_bwd checkpoints every "
-                           f"{so.mamba2_ssd_bwd_chunk()} tokens, the wrapper "
-                           f"sizes scratch for {BWD_CHUNK}")
+    chunks = (so.mamba2_ssd_bwd_chunk(), so.mamba2_ssd_bwd_bf16_chunk())
+    if chunks != (BWD_CHUNK, CHUNK):
+        raise RuntimeError(f"libmamba2_ssd_bwd chunks {chunks} tokens, the "
+                           f"wrapper sizes scratch for {(BWD_CHUNK, CHUNK)}")
     f = so.mamba2_ssd_bwd_launch
-    f.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 6 + \
+    f.argtypes = [ctypes.c_void_p] * 16 + \
+        [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 6 + \
         [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
 
-def bwd_scratch(b, h, t, p, n):
-    """The backward's f32 scratch shapes: the state at every chunk's start,
-    one chunk's recomputed states per (b, h) in two layouts, and the
-    per-(b, h) partials of dB, dC, dA and dD."""
-    return {"ckpt": (b * h, -(-t // BWD_CHUNK), n, p),
-            "states_a": (b * h, BWD_CHUNK, n, p),
-            "states_b": (b * h, BWD_CHUNK, p, n),
-            "db_part": (b * h, t, n), "dc_part": (b * h, t, n),
-            "da_part": (b * h,), "dd_part": (b * h,)}
+def bwd_scratch(b, h, t, p, n, dtype=torch.bfloat16):
+    """The backward's f32 scratch shapes, in the launch's order.  bf16: each
+    chunk's state from zero, then the state entering it (as two bf16
+    pieces), its local adjoint, then the adjoint at its end (the same), and
+    its decay; f32: the state at every checkpoint and one chunk's
+    recomputed states per (b, h) in two layouts.  Then the per-(b, h)
+    partials of dB and dC, and those of dA and dD (per chunk in bf16)."""
+    if dtype == torch.bfloat16:
+        nc = -(-t // CHUNK)
+        route = {"states": (b * h, nc, p, n), "adjoints": (b * h, nc, p, n),
+                 "decays": (b * h, nc)}
+        heads = (b * h, nc)
+    else:
+        route = {"ckpt": (b * h, -(-t // BWD_CHUNK), n, p),
+                 "states_a": (b * h, BWD_CHUNK, n, p),
+                 "states_b": (b * h, BWD_CHUNK, p, n)}
+        heads = (b * h,)
+    return {**route, "db_part": (b * h, t, n), "dc_part": (b * h, t, n),
+            "da_part": heads, "dd_part": heads}
 
 
 def mamba2_bwd_cuda(x, dt, a, bm, c, d, dy, h0=None, dh_t=None):
@@ -187,8 +201,8 @@ def mamba2_bwd_cuda(x, dt, a, bm, c, d, dy, h0=None, dh_t=None):
     dh0 = None if h0 is None else torch.empty((b, h, p, n),
                                                dtype=torch.float32,
                                                device=dev)
-    scratch = {k: torch.empty(shape, dtype=torch.float32, device=dev)
-               for k, shape in bwd_scratch(b, h, t, p, n).items()}
+    scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
+               for shape in bwd_scratch(b, h, t, p, n, x.dtype).values()]
 
     def ptr(z):
         return 0 if z is None else z.data_ptr()
@@ -202,9 +216,8 @@ def mamba2_bwd_cuda(x, dt, a, bm, c, d, dy, h0=None, dh_t=None):
                     ptr(h0), ptr(dh_t), dx.data_ptr(), ddt.data_ptr(),
                     da.data_ptr(), dbm.data_ptr(), dc.data_ptr(),
                     dd.data_ptr(), ptr(dh0),
-                    *(scratch[k].data_ptr() for k in (
-                        "ckpt", "states_a", "states_b", "db_part", "dc_part",
-                        "da_part", "dd_part")),
+                    (ctypes.c_void_p * len(scratch))(
+                        *(z.data_ptr() for z in scratch)),
                     b, h, t, p, n, _DTYPES[x.dtype], strides, stream)
     check(err, "mamba2_ssd_bwd launch")
     LAUNCHES["mamba2_ssd_bwd"] += 1

@@ -12,9 +12,11 @@ four ``[B,H,T,N]`` inputs may be strided views (the model hands over
 N is contiguous; y is allocated in the same layout, so the caller's
 transpose back is free.
 
-``rwkv6_bwd_cuda`` wraps the backward (``csrc/rwkv6_scan_bwd.cu``): the
-exact reverse recurrence in f32 on the CUDA cores for both dtypes, with
-the states recomputed from checkpoints every ``BWD_CHUNK`` tokens.
+``rwkv6_bwd_cuda`` wraps the backward (``csrc/rwkv6_scan_bwd.cu``): for
+bf16 the transpose of the forward's two-level chunked form on the tensor
+cores, at the forward's ``CHUNK`` and ``SUB``, all chunks in parallel; for
+f32 the exact reverse recurrence on the CUDA cores, the states recomputed
+from checkpoints every ``BWD_CHUNK`` tokens.
 """
 from __future__ import annotations
 
@@ -33,9 +35,10 @@ HEAD_SIZES = (16, 32, 64, 128)
 CHUNK, SUB = 64, 16
 
 
-# the backward's head sizes (a thread keeps a row of the state and of its
-# adjoint in registers), and the tokens between its checkpoints (the
-# kernel's L; the library reports it)
+# the backward's head sizes (the f32 route's threads keep a row of the
+# state and of its adjoint in registers), and the tokens between the f32
+# route's checkpoints (the kernel's L; the library reports it and the bf16
+# route's CHUNK)
 BWD_HEAD_SIZES = (16, 32, 64)
 BWD_CHUNK = 32
 
@@ -90,20 +93,30 @@ def rwkv6_cuda(r, k, v, w, u, s0=None):
 @functools.lru_cache(maxsize=None)
 def _bwd_fn():
     so = lib("rwkv6_scan_bwd")
-    if so.rwkv6_scan_bwd_chunk() != BWD_CHUNK:
-        raise RuntimeError(f"librwkv6_scan_bwd checkpoints every "
-                           f"{so.rwkv6_scan_bwd_chunk()} tokens, the wrapper "
-                           f"sizes scratch for {BWD_CHUNK}")
+    chunks = (so.rwkv6_scan_bwd_chunk(), so.rwkv6_scan_bwd_bf16_chunk())
+    if chunks != (BWD_CHUNK, CHUNK):
+        raise RuntimeError(f"librwkv6_scan_bwd chunks {chunks} tokens, the "
+                           f"wrapper sizes scratch for {(BWD_CHUNK, CHUNK)}")
     f = so.rwkv6_scan_bwd_launch
-    f.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + \
+    f.argtypes = [ctypes.c_void_p] * 14 + \
+        [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 5 + \
         [ctypes.c_longlong] * 9 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
 
-def bwd_scratch(b, h, t, n):
-    """The backward's f32 scratch shapes: the state at every chunk's start,
-    one chunk's recomputed states per (b, h), and du's per-row partials."""
+def bwd_scratch(b, h, t, n, dtype=torch.bfloat16):
+    """The backward's f32 scratch shapes, in the launch's order.  bf16: each
+    chunk's state from zero, then the state entering it (as two bf16
+    pieces), its local adjoint, then the adjoint at its end (the same), its
+    total decay, and du's partials per sub-chunk; f32: the state at every
+    checkpoint, one chunk's recomputed states per (b, h), and du's per-row
+    partials."""
+    if dtype == torch.bfloat16:
+        nc = -(-t // CHUNK)
+        return {"states": (b * h, nc, n, n), "adjoints": (b * h, nc, n, n),
+                "decays": (b * h, nc, n),
+                "du_part": (b * h, -(-t // SUB), n)}
     return {"ckpt": (b * h, -(-t // BWD_CHUNK), n, n),
             "states": (b * h, BWD_CHUNK, n, n), "du_part": (b, h, n)}
 
@@ -147,8 +160,8 @@ def rwkv6_bwd_cuda(r, k, v, w, u, dy, s0=None, ds_t=None):
     ds0 = None if s0 is None else torch.empty((b, h, n, n),
                                                dtype=torch.float32,
                                                device=dev)
-    scratch = {k_: torch.empty(shape, dtype=torch.float32, device=dev)
-               for k_, shape in bwd_scratch(b, h, t, n).items()}
+    scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
+               for shape in bwd_scratch(b, h, t, n, r.dtype).values()]
 
     def ptr(x):
         return 0 if x is None else x.data_ptr()
@@ -157,8 +170,8 @@ def rwkv6_bwd_cuda(r, k, v, w, u, dy, s0=None, ds_t=None):
     err = _bwd_fn()(*(x.data_ptr() for x in ins), dy.data_ptr(),
                     u.data_ptr(), ptr(s0), ptr(ds_t),
                     *(g.data_ptr() for g in grads), du.data_ptr(), ptr(ds0),
-                    scratch["ckpt"].data_ptr(), scratch["states"].data_ptr(),
-                    scratch["du_part"].data_ptr(), b, h, t, n,
+                    (ctypes.c_void_p * len(scratch))(
+                        *(x.data_ptr() for x in scratch)), b, h, t, n,
                     _DTYPES[r.dtype], *ins[0].stride()[:3],
                     *dy.stride()[:3], *grads[0].stride()[:3], stream)
     check(err, "rwkv6_scan_bwd launch")

@@ -123,7 +123,8 @@ def _rwkv6_bwd(r, k, v, w, u, dy, s0=None, ds_t=None):
     out = tuple(_empty(r.shape, r.dtype) for _ in range(4)) + \
         (_empty((h, n), F32),
          None if s0 is None else _empty((b, h, n, n), F32))
-    scratch = [_empty(s, F32) for s in rwkv6_scratch(b, h, t, n).values()]
+    scratch = [_empty(s, F32)
+               for s in rwkv6_scratch(b, h, t, n, r.dtype).values()]
     del scratch
     return out
 
@@ -136,7 +137,7 @@ def _mamba2_bwd(x, dt, a, bm, c, d, dy, h0=None, dh_t=None):
            _empty((b, t, n), x.dtype), _empty((h,), F32),
            None if h0 is None else _empty((b, h, p, n), F32))
     scratch = [_empty(s, F32)
-               for s in mamba2_scratch(b, h, t, p, n).values()]
+               for s in mamba2_scratch(b, h, t, p, n, x.dtype).values()]
     del scratch
     return out
 

@@ -71,12 +71,10 @@ def test_cli_reports_a_failed_cell(tmp_path, capsys, monkeypatch):
         capsys.readouterr().out
 
 
-def test_recurrent_training_is_a_skip(tmp_path, capsys):
-    """A ``train`` cell of a recurrent config is not a SKIP (the name is
-    the one this test had when it pinned that SKIP, before the scan kernels
-    had a backward): the CLI decides it by memory like every other cell
-    (PASS), and ``dry_cell`` traces it through the scans' backward
-    stand-ins."""
+def test_recurrent_training_cells_pass(tmp_path, capsys):
+    """A ``train`` cell of a recurrent config is not a SKIP: the CLI decides
+    it by memory like every other cell (PASS), and ``dry_cell`` traces it
+    through the scans' backward stand-ins."""
     rc = dryrun.main(["--arch", "rwkv6-1.6b,zamba2-7b", "--shape",
                       "train_4k", "--mesh", "1x1",
                       "--out", str(tmp_path / "d.json")])

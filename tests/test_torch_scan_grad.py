@@ -16,9 +16,11 @@ Tolerances, with their reasons:
   the scale, since each gradient is an f32 sum rounded once to bf16 and
   the two sums may round to neighbouring values.
 * CUDA backward against the plain backward: relative L2 1e-5 in f32 (the
-  same recurrence, summed in another order) and 1e-2 in bf16 (each output
-  rounded once to bf16 from f32 sums that differ in their last bits: a
-  value may land on the neighbouring ulp, 2^-8 relative).
+  same recurrence, summed in another order) and 1e-2 in bf16 (the chunked
+  form on the tensor cores: each output rounded once to bf16 from f32 sums
+  that differ in their last bits, so a value may land on the neighbouring
+  ulp, 2^-8 relative).  The shapes cross the bf16 route's chunk of 64
+  tokens (T 1, 64, 65, 300, 1024) at the models' N = P = 64.
 """
 import numpy as np
 import pytest
@@ -212,6 +214,25 @@ def test_dispatchers_keep_cpu_on_the_plain_forward(rng):
                 mops.mamba2(*m_ins, impl="cuda")
 
 
+@pytest.mark.parametrize("kind", ["rwkv6", "mamba2"])
+def test_bf16_backward_scratch_within_the_f32_routes(kind):
+    """At the training shapes (rwkv6-1.6b's [1, 32, 1024, 64], zamba2-7b's
+    x [1, 112, 1024, 64]) the chunked bf16 route's scratch is no larger
+    than the recurrence's checkpoints (the f32 route's, which the bf16
+    route used before it was chunked); both are f32 buffers."""
+    import math
+    from repro_torch.kernels.mamba2_ssd.mamba2_ssd import \
+        bwd_scratch as mamba2_scratch
+    from repro_torch.kernels.rwkv6_scan.rwkv6_scan import \
+        bwd_scratch as rwkv6_scratch
+    fn, dims = ((rwkv6_scratch, (1, 32, 1024, 64)) if kind == "rwkv6" else
+                (mamba2_scratch, (1, 112, 1024, 64, 64)))
+
+    def nbytes(dtype):
+        return 4 * sum(math.prod(s) for s in fn(*dims, dtype).values())
+    assert nbytes(torch.bfloat16) <= nbytes(torch.float32)
+
+
 # --------------------------------------------------------------- the card
 
 @pytest.fixture
@@ -231,7 +252,9 @@ CUDA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 2, 70, 16), (1, 4, 300, 64)])
+@pytest.mark.parametrize("shape", [(2, 2, 70, 16), (1, 4, 300, 64),
+                                   (1, 2, 1, 64), (2, 2, 64, 64),
+                                   (1, 2, 65, 64), (2, 2, 1024, 64)])
 def test_cuda_rwkv6_bwd_matches_plain(cuda, rng, dtype, shape):
     ins, dy, ds_t = rwkv_inputs(rng, *shape)
     r, k, v, w = (x.to(cuda, dtype) for x in ins[:4])
@@ -252,7 +275,9 @@ def test_cuda_rwkv6_bwd_matches_plain(cuda, rng, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 3, 70, 16, 16), (1, 8, 300, 64, 64)])
+@pytest.mark.parametrize("shape", [(2, 3, 70, 16, 16), (1, 8, 300, 64, 64),
+                                   (1, 2, 1, 64, 64), (2, 2, 64, 64, 64),
+                                   (1, 2, 65, 64, 64), (2, 2, 1024, 64, 64)])
 def test_cuda_mamba2_bwd_matches_plain(cuda, rng, dtype, shape):
     ins, dy, dh_t = mamba_inputs(rng, *shape)
     x, dt, a, bm, c, d, h0 = (z.to(cuda) for z in ins)
