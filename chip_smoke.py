@@ -92,9 +92,15 @@
    the loss and every gradient leaf, the plain step replaying the kernel
    step's expert choices; and against the plain MoE kernels alone, the
    attention kernel in both arms, exactly), the granulated step against
-   the fused one, and the kernel step run twice; then a warm-up step and
-   6 steps of the main path, each step's kernel launches checked against
-   what the code predicts, one more step under a CUDA-only trace, and the
+   the fused one, and the kernel step run twice; ``build_train_step``
+   (the production step) against the fused step from the same state
+   (loss, integer metrics, each parameter's change under AdamW settings
+   that make it the clipped gradient) and a fused step under
+   ``remat="dots"`` against ``"none"``, parameters and metrics bit for
+   bit, with their launches (the forward kernels twice under a remat
+   policy); then a warm-up step and 6 steps of the main path, each
+   step's kernel launches checked against what the code predicts, one
+   more step under a CUDA-only trace, and the
    MoE kernels against their plain versions on the inputs of the warm-up
    step's last calls (dispatch and combine as each other's backward);
 7. ``[flash]``: the flash-attention forward and backward kernels against
@@ -129,7 +135,14 @@
    and microbatch (and flash's forward and backward per shared_attn
    occurrence); the scan backward kernel against its plain backward on
    those inputs, timed by graph replay; one more step under a CUDA-only
-   trace gives a step's device time and each backward kernel's by name;
+   trace gives a step's device time, each backward kernel's by name, and
+   torch's bf16 add and fill kernels beside those of the step before each
+   block type's layers were taken with one ``unbind`` a forward (a zero
+   fill and an add of the whole stack per layer); then a ``TrainLoop`` under ``remat="full"`` from
+   the same initial state: its first step's parameters equal the first
+   loop's first step's bit for bit, its second step launches the forward
+   kernels twice, with its wall and its peak beside the dry run under
+   ``"full"``;
 9. ``[gemma3]``: ``gemma3-1b`` at full width (26 layers: 22 ``local``
    over a sliding window of 1024 keys with a rolling decode cache and 4
    ``attn``; d_model 1152, 4 heads of 256 with one KV head, d_ff 6912, a
@@ -145,7 +158,8 @@
    tokens, so the ring wraps; e. ``BatchedServer.generate`` on 4 prompts
    of 16..1040 tokens after a warm-up that captures the tick's graph; f.
    greedy ``ServeEngine`` against ``generate_static`` on ``[2, 1040] +
-   16``; g. ``TrainLoop``: one microbatch through the kernels against the
+   16`` at the first 13 layers (11 ``local``, 2 ``attn``); g. ``TrainLoop``:
+   one microbatch through the kernels against the
    plain versions, then 3 steps of 2 x 2048 tokens in 2 microbatches, each
    step launching 52 ``flash_fwd`` and 52 ``flash_bwd``.  Each step and
    each phase logs its wall time;
@@ -179,7 +193,14 @@
     ``all_to_all``, combined at the source with the combine kernel) at a
     capacity where nothing drops, against the unsharded layer (integers
     equal, y within one bf16 ulp at its scale), with the bytes each rank
-    handed to ``all_to_all`` beside the analytic a2a term; ``[qwen3moe]``
+    handed to ``all_to_all`` beside the analytic a2a term; then one
+    ``build_train_step`` step of ``paper-moe-100m`` at full width (8 x
+    1024 in 2 microbatches, a capacity factor at which nothing can drop)
+    over data 2 x model 1 and data 1 x model 2 in both layouts, each rank
+    with its share of each microbatch and its slots, against the
+    unsharded step: the loss, each parameter's change, the integer
+    metrics, every rank's replicated leaves bit for bit, and each rank's
+    collective bytes; ``[qwen3moe]``
     ``qwen3-moe-235b-a22b`` at 6 of 94 layers (128 experts + 16 spare
     slots top-8, q dim 8192 against d_model 4096): the forward on ``[2,
     1024]`` (``gating_kernel<32, 4>``; the flash kernel at hd 128 with 16
@@ -268,6 +289,10 @@ GEMMA_BLOCK_LEN = 1100
 GEMMA_PROMPT_LENS = (16, 200, 600, 1040)
 GEMMA_NEW = 16
 GEMMA_STATIC = (2, 1040)
+# step f's depth: its eager generate_static took 49-54 s of the run at all
+# 26 layers on an H100 80GB HBM3 at 700 W; the first 13 hold 11 local and
+# 2 attn layers, so the ring still wraps in both block types
+GEMMA_STATIC_LAYERS = 13
 GEMMA_TRAIN = (2, 2048, 2)
 GEMMA_STEPS = 3
 GEMMA_ATOL = 0.08
@@ -300,18 +325,20 @@ def step_shape(kind, batch, seq, mb=1):
     return ShapeCfg(f"{kind} [{batch}, {seq}]", seq, batch, kind, mb)
 
 
-def mfu_line(tag, cfg, kind, batch, seq, wall, mb=1) -> None:
+def mfu_line(tag, cfg, kind, batch, seq, wall, mb=1, remat="none") -> None:
     """``[mfu]``: a timed forward (``prefill``) or training step's model
     FLOPs (``analysis.flops.step_flops``) over its wall time and the bf16
-    peak, and the roofline's least time for it (``analysis.roofline`` on
-    one card) over that wall."""
+    peak (the step's recompute under ``remat`` is not model FLOPs: it is in
+    the FLOPs the step runs), and the roofline's least time for it
+    (``analysis.roofline`` on one card) over that wall."""
     from repro_torch.analysis import flops, roofline
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16
     shape = step_shape(kind, batch, seq, mb)
-    fc = flops.step_flops(cfg, shape)
-    rl = roofline.analyze(cfg, shape, {"data": 1, "model": 1})
+    fc = flops.step_flops(cfg, shape, remat)
+    rl = roofline.analyze(cfg, shape, {"data": 1, "model": 1}, remat=remat)
     log(f"[mfu] {tag} {shape.name}: model FLOPs {fc.model_flops:.6g} (the "
-        f"step runs {fc.hlo_flops:.6g}), wall {wall:.4f} s: mfu "
+        f"step runs {fc.hlo_flops:.6g} with remat {remat}), wall "
+        f"{wall:.4f} s: mfu "
         f"{fc.model_flops / (wall * PEAK_FLOPS_BF16):.4f} of "
         f"{PEAK_FLOPS_BF16:.4g} FLOP/s; roofline (compute "
         f"{rl.compute_s:.4g} s, memory {rl.memory_s:.4g} s) "
@@ -320,21 +347,24 @@ def mfu_line(tag, cfg, kind, batch, seq, wall, mb=1) -> None:
         f"{rl.roofline_fraction:.4f}); {card()}")
 
 
-def dry_line(torch, tag, cfg, kind, batch, seq, peak, mb=1):
+def dry_line(torch, tag, cfg, kind, batch, seq, peak, mb=1, remat="none"):
     """``[dryrun]``: the meta dry run's bytes on one card for this step
-    (``launch.dryrun``) beside the peak device memory measured over it."""
+    (``launch.dryrun``, a training step under ``remat``) beside the peak
+    device memory measured over it.  Returns predicted / measured."""
     from repro_torch.launch import dryrun
     from repro_torch.runtime.sharding import parse_mesh
     t0 = time.perf_counter()
     rec = dryrun.dry_cell(cfg, step_shape(kind, batch, seq, mb),
-                          [parse_mesh("1x1")])[0]
+                          [parse_mesh("1x1")], remat)[0]
     b = rec["bytes_per_device"]
     gib = {k: round(v / 2 ** 30, 3) for k, v in b.items()}
+    ratio = b["total"] / max(peak, 1)
     log(f"[dryrun] {tag} {kind} [{batch}, {seq}] in {mb} microbatches, "
-        f"{cfg.num_layers} layers: predicted {gib['total']} GiB ({gib}), "
-        f"measured peak {peak / 2 ** 30:.3f} GiB (predicted/measured "
-        f"{b['total'] / max(peak, 1):.4f}); traced on meta in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{cfg.num_layers} layers, remat {remat}: predicted {gib['total']} "
+        f"GiB ({gib}), measured peak {peak / 2 ** 30:.3f} GiB "
+        f"(predicted/measured {ratio:.4f}; the aim 0.80-0.97); traced on "
+        f"meta in {time.perf_counter() - t0:.2f} s")
+    return ratio
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1019,17 +1049,19 @@ def ssm_train(torch, dev, tr, fails) -> list:
     full = get_arch(tr["arch"])
     hyper = TrainHyper()
 
-    def loop_for(cfg, batch, seq):
+    def loop_for(cfg, batch, seq, remat="none"):
         stream = TokenStream(vocab=cfg.vocab, seq_len=seq,
                              global_batch=batch, seed=SEED)
-        loop = TrainLoop(cfg, stream, hyper,
+        loop = TrainLoop(cfg, stream,
+                         dataclasses.replace(hyper, remat=remat),
                          LoopConfig(microbatches=n_mb, device=str(dev)),
                          seed=SEED)
         log(f"[{tag}] {cfg.name} at {cfg.num_layers} of {full.num_layers} "
             f"layers {lm.type_counts(cfg)}, d_model {cfg.d_model}, ssm "
             f"{cfg.ssm}, vocab {cfg.vocab}, "
             f"{sum(p.numel() for p in _leaves(loop.state['params']))} f32 "
-            f"params; global batch {batch} x {seq} in {n_mb} microbatches")
+            f"params; global batch {batch} x {seq} in {n_mb} microbatches, "
+            f"remat {remat}")
         return loop, TokenStream(vocab=cfg.vocab, seq_len=seq,
                                  global_batch=batch, seed=SEED)
 
@@ -1046,16 +1078,27 @@ def ssm_train(torch, dev, tr, fails) -> list:
     loop, _ = loop_for(cfg, tr["batch"], tr["seq"])
     ops_mod = rops if tr["kernel"] == "rwkv6_scan" else mops
     bwd = f"{tr['kernel']}_bwd"
-    # the warm-up step; the scan backward's last call's inputs kept
+    # the warm-up step; the scan backward's last call's inputs kept, and
+    # the parameters it made, for the remat step below
     _, seen = capture_kernel_inputs(torch, lambda: loop.run(1),
                                     [(ops_mod, SCAN_BWDS[bwd][1])])
+    after_first = [p.clone() for p in _leaves(loop.state["params"])]
     counts = lm.type_counts(cfg)
     rec, attn = counts[tr["block"]] * n_mb, \
         counts.get("shared_attn", 0) * n_mb
-    per_step = {k: 0 for k in LAUNCHES}
-    per_step.update({tr["kernel"]: rec, bwd: rec, "flash_fwd": attn,
-                     "flash_bwd": attn})
-    wall = train_steps(torch, loop, per_step, tr["steps"], tag, fails)
+
+    def per_step(remat):
+        """A step's launches: the forward kernels again in the backward's
+        recompute under a remat policy."""
+        fwd = 1 if remat == "none" else 2
+        out = {k: 0 for k in LAUNCHES}
+        out.update({tr["kernel"]: fwd * rec, bwd: rec,
+                    "flash_fwd": fwd * attn, "flash_bwd": attn})
+        return out
+
+    held = held_bytes(after_first)
+    wall = train_steps(torch, loop, per_step("none"), tr["steps"], tag,
+                       fails, held=held)
     launches = LAUNCHES[bwd]
     # one more step under a CUDA-only trace: a step's device time, and the
     # backward's kernels by name
@@ -1069,12 +1112,91 @@ def ssm_train(torch, dev, tr, fails) -> list:
         if kernel and kernel.group(1).startswith(f"{bwd}_"):
             log(f"[{tag}] backward kernel {kernel.group(1)}: {n} launches, "
                 f"{us:.1f} us, {us / n:.2f} us a launch")
+    adds_and_fills(tag, by_name, busy_us, wall)
     del loop
+    _free(torch)
+    remat_step(torch, tag, cfg, lambda: loop_for(cfg, tr["batch"], tr["seq"],
+                                                 "full")[0],
+               after_first, held, per_step("full"), fails)
+    del after_first
     _free(torch)
     row = check_scan_bwd(torch, bwd, seen[SCAN_BWDS[bwd][1]], launches, tag)
     del seen
     _free(torch)
     return [row]
+
+
+# the CUDA-only trace of one step (H100 80GB HBM3, 700 W) before each block
+# type's layers were taken with one unbind a forward, when each layer's
+# select made a zero fill and an add of the whole stack: torch's bf16
+# elementwise adds and fills, (ms, launches) (PERF.md, section 6)
+BEFORE_UNBIND = {"rwkv6 train": ((125.5, 2696), (39.4, 1202)),
+                     "zamba2 train": ((192.7, 1248), (61.1, 902))}
+
+
+def adds_and_fills(tag, by_name, busy_us, wall) -> None:
+    """torch's bf16 elementwise add and fill kernels in a step's trace,
+    beside BEFORE_UNBIND's, with the step's device time and wall."""
+    got = {"add": [0, 0.0], "fill": [0, 0.0]}
+    for name, (n, us) in by_name.items():
+        for kind, mark in (("add", "CUDAFunctor_add<c10::BFloat16>"),
+                           ("fill", "FillFunctor<c10::BFloat16>")):
+            if mark in name:
+                got[kind][0] += n
+                got[kind][1] += us
+    (a_ms, a_n), (f_ms, f_n) = BEFORE_UNBIND[tag]
+    log(f"[{tag}] a step's bf16 adds {got['add'][1] / 1e3:.1f} ms "
+        f"({got['add'][0]} launches; with a select per layer {a_ms} ms, "
+        f"{a_n} launches), bf16 fills {got['fill'][1] / 1e3:.1f} ms "
+        f"({got['fill'][0]} launches; with a select per layer {f_ms} ms, "
+        f"{f_n} launches); the step's device time {busy_us / 1e3:.1f} ms "
+        f"and mean wall {wall:.4f} s; {card()}")
+
+
+def remat_step(torch, tag, cfg, make_loop, after_first, held, per_step,
+               fails) -> None:
+    """A ``TrainLoop`` under ``remat="full"`` from the initial state of the
+    loop just run (the same seed, stream and plan): its first step must
+    give that loop's first step's parameters ``after_first`` (``held``
+    bytes on the card) bit for bit; its second step is the main path's
+    (launch counts set to 0 just before and read just after:
+    ``per_step``, the forward kernels twice), with its wall and its peak
+    device memory (less ``held``) beside the dry run's prediction under
+    ``"full"``."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    loop = make_loop()
+    loop.run(1)
+    same = all(torch.equal(a, b) for a, b in zip(
+        after_first, _leaves(loop.state["params"])))
+    log(f"[{tag}] remat full: the first step's parameters equal the "
+        f"remat-none loop's first step's bit for bit: {same}")
+    if not same:
+        fails.append(f"{tag}: the remat-full step differs from the "
+                     f"remat-none step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    h = loop.run(1)[-1]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    got = {k: LAUNCHES[k] for k in per_step}
+    n_tok = loop.stream.global_batch * loop.stream.seq_len
+    log(f"[{tag}] remat full, step {h['step']}: loss {h['loss']:.6f}; "
+        f"{wall:.4f} s, {n_tok / wall:.1f} training tok/s; launches "
+        f"{_nonzero(got)} (the code predicts {_nonzero(per_step)}); peak "
+        f"device memory {peak / 2 ** 30:.2f} GiB (less "
+        f"{held / 2 ** 30:.2f} GiB kept for the check)")
+    if got != per_step or not np.isfinite(h["loss"]):
+        fails.append(f"{tag}: the remat-full step launched {got}, the code "
+                     f"predicts {per_step}")
+    gb, seq, mb = loop.stream.global_batch, loop.stream.seq_len, \
+        loop.lc.microbatches
+    mfu_line(f"{tag} remat full", cfg, "train", gb, seq, wall, mb, "full")
+    dry_line(torch, f"{tag} remat full", cfg, "train", gb, seq, peak, mb,
+             "full")
+    del loop
 
 
 def forward_decode_check(torch, cfg, params, toks, tag, atol, kernel,
@@ -3174,22 +3296,120 @@ def reshape_train_loop(torch, dev, cfg, batch, seq, n_mb, tag, fails,
     return loop, reshaper
 
 
-def moe_step_launches(nl, n_mb) -> dict:
+def moe_step_launches(nl, n_mb, remat="none") -> dict:
     """What the code launches in a training step of ``nl`` MoE layers and
     ``n_mb`` microbatches: per layer and microbatch, the forward's
-    attention, gating, dispatch and combine, and the backward's attention,
-    combine (dispatch's gradient) and dispatch (combine's)."""
-    return {"flash_fwd": nl * n_mb, "flash_bwd": nl * n_mb,
-            "moe_gating": nl * n_mb, "moe_dispatch": 2 * nl * n_mb,
-            "moe_combine": 2 * nl * n_mb}
+    attention, gating, dispatch and combine (twice under a remat policy:
+    the backward recomputes them, the kernels being no matrix product that
+    "dots" keeps), and the backward's attention, combine (dispatch's
+    gradient) and dispatch (combine's)."""
+    fwd = 1 if remat == "none" else 2
+    return {"flash_fwd": fwd * nl * n_mb, "flash_bwd": nl * n_mb,
+            "moe_gating": fwd * nl * n_mb,
+            "moe_dispatch": (fwd + 1) * nl * n_mb,
+            "moe_combine": (fwd + 1) * nl * n_mb}
 
 
-def train_steps(torch, loop, per_step, n, tag, fails, note=None) -> float:
+# AdamW settings under which a first step's change of each parameter is its
+# clipped gradient (eps far above every gradient, lr eps, no decay, no
+# warm-up), so two steps' changes compare as their gradients
+LINEAR_OPT = dict(lr=1e3, eps=1e3, weight_decay=0.0, warmup_steps=1)
+
+
+def train_step_checks(torch, cfg, state, tokens, plan, fails) -> None:
+    """[train]'s production step and remat, from one state on one batch:
+    ``build_train_step`` (its microbatches' gradients added as ``a + g /
+    n_mb``, integer metrics summed) against the fused step (summed, then
+    divided once): the loss within TRAIN_LOSS_RTOL, integer metrics equal,
+    each parameter's change within TRAIN_GRAD_RTOL (under LINEAR_OPT, its
+    clipped gradient); then the fused step under ``remat="dots"`` against
+    ``"none"``, parameters and metrics bit for bit, each with its
+    launches."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.train import (TrainHyper, build_fused_step,
+                                           build_train_step)
+    ps, pc = plan
+    batch = {"tokens": tokens}
+    b, seq = tokens.shape
+    lin = TrainHyper(opt=adamw.AdamWCfg(**LINEAR_OPT))
+    new_f, m_f, _ = build_fused_step(cfg, lin)(state, batch, ps, pc, 1.0,
+                                               TRAIN_MB)
+    step = build_train_step(cfg, step_shape("train", b, seq, TRAIN_MB), lin)
+    step(state, batch, ps, pc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_t, m_t = step(state, batch, ps, pc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loss_f, loss_t = m_f["loss"].mean().item(), m_t["loss"].item()
+    ints = {k: torch.equal(m_t[k], m_f[k].sum(0))
+            for k in ("expert_counts", "slot_counts", "dropped")}
+    worst = max(_rel_l2(torch, x - o, y - o) for o, x, y in zip(
+        tree_leaves(state["params"]), tree_leaves(new_t["params"]),
+        tree_leaves(new_f["params"])))
+    log(f"[train] build_train_step vs the fused step (same state and batch "
+        f"{list(tokens.shape)} in {TRAIN_MB} microbatches, AdamW "
+        f"{LINEAR_OPT}): loss {loss_t:.7f} vs {loss_f:.7f} (tolerance "
+        f"{TRAIN_LOSS_RTOL} relative), integer metrics equal {ints}, "
+        f"worst leaf's change rel L2 {worst:.4g} (tolerance "
+        f"{TRAIN_GRAD_RTOL}); a step {wall:.4f} s; {card()}")
+    if abs(loss_t - loss_f) > TRAIN_LOSS_RTOL * abs(loss_f) or \
+            not all(ints.values()) or worst > TRAIN_GRAD_RTOL:
+        fails.append("train: build_train_step differs from the fused step")
+    del new_f, new_t, m_f, m_t
+    _free(torch)
+    out, nl = {}, lm.n_moe_layers(cfg)
+    for remat in ("none", "dots"):
+        fused, walls = build_fused_step(cfg, TrainHyper(remat=remat)), []
+        for _ in range(2):          # the first checkpoint imports dynamo
+            out.pop(remat, None)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            new, metrics, _ = fused(state, batch, ps, pc, 1.0, TRAIN_MB)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            out[remat] = (new["params"], metrics)
+            del new
+        want = moe_step_launches(nl, TRAIN_MB, remat)
+        got = {k: LAUNCHES[k] for k in want}
+        log(f"[train] fused step, remat {remat}: {walls[1]:.4f} s (its "
+            f"first call {walls[0]:.4f} s), launches {got} (the code "
+            f"predicts {want})")
+        if got != want:
+            fails.append(f"train: the remat {remat} step launched {got}, "
+                         f"the code predicts {want}")
+    (p0, m0), (p1, m1) = out["none"], out["dots"]
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(p1),
+                                                  tree_leaves(p0)))
+    same_m = all(torch.equal(m1[k], m0[k]) for k in m0)
+    log(f"[train] remat dots vs none: updated parameters equal bit for bit "
+        f"{same}, metrics equal {same_m} (MoE metrics "
+        f"{list(m1['expert_counts'].shape)}: one entry a layer)")
+    if not same or not same_m:
+        fails.append("train: the remat-dots step differs from remat none")
+    del out, p0, p1
+    _free(torch)
+
+
+def held_bytes(tensors) -> int:
+    """What the card's caching allocator counts as allocated for
+    ``tensors`` (each rounded up to its 512-byte blocks)."""
+    return sum(-(-t.untyped_storage().nbytes() // 512) * 512
+               for t in tensors)
+
+
+def train_steps(torch, loop, per_step, n, tag, fails, note=None,
+                held=0) -> float:
     """The training main path: ``n`` steps of ``loop``, the launch counts
     set to 0 just before; each step's launches held to ``per_step`` (what
     the code predicts) and its loss to be finite, and ``note(h)`` added to
     each step's log line; the peak device memory is read over these steps
-    alone.  Returns the steps' mean wall time."""
+    alone, less ``held`` bytes that the caller keeps alive through them.
+    Returns the steps' mean wall time."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     n_tok = loop.stream.global_batch * loop.stream.seq_len
     torch.cuda.reset_peak_memory_stats()
@@ -3214,12 +3434,14 @@ def train_steps(torch, loop, per_step, n, tag, fails, note=None) -> float:
             f"{walls[-1]:.4f} s, {n_tok / walls[-1]:.1f} training tok/s; "
             f"launches {delta}")
     wall = sum(walls) / len(walls)
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - held
     gb, seq, mb = loop.stream.global_batch, loop.stream.seq_len, \
         loop.lc.microbatches
+    kept = f" (less {held / 2 ** 30:.2f} GiB kept for a check)" \
+        if held else ""
     log(f"[{tag}] {n} steps of {gb} x {seq}: mean {wall:.4f} s a step, "
         f"{n_tok / wall:.1f} training tok/s; launches {_nonzero(LAUNCHES)}; "
-        f"peak device memory in these steps {peak / 2 ** 30:.2f} GiB")
+        f"peak device memory in these steps {peak / 2 ** 30:.2f} GiB{kept}")
     mfu_line(tag, loop.cfg, "train", gb, seq, wall, mb)
     dry_line(torch, tag, loop.cfg, "train", gb, seq, peak, mb)
     return wall
@@ -3290,6 +3512,7 @@ def train_phase(torch, dev, fails):
     width through the kernels, with the Reshape loop closed.  Returns
     (the MoE kernels' JSON rows at training shapes, the main path's launch
     counts)."""
+    from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import lm
 
@@ -3297,6 +3520,11 @@ def train_phase(torch, dev, fails):
     adamw_check(torch, dev, cfg, fails)
     loop, reshaper = reshape_train_loop(torch, dev, cfg, TRAIN_BATCH,
                                         TRAIN_SEQ, TRAIN_MB, "train", fails)
+    tokens = torch.as_tensor(TokenStream(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=SEED, class_alpha=TRAIN_ALPHA).next()["tokens"], device=dev)
+    train_step_checks(torch, cfg, loop.state, tokens, loop._plan_args(),
+                      fails)
 
     # warm-up step (first-use costs stay out of the main path), keeping the
     # kernels' inputs from their last calls: gating's last forward,
@@ -3376,7 +3604,8 @@ def gemma3_phase(torch, dev, fails) -> list:
     ring wraps); e. ``BatchedServer.generate`` on GEMMA_PROMPT_LENS prompts
     (one past the window) after a warm-up that captures the tick's graph;
     f. greedy ``ServeEngine`` vs ``generate_static`` on prompts crossing the
-    window; g. ``TrainLoop`` with f32 master weights: one microbatch through
+    window, at its first GEMMA_STATIC_LAYERS layers; g. ``TrainLoop`` with
+    f32 master weights: one microbatch through
     the kernels against the plain versions, a warm-up step, then
     GEMMA_STEPS steps of the main path, each step's flash launches checked.
     Returns the JSON rows flash_fwd@gemma3 and flash_bwd@gemma3."""
@@ -3563,9 +3792,12 @@ def gemma3_phase(torch, dev, fails) -> list:
     _free(torch)
     t_step = step_time("e. serve", t_step)
 
-    # f. engine == static on equal-length prompts crossing the window
-    srv = BatchedServer(cfg, params, max_len=GEMMA_STATIC[1] + GEMMA_NEW +
-                        16, slots=GEMMA_STATIC[0], prefill_chunk=16,
+    # f. engine == static on equal-length prompts crossing the window, at
+    # the first GEMMA_STATIC_LAYERS layers
+    fcfg = cut(cfg, GEMMA_STATIC_LAYERS)
+    srv = BatchedServer(fcfg, first_layers(params, fcfg),
+                        max_len=GEMMA_STATIC[1] + GEMMA_NEW + 16,
+                        slots=GEMMA_STATIC[0], prefill_chunk=16,
                         decode_chunk=4, compact_decode=False, device=dev)
     batch = rng.integers(1, cfg.vocab, GEMMA_STATIC).astype(np.int32)
     t0 = time.perf_counter()
@@ -3579,7 +3811,8 @@ def gemma3_phase(torch, dev, fails) -> list:
         fails.append(f"{tag}: ServeEngine != generate_static at {bad}")
     log(f"[{tag}] ServeEngine (graphed tick) vs generate_static on "
         f"{list(GEMMA_STATIC)} + {GEMMA_NEW} (past the window of "
-        f"{cfg.window}): equal {np.array_equal(got, ref)}, engine "
+        f"{cfg.window}) at {fcfg.num_layers} of {n_layers} layers "
+        f"{lm.type_counts(fcfg)}: equal {np.array_equal(got, ref)}, engine "
         f"{t_engine:.4f} s, static {t_static:.4f} s")
     del srv, params
     _free(torch)
@@ -3716,6 +3949,17 @@ def cut(cfg, layers):
         return cfg
     return dataclasses.replace(cfg, num_layers=layers,
                                layer_pattern=cfg.pattern[:layers])
+
+
+def first_layers(params, cfg):
+    """``params`` of a deeper model cut to ``cfg``'s layers: each stacked
+    block type's first occurrences (views)."""
+    from repro_torch.models import lm
+    out = dict(params)
+    for t, n in lm.type_counts(cfg).items():
+        if t != "shared_attn":
+            out[t] = {k: v[:n] for k, v in params[t].items()}
+    return out
 
 
 def model_init(torch, cfg, dev, tag):
@@ -3996,6 +4240,191 @@ def ep_a2a_cfg(cfg):
         cfg.moe, capacity_factor=EP_A2A_CF))
 
 
+# [ep]'s training steps: build_train_step of paper-moe-100m at full width
+# on [train]'s batch (8 x 1024 in 2 microbatches) over each (data, model)
+# mesh of the 2 ranks and layout, against the unsharded step on the same
+# batch whose microbatches hold the rows that one rank's microbatch holds:
+# cuBLAS rounds a product of half the rows otherwise than the whole
+# microbatch's, and a router near-tie then routes apart (against the
+# 2-microbatch step 90 of 128 expert counts differed on an H100).  The loss is the cross entropy
+# alone (no aux or z term): those are statistics of a microbatch group,
+# which the sharded step takes over the global microbatch and the
+# reference over its own rows (their backward through the collectives is
+# held to jax.grad in tests/test_torch_mesh_train.py).  At this capacity
+# factor (the experts over top-k) a slot holds every token of its group,
+# so nothing can drop.
+EP_TRAIN_MESHES = (((2, 1), "tp"), ((1, 2), "tp"), ((1, 2), "dp"))
+EP_INTS = ("expert_counts", "slot_counts", "dropped")
+
+
+def ep_train_cfg():
+    cfg = moe_cfg()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def ep_hyper():
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train import TrainHyper
+    return TrainHyper(opt=adamw.AdamWCfg(**LINEAR_OPT), aux_coef=0.0,
+                      z_coef=0.0)
+
+
+def ep_shards(shape, layout) -> int:
+    """The ranks each microbatch's rows are cut over."""
+    return shape[0] * shape[1] if layout == "dp" else shape[0]
+
+
+def ep_train_ref(torch, dev):
+    """The unsharded ``build_train_step`` steps that [ep]'s ranks are held
+    to, from a seeded state on a seeded batch, one for each number of
+    shards in EP_TRAIN_MESHES (TRAIN_MB times it microbatches): the
+    state's parameters, the batch, and per shard count the new
+    parameters, the metrics and the step's wall."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.runtime.train import build_train_step, make_state
+    cfg = ep_train_cfg()
+    state = make_state(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    tokens = torch.as_tensor(TokenStream(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=SEED).next()["tokens"], device=dev)
+    plan = moe_lib.identity_plan(cfg, lm.n_moe_layers(cfg), device=dev)
+    out = {"old": state["params"], "tokens": tokens}
+    for n in sorted({ep_shards(*m) for m in EP_TRAIN_MESHES}):
+        step = build_train_step(
+            cfg, step_shape("train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB * n),
+            ep_hyper())
+        step(state, {"tokens": tokens}, plan.slots, plan.cum)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, metrics = step(state, {"tokens": tokens}, plan.slots,
+                            plan.cum)
+        torch.cuda.synchronize()
+        out[n] = {"new": new["params"], "metrics": metrics,
+                  "wall": time.perf_counter() - t0}
+    return out
+
+
+def ep_train(torch, rank, ref) -> list:
+    """One rank's [ep] training steps: on each of EP_TRAIN_MESHES, one
+    ``build_train_step`` step of its share of the batch and its slots from
+    ``ref``'s state (collective bytes and launch counts set to 0 just
+    before, read just after), held here against ``ref``'s unsharded step:
+    each leaf's change and new value (the rank's slots of an expert leaf),
+    the integer metrics; and its replicated leaves against rank 0's (sent
+    by a broadcast), bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.train import (_is_expert, build_train_step,
+                                           shard_batch)
+    cfg = ep_train_cfg()
+    dev = ref["tokens"].device
+    plan = moe_lib.identity_plan(cfg, lm.n_moe_layers(cfg), device=dev)
+    out = []
+    for shape, layout in EP_TRAIN_MESHES:
+        mesh = make_mesh(shape, ("data", "model"))
+        params = moe_lib.shard_experts(ref["old"], cfg, mesh)
+        state = {"params": params, "opt": adamw.init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        step = build_train_step(
+            cfg, step_shape("train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB),
+            ep_hyper(), mesh, layout)
+        batch = shard_batch({"tokens": ref["tokens"]}, TRAIN_MB, mesh,
+                            layout)
+        torch.cuda.synchronize()
+        dist.barrier()
+        moe_lib.reset_collective_bytes()
+        reset_launches()
+        t0 = time.perf_counter()
+        new, metrics = step(state, batch, plan.slots, plan.cum)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sent, launches = dict(moe_lib.COLLECTIVE_BYTES), dict(LAUNCHES)
+        base = ref[ep_shards(shape, layout)]
+        want = moe_lib.shard_experts(base["new"], cfg, mesh)
+        trip = list(zip(tree_leaves(params), tree_leaves(new["params"]),
+                        tree_leaves(want)))
+        change, worst = max((_rel_l2(torch, n - o, w - o), name) for name,
+                            (o, n, w) in zip(_leaf_names(params), trip))
+        value = max(_rel_l2(torch, n, w) for _, n, w in trip)
+        ints = {k: int((metrics[k] != base["metrics"][k]).sum())
+                for k in EP_INTS}
+        replicas = True
+        for leaf, expert in zip(tree_leaves(new["params"]),
+                                _is_expert(new["params"])):
+            if expert and shape[1] > 1:
+                continue
+            buf = leaf.clone()
+            dist.broadcast(buf, 0)
+            replicas &= torch.equal(buf, leaf)
+        out.append({"mesh": shape, "layout": layout, "wall": wall,
+                    "loss": metrics["loss"].item(),
+                    "grad_norm": metrics["grad_norm"].item(),
+                    "change": change, "worst": worst, "value": value,
+                    "ints": ints,
+                    "dropped": int(metrics["dropped"].sum()),
+                    "replicas": replicas, "bytes": sent,
+                    "launches": {k: launches[k] for k in MOE_KERNELS +
+                                 ("flash_fwd", "flash_bwd")}})
+        del state, new, want, trip, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def ep_train_report(torch, res, ref, fails) -> None:
+    """[ep]'s training steps against the unsharded steps: the loss averaged
+    over the ranks within TRAIN_LOSS_RTOL, each leaf's change within
+    TRAIN_GRAD_RTOL (under LINEAR_OPT, its clipped gradient), the integer
+    metrics equal, nothing dropped, every rank's replicated leaves equal
+    bit for bit; each rank's collective bytes and launches."""
+    cfg = ep_train_cfg()
+    for n in sorted(k for k in ref if isinstance(k, int)):
+        m = ref[n]["metrics"]
+        log(f"[ep] unsharded build_train_step of {cfg.name} at full width "
+            f"({TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MB * n} microbatches, "
+            f"capacity factor {cfg.moe.capacity_factor}, the loss the cross "
+            f"entropy alone, AdamW {LINEAR_OPT}): loss "
+            f"{m['loss'].item():.7f}, grad_norm {m['grad_norm'].item():.6f}"
+            f", dropped {int(m['dropped'].sum())}, {ref[n]['wall']:.4f} s a "
+            f"step; {card()}")
+    for i, (shape, layout) in enumerate(EP_TRAIN_MESHES):
+        n = ep_shards(shape, layout)
+        want = ref[n]["metrics"]["loss"].item()
+        runs = [r["train"][i] for r in res]
+        loss = sum(r["loss"] for r in runs) / len(runs)
+        ok = abs(loss - want) <= TRAIN_LOSS_RTOL * abs(want) and all(
+            r["change"] <= TRAIN_GRAD_RTOL and not any(r["ints"].values())
+            and r["replicas"] and r["dropped"] == 0 and
+            all(r["launches"].values()) for r in runs)
+        log(f"[ep] build_train_step over data {shape[0]} x model "
+            f"{shape[1]}, layout {layout}, a rank's microbatch "
+            f"{TRAIN_BATCH // TRAIN_MB // n} x {TRAIN_SEQ}: loss (mean over "
+            f"ranks) {loss:.7f} vs the unsharded step's in {TRAIN_MB * n} "
+            f"microbatches {want:.7f} (tolerance {TRAIN_LOSS_RTOL} "
+            f"relative)")
+        for r, o in enumerate(runs):
+            log(f"[ep]   rank {r}: worst leaf's change rel L2 "
+                f"{o['change']:.4g} ({o['worst']}; tolerance "
+                f"{TRAIN_GRAD_RTOL}), new value rel L2 {o['value']:.3g}; "
+                f"integer entries that differ {o['ints']}, dropped "
+                f"{o['dropped']}; replicated leaves equal rank 0's bit for "
+                f"bit {o['replicas']}; grad_norm {o['grad_norm']:.6f}; "
+                f"collective bytes {o['bytes']}; launches {o['launches']}; "
+                f"{o['wall']:.4f} s (a first step)")
+        if not ok:
+            fails.append(f"ep: build_train_step over data {shape[0]} x "
+                         f"model {shape[1]} ({layout}) differs from the "
+                         f"unsharded step")
+
+
 def bf16_ulp(torch, x):
     """One bf16 ulp at the magnitude of ``x`` (element-wise)."""
     tiny = torch.finfo(torch.bfloat16).tiny
@@ -4019,12 +4448,13 @@ def ep_layer(torch, dev, cfg):
     return p, x
 
 
-
-def ep_rank(rank, world, tmp):
+def ep_rank(rank, world, tmp, train_ref):
     """One rank of [ep] (a process of its own): its slots of the layer,
     ``moe_ffn_sharded`` once to warm up, then once counted (launch counts
     and collective bytes set to 0 just before, read just after), its
-    results saved for the parent; rank 0 also keeps the kernels' inputs."""
+    results saved for the parent; rank 0 also keeps the kernels' inputs.
+    Then the all-to-all layout, and the training steps of ``ep_train``
+    (``train_ref``'s tensors shared with the parent, on the card)."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_arch
@@ -4091,6 +4521,9 @@ def ep_rank(rank, world, tmp):
                       "metrics": {k: v.cpu() for k, v in ma.items()},
                       "launches": dict(LAUNCHES), "wall": wall,
                       "bytes": dict(moe_lib.COLLECTIVE_BYTES)}
+        del p, x, xa, ya, ma
+        torch.cuda.empty_cache()
+        out["train"] = ep_train(torch, rank, train_ref)
         torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4128,10 +4561,11 @@ def phase_ep(torch, dev, fails) -> list:
                                          ep_a2a_cfg(cfg), off)
     del p
     _free(torch)
+    train_ref = ep_train_ref(torch, dev)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(ep_rank, args=(EP_WORLD, tmp), nprocs=EP_WORLD,
-                           join=True, start_method="spawn")
+        mp.start_processes(ep_rank, args=(EP_WORLD, tmp, train_ref),
+                           nprocs=EP_WORLD, join=True, start_method="spawn")
         res = [torch.load(f"{tmp}/rank{r}.pt") for r in range(EP_WORLD)]
     log(f"[{tag}] {EP_WORLD} ranks (gloo over CUDA tensors, one card) "
         f"started, ran and joined in {time.perf_counter() - t0:.1f} s")
@@ -4189,6 +4623,8 @@ def phase_ep(torch, dev, fails) -> list:
     if not (valid == 0).any():
         fails.append(f"{tag}: the dispatch saw no false valid entry")
     ep_a2a_report(torch, dev, cfg, res, ya_ref, ma_ref, fails)
+    ep_train_report(torch, res, train_ref, fails)
+    del train_ref
     rows = moe_rows(torch, seen, res[0]["launches"], "ep", tag)
     del res, seen, y, y_ref, x, ya_ref
     _free(torch)

@@ -11,9 +11,10 @@ largest term (how close the cell runs to its compute roof if the three
 overlap perfectly).  The reference also parsed its compiled HLO's
 collectives; the port compiles no HLO, so ``hlo_collective_bytes`` is the
 count a caller measured a device (``chip_smoke.py``'s ``[ep]``, from
-``models.moe.COLLECTIVE_BYTES``), 0 where none did.  The analytic model's
-options (remat, FSDP, layout, KV bytes) stay at the reference's defaults:
-no caller here sets them."""
+``models.moe.COLLECTIVE_BYTES``), 0 where none did.  ``remat`` is the
+training step's recompute policy (``launch.dryrun --remat``); the analytic
+model's other options (FSDP, layout, KV bytes) stay at the reference's
+defaults: no caller here sets them."""
 from __future__ import annotations
 
 import dataclasses
@@ -60,13 +61,14 @@ class Roofline:
 
 
 def analyze(cfg: ArchConfig, shape: ShapeCfg, mesh_shape: Dict[str, int],
-            hlo_collective_bytes: float = 0.0) -> Roofline:
+            hlo_collective_bytes: float = 0.0,
+            remat: str = "none") -> Roofline:
     chips = 1
     for v in mesh_shape.values():
         chips *= v
     m = mesh_shape.get("model", 1)
-    fc = F.step_flops(cfg, shape)
-    bytes_dev = F.step_bytes_per_device(cfg, shape, chips, m)
+    fc = F.step_flops(cfg, shape, remat)
+    bytes_dev = F.step_bytes_per_device(cfg, shape, chips, m, remat)
     coll_dev = F.collective_bytes_per_device(cfg, shape, mesh_shape)
     return Roofline(
         arch=cfg.name, shape=shape.name, chips=chips,

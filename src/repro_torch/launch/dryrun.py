@@ -2,7 +2,8 @@
 has storage, so nothing is allocated on any device.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--mesh 1x1,1x4]
-        [--arch <id>[,<id>..]] [--shape <name>[,..]] [--out results.json]
+        [--arch <id>[,<id>..]] [--shape <name>[,..]]
+        [--remat none|dots|full] [--out results.json]
 
 For every cell that ``cell_applicable`` admits it
 
@@ -11,9 +12,10 @@ For every cell that ``cell_applicable`` admits it
     ``decode`` the cache through ``lm.init_cache``;
 (b) traces the step at full width on those tensors, which catches shape
     errors: ``train`` runs the fused step (``loss_fn``'s forward and
-    backward over one microbatch, the f32 gradient sum, the in-place
-    AdamW update), ``prefill`` ``lm.forward``, ``decode``
-    ``lm.decode_step``.  The kernels take the card's route, and
+    backward over one microbatch under the ``--remat`` policy, so a
+    recompute's tensors count where the backward makes them, the f32
+    gradient sum, the in-place AdamW update), ``prefill``
+    ``lm.forward``, ``decode`` ``lm.decode_step``.  The kernels take the card's route, and
     ``meta_kernels`` stands in for their wrappers while it traces: each
     makes its outputs' shapes and launches nothing.  The host values the
     card's code reads from the device are passed in: the fused step's
@@ -26,8 +28,8 @@ For every cell that ``cell_applicable`` admits it
     weights, gradients, scratch; traced on one device and, on a larger
     mesh, assumed split evenly over its devices: the port runs no
     tensor-parallel forward that would show it), the analytic step bytes, FLOPs
-    and collective bytes (``analysis.flops``) and the roofline's three
-    terms with the H100's constants;
+    and collective bytes (``analysis.flops``, with the policy's recompute)
+    and the roofline's three terms with the H100's constants;
 (d) records whether the cell fits in one card's 80 GB on that mesh and at
     most how many layers would: the bytes at full depth and at one layer
     (a second trace of ``cut(cfg, 1)``) set a line in the layer count.
@@ -178,8 +180,9 @@ class MemTrace(TorchDispatchMode):
     it) until the last tensor on it dies, as the card's allocator would
     hold it.  The storages of the tensors in ``state`` (made before the
     trace, and written in place by it) are not counted.  An op that makes
-    a tensor anywhere but on ``meta`` raises: the dry run allocates
-    nothing."""
+    a tensor of any bytes anywhere but on ``meta`` raises: the dry run
+    allocates nothing (``torch.utils.checkpoint`` makes an empty marker
+    tensor on the CPU, which passes)."""
 
     def __init__(self, *state):
         super().__init__()
@@ -195,10 +198,12 @@ class MemTrace(TorchDispatchMode):
         for t in tree_leaves(out):
             if not isinstance(t, torch.Tensor):
                 continue
+            st = t.untyped_storage()
             if not t.is_meta:
+                if st.nbytes() == 0:    # e.g. a checkpoint's empty marker
+                    continue
                 raise RuntimeError(f"the dry run allocated: {func} made a "
                                    f"tensor on {t.device}")
-            st = t.untyped_storage()
             have = self.live.get(st._cdata)
             if have is not None and not have[0].expired():
                 continue
@@ -253,10 +258,12 @@ def abstract_state(cfg: ArchConfig) -> Dict[str, Any]:
             "step": scalar.clone()}
 
 
-def trace_step(cfg: ArchConfig, shape: ShapeCfg) -> Dict[str, Any]:
-    """(a) and (b): the state on ``meta`` and the step traced over it.
-    Returns the state (``params``, and ``cache`` for decode) and the peak
-    of the step's own live bytes."""
+def trace_step(cfg: ArchConfig, shape: ShapeCfg,
+               remat: str = "none") -> Dict[str, Any]:
+    """(a) and (b): the state on ``meta`` and the step traced over it
+    (a training step under the recompute policy ``remat``).  Returns the
+    state (``params``, and ``cache`` for decode) and the peak of the step's
+    own live bytes."""
     rows = batch_rows(shape)
     nl = lm.n_moe_layers(cfg)
     plan = moe_lib.identity_plan(cfg, nl, device=META) if nl else None
@@ -266,7 +273,7 @@ def trace_step(cfg: ArchConfig, shape: ShapeCfg) -> Dict[str, Any]:
         state = abstract_state(cfg)
         out["params"] = state["params"]
         batch = model_inputs(cfg, rows, shape.seq_len)
-        fused = build_fused_step(cfg, TrainHyper())
+        fused = build_fused_step(cfg, TrainHyper(remat=remat))
         mem = MemTrace(state["params"], list(state["opt"]), state["step"])
         with meta_kernels(), mem:
             fused(state, batch, ps, pc, 1.0, n_mb=1, step=0, donate=True)
@@ -319,35 +326,37 @@ def device_bytes(cfg: ArchConfig, shape: ShapeCfg, traced, mesh) -> Dict:
     return out
 
 
-def dry_cell(cfg: ArchConfig, shape: ShapeCfg, meshes) -> List[Dict]:
-    """Every record of one cell, one per mesh."""
+def dry_cell(cfg: ArchConfig, shape: ShapeCfg, meshes,
+             remat: str = "none") -> List[Dict]:
+    """Every record of one cell, one per mesh, under the recompute policy
+    ``remat``."""
     t0 = time.perf_counter()
-    full = trace_step(cfg, shape)
+    full = trace_step(cfg, shape, remat)
     t_trace = time.perf_counter() - t0
     one = None                  # the 1-layer trace, made when needed
-    fc = F.step_flops(cfg, shape)
+    fc = F.step_flops(cfg, shape, remat)
     records = []
     for mesh in meshes:
         mem = device_bytes(cfg, shape, full, mesh)
         layers = cfg.num_layers
         if mem["total"] > HBM_BYTES:
             if one is None and cfg.num_layers > 1:
-                one = trace_step(cut(cfg, 1), shape)
+                one = trace_step(cut(cfg, 1), shape, remat)
             small = device_bytes(cut(cfg, 1), shape, one, mesh)["total"] \
                 if one else mem["total"]
             per = (mem["total"] - small) / max(cfg.num_layers - 1, 1)
             layers = max(0, int((HBM_BYTES - small + per) // per)) \
                 if per > 0 else 0
-        rl = RL.analyze(cfg, shape, mesh.shape)
+        rl = RL.analyze(cfg, shape, mesh.shape, remat=remat)
         records.append({
             "arch": cfg.name, "shape": shape.name, "mesh": str(mesh),
-            "ok": True, "trace_s": round(t_trace, 2),
+            "remat": remat, "ok": True, "trace_s": round(t_trace, 2),
             "bytes_per_device": mem,
             "fits": mem["total"] <= HBM_BYTES, "max_layers": layers,
             "num_layers": cfg.num_layers,
             "step_flops": {"model": fc.model_flops, "hlo": fc.hlo_flops},
             "step_bytes_per_device": F.step_bytes_per_device(
-                cfg, shape, mesh.devices, mesh.shape["model"]),
+                cfg, shape, mesh.devices, mesh.shape["model"], remat),
             "collective_bytes_per_device": F.collective_bytes_per_device(
                 cfg, shape, mesh.shape),
             "roofline": {
@@ -365,6 +374,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="meshes, data x model (or pod x data x model)")
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
+    ap.add_argument("--remat", default="none", choices=("none", "dots",
+                                                         "full"),
+                    help="the training steps' recompute policy")
     ap.add_argument("--out", default=os.path.join("build", "dryrun.json"))
     args = ap.parse_args(argv)
     archs = ARCH_IDS if args.arch == "all" else args.arch.split(",")
@@ -383,7 +395,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                     "ok": None, "skip_reason": why})
                 continue
             try:
-                recs = dry_cell(cfg, shape, meshes)
+                recs = dry_cell(cfg, shape, meshes, args.remat)
             except Exception as e:      # a failed cell is reported, the
                 traceback.print_exc()   # run goes on to the next
                 for mesh in meshes:

@@ -5,7 +5,18 @@ leading ``[L, ...]`` layer dim, exactly the JAX package's tree, so weights
 carry over key for key (``models.bridge``); ``shared_attn`` keeps a single
 unstacked weight copy for all its occurrences but a KV cache per
 occurrence.  The reference's ``lax.scan`` over a stack becomes a Python
-loop over the layer index.
+loop over the layer index, over the per-layer views that one
+``torch.unbind`` of each stacked leaf gives (``_layer_views``): the
+backward of an unbind is one ``stack`` of the layers' gradients, where a
+``v[li]`` per layer would make autograd fill and add one zero tensor of the
+whole stack per layer.
+
+``forward(remat=...)`` recomputes each decoder block's activations in the
+backward, as the reference's ``jax.checkpoint`` per block: "full" keeps
+only the block's inputs, "dots" also the outputs of its matrix products
+(the counterpart of ``checkpoint_dots``; the hand kernels launch outside
+the dispatcher, so they are recomputed, as the reference recomputes its
+``pallas_call``s).
 
 ``decode_step`` differs from the reference in one way the serve engine
 needs: ``state["pos"]`` is a per-row position ``[B]``, so one batched call
@@ -20,11 +31,13 @@ cache (``blocks.cross_kv``), as the reference's consistency test does.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from collections import defaultdict
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
@@ -85,11 +98,52 @@ def abstract(cfg: ArchConfig, dtype=torch.float32):
     return abstract_params(model_defs(cfg), dtype)
 
 
-def _layer_params(params, t: str, li: int):
-    """Block type ``t``'s weights for its ``li``-th occurrence."""
+def _layer_views(params, t: str, n: int) -> List[Dict[str, Any]]:
+    """Block type ``t``'s weights for each of its ``n`` occurrences: one
+    ``torch.unbind`` of every stacked leaf, so a backward stacks the
+    layers' gradients once; ``shared_attn``'s one unstacked set for every
+    occurrence."""
     if t == "shared_attn":
-        return params[t]
-    return {k: v[li] for k, v in params[t].items()}
+        return [params[t]] * n
+    leaves = {k: torch.unbind(v, 0) for k, v in params[t].items()}
+    return [{k: u[li] for k, u in leaves.items()} for li in range(n)]
+
+
+# the matrix products whose outputs "dots" keeps (what ``x @ w``, ``einsum``
+# and ``F.linear`` reach at the dispatcher)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` as it runs under the policy ``remat``: "none" as it is,
+    "full" under a non-reentrant checkpoint, "dots" under a selective one
+    that keeps the matrix products' outputs.  The forward draws no random
+    numbers, so no RNG state is kept (it could not be on ``meta``)."""
+    if remat == "none":
+        return fn
+    if remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {remat!r}")
+    kw = {"use_reentrant": False, "preserve_rng_state": False}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(ckpt.checkpoint, fn, **kw)
+
+
+def _block_fn(apply, ctx):
+    """One block application as a function of (weights, x) that returns
+    (x, the MoE metrics it made): each call fills a fresh metrics list, so
+    a recompute in the backward adds none to the forward's."""
+    def run(p_l, x):
+        c = dict(ctx, moe_metrics=[])
+        return apply(p_l, x, c), c["moe_metrics"]
+    return run
 
 
 def n_moe_layers(cfg: ArchConfig) -> int:
@@ -113,14 +167,14 @@ def encode(params, frames, cfg: ArchConfig, impl: str = "auto"):
     ctx = {"cfg": cfg, "impl": impl,
            "positions": torch.arange(s, device=frames.device)[None]
            .expand(b, s)}
-    for li in range(cfg.enc_layers):
-        x = BLOCKS["enc"]["apply"](_layer_params(params, "enc", li), x, ctx)
+    for p_l in _layer_views(params, "enc", cfg.enc_layers):
+        x = BLOCKS["enc"]["apply"](p_l, x, ctx)
     return rms_norm(x, params["enc_ln"], cfg.norm_eps)
 
 
 def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
-            token_offset: int = 0, impl: str = "auto", mesh=None,
-            layout: str = "tp"):
+            token_offset: int = 0, impl: str = "auto", remat: str = "none",
+            mesh=None, layout: str = "tp"):
     """batch: tokens [B,S], and for whisper frames [B,Se,D], for qwen2-vl
     optionally positions3 [B,S,3] (the (t, h, w) ids; without them every id
     is the token's position).  Returns (logits [B,S,V] f32, aux dict with
@@ -131,6 +185,9 @@ def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
     for tensors on the card and the plain torch version on the CPU (the
     reference's default is its XLA chunked form, which the port does not
     have).
+
+    ``remat``: "none", "full" or "dots", the decoder blocks' recompute
+    policy (see the module docstring; the encoder is not wrapped).
 
     ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with dims ``model``
     and optionally ``data``) runs every MoE layer expert-parallel, as
@@ -145,8 +202,7 @@ def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
     x = params["embed"][tokens].to(torch.bfloat16)
     pos = torch.arange(s, device=dev)[None].expand(b, s)
     ctx = {"cfg": cfg, "moe_groups": "batch", "token_offset": token_offset,
-           "positions": pos, "moe_metrics": [], "impl": impl, "mesh": mesh,
-           "layout": layout}
+           "positions": pos, "impl": impl, "mesh": mesh, "layout": layout}
     if cfg.mrope:
         p3 = batch.get("positions3")
         ctx["positions3"] = pos[..., None].expand(b, s, 3) if p3 is None \
@@ -156,20 +212,23 @@ def forward(params, batch: Dict[str, Any], cfg: ArchConfig, *, plan=None,
                                 cfg, impl)
     if plan is None and n_moe_layers(cfg):
         plan = moe_lib.identity_plan(cfg, n_moe_layers(cfg), device=dev)
+    counts, views, metrics = type_counts(cfg), {}, []
     for t, count, off in pattern_runs(cfg):
-        apply = BLOCKS[t]["apply"]
+        if t not in views:
+            views[t] = _layer_views(params, t, counts[t])
         for li in range(off, off + count):
-            p_l = _layer_params(params, t, li)
-            if t == "moe":
-                ctx["plan_slots"], ctx["plan_cum"] = plan.slots[li], \
-                    plan.cum[li]
-            x = apply(p_l, x, ctx)
+            ctx_l = ctx if t != "moe" else dict(
+                ctx, plan_slots=plan.slots[li], plan_cum=plan.cum[li])
+            x, m = _remat(_block_fn(BLOCKS[t]["apply"], ctx_l), remat)(
+                views[t][li], x)
+            metrics += m
+    del views
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = _head(params, cfg, x)
     aux: Dict[str, Any] = {}
-    if ctx["moe_metrics"]:
-        aux["moe"] = {k: torch.cat([m[k] for m in ctx["moe_metrics"]])
-                      for k in ctx["moe_metrics"][0]}
+    if metrics:
+        aux["moe"] = {k: torch.cat([m[k] for m in metrics])
+                      for k in metrics[0]}
     return logits.float(), aux
 
 
@@ -210,11 +269,13 @@ def decode_step(params, state, token, cfg: ArchConfig, *, plan=None,
            "token_offset": pos[:1], "active": active, "moe_metrics": []}
     if plan is None and n_moe_layers(cfg):
         plan = moe_lib.identity_plan(cfg, n_moe_layers(cfg), device=x.device)
-    caches = state["caches"]
+    caches, counts, views = state["caches"], type_counts(cfg), {}
     for t, count, off in pattern_runs(cfg):
         decode = BLOCKS[t]["decode"]
+        if t not in views:
+            views[t] = _layer_views(params, t, counts[t])
         for li in range(off, off + count):
-            p_l = _layer_params(params, t, li)
+            p_l = views[t][li]
             c_l = {k: v[li] for k, v in caches[t].items()}
             if t == "moe":
                 ctx["plan_slots"], ctx["plan_cum"] = plan.slots[li], \

@@ -35,6 +35,10 @@ from repro_torch.kernels.moe_dispatch import ops as dispatch_ops
 from repro_torch.kernels.moe_gating.ops import gating
 from repro_torch.kernels.moe_gating.ref import top_k_rounds
 
+# the expert-stacked leaves of a MoE layer's weights (each [S, ...] over
+# its slots), which expert parallelism cuts over ``model``
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
 # Bytes that moe_ffn_sharded and moe_ffn_a2a hand to each kind of
 # collective (counted where they call one with more than one rank, and
 # nowhere else), as kernels.LAUNCHES counts launches: the port's count of
@@ -269,7 +273,7 @@ def shard_experts(params: Dict, cfg: ArchConfig, mesh) -> Dict:
     takes it."""
     out = dict(params)
     out["moe"] = {k: (local_experts(v, cfg, mesh, 1).contiguous()
-                      if k in ("w_gate", "w_up", "w_down") else v)
+                      if k in EXPERT_LEAVES else v)
                   for k, v in params["moe"].items()}
     return out
 
@@ -295,11 +299,39 @@ def _all_to_all(x, group):
     return out
 
 
-def _forward_only(name, x, p):
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            v.requires_grad for v in p.values())):
-        raise RuntimeError(f"{name} is forward only: run it under "
-                           f"torch.no_grad()")
+def _sum(x, group):
+    """A copy of ``x`` summed over ``group`` in f32 (a bf16 cotangent is
+    summed in f32 and rounded once), in ``x``'s dtype."""
+    return _all_reduce(x.to(torch.float32, copy=True).contiguous(),
+                       group).to(x.dtype)
+
+
+# what a collective does to a tensor one way: nothing, a sum, an all-to-all
+_WAYS = {"id": lambda x, group: x.view_as(x), "sum": _sum,
+         "a2a": _all_to_all}
+
+
+class _Collective(torch.autograd.Function):
+    """A collective over ``group`` as autograd sees it: ``fwd`` runs in the
+    forward, ``bwd`` on the cotangent in the backward (``_WAYS``).
+
+    The pairs are the transposes of the reference's ``shard_map`` collectives
+    under a loss that every rank computes in full from the collective's
+    result: ("sum", "id") for the partial outputs summed over ``model``,
+    whose every rank holds the same loss; ("id", "sum") for a tensor
+    replicated over ``model`` that feeds partial outputs, whose cotangent
+    is partial on each rank; ("sum", "sum") for statistics averaged over
+    ranks that each use the average in their own loss, whose losses the
+    step adds; ("a2a", "a2a") for an equal-split all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, fwd, bwd):
+        ctx.group, ctx.bwd = group, bwd
+        return _WAYS[fwd](x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _WAYS[ctx.bwd](g, ctx.group), None, None, None
 
 
 def moe_ffn_sharded(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
@@ -322,10 +354,16 @@ def moe_ffn_sharded(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
     result bit for bit); the argsort path sums in x's dtype, as it does on
     one device.
 
-    Forward only: the collectives are plain ``torch.distributed`` calls
-    that autograd does not see, so it raises where autograd would record
-    (the reference's shard_map also sums the router's gradient over
-    ``model``, which no training path here does yet).
+    Differentiable: its collectives are ``_Collective``s whose backward is
+    the transpose the reference's ``shard_map`` gives under each rank's
+    full loss: x as it enters the dispatch and the routing weights are
+    replicated over ``model`` and feed its partial sums, so their
+    cotangents are summed over ``model``; the sum of the partial outputs
+    has the identity as its backward; the ``data``-averaged router
+    statistics sum their cotangents over ``data``.  Each rank's gradients
+    are then those of the sum of its data row's losses (the router's the
+    same on every ``model`` rank, the experts' its own slots'), which the
+    training step averages over ``data``.
 
     Returns (y [1, T_loc, D], metrics with the reference's keys, a leading
     group dim of 1): ``slot_counts`` = ``kept_counts`` [1, S] (each slot's
@@ -335,7 +373,6 @@ def moe_ffn_sharded(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
     reference reports the first ``model`` column's alone), ``aux_loss`` and
     ``router_z`` [1] from the ``data``-averaged router statistics."""
     import torch.distributed as dist
-    _forward_only("moe_ffn_sharded", x, p)
     m = cfg.moe
     names = tuple(mesh.mesh_dim_names)
     mdl = mesh.shape[names.index("model")]
@@ -350,13 +387,18 @@ def moe_ffn_sharded(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
     lo = col * spr
     mine = (slot >= lo) & (slot < lo + spr)
     local = torch.where(mine, slot - lo, 0).to(torch.int32)
+    xd = x
+    if mdl > 1:
+        group = mesh.get_group("model")
+        xd = _Collective.apply(x, group, "id", "sum")
+        weight = _Collective.apply(weight, group, "id", "sum")
     y, met = dispatch_combine(
-        x, local, torch.where(mine, weight, 0.0),
+        xd, local, torch.where(mine, weight, 0.0),
         lambda buf: expert_ffn(p, buf), spr, capacity(cfg, t_loc),
         valid=mine, fused=m.fused_dispatch, impl=impl,
         out_dtype=torch.float32 if mdl > 1 else None)
     if mdl > 1:
-        y = _all_reduce(y.contiguous(), mesh.get_group("model")).to(x.dtype)
+        y = _Collective.apply(y, group, "sum", "id").to(x.dtype)
 
     # integer metrics: summed over data in one all-reduce, then each model
     # rank's kept counts and drops gathered
@@ -389,7 +431,7 @@ def moe_ffn_sharded(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
     rz = torch.logsumexp(torch.log(probs[0] + 1e-9), dim=-1).square().mean()
     stats = torch.cat([probs[0].mean(0), rz.reshape(1)])
     if dp > 1:
-        stats = _all_reduce(stats, data_group) / dp
+        stats = _Collective.apply(stats, data_group, "sum", "sum") / dp
     pbar, rz = stats[:m.num_experts], stats[m.num_experts]
     f = e_counts.float() / torch.clamp(e_counts.sum().float(), min=1.0)
     aux = m.num_experts * (f * pbar).sum()
@@ -422,7 +464,12 @@ def moe_ffn_a2a(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
     them at the source (the combine kernel when fused, rounded once to x's
     dtype).
 
-    Forward only, as ``moe_ffn_sharded``.  Returns (y [1, T_loc, D],
+    Differentiable as ``moe_ffn_sharded``: each all-to-all's backward is
+    the same all-to-all of the cotangent, and the router statistics,
+    averaged over every rank, sum their cotangents over every rank.  Each
+    rank's gradients are then those of the sum of every rank's losses that
+    reach it (its own slots' from the rows it received), which the
+    training step averages over every rank.  Returns (y [1, T_loc, D],
     metrics with the reference's keys and a leading group dim of 1):
     ``slot_counts`` = ``kept_counts`` [1, S] (each slot's kept rows, summed
     over ``data``), ``expert_counts`` [1, E], ``dropped`` [1] (assignments
@@ -430,7 +477,6 @@ def moe_ffn_a2a(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
     experts) summed over every rank, ``aux_loss`` and ``router_z`` [1]
     from the router statistics averaged over every rank."""
     import torch.distributed as dist
-    _forward_only("moe_ffn_a2a", x, p)
     m = cfg.moe
     names = tuple(mesh.mesh_dim_names)
     mdl = mesh.shape[names.index("model")]
@@ -451,8 +497,9 @@ def moe_ffn_a2a(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
     cap_s = max(4, int(tk * m.capacity_factor / mdl))
     if m.fused_dispatch:
         ones = torch.ones((1, t_loc, k), dtype=torch.float32, device=dev)
-        send, rank2, keep2, _, _ = dispatch_ops.dispatch(
-            x, ones, col_of, torch.ones_like(col_of), mdl, cap_s, impl)
+        all_valid = torch.ones_like(col_of)
+        send, rank2, keep2, _, _ = dispatch_ops.Dispatch.apply(
+            x, ones, col_of, all_valid, mdl, cap_s, impl)
         pos, keep = rank2.reshape(tk).long(), keep2.reshape(tk) != 0
         send = send[0]                               # [mdl, cap_s, D]
     else:
@@ -472,7 +519,8 @@ def moe_ffn_a2a(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
                            device=dev)
     send_slot[dest[keep]] = flat_slot[keep]
     group = mesh.get_group("model")
-    rx = _all_to_all(send.reshape(mdl * cap_s, d), group)
+    rx = _Collective.apply(send.reshape(mdl * cap_s, d), group, "a2a",
+                           "a2a")
     rs = _all_to_all(send_slot[:-1], group)
     valid = rs >= 0
     local = torch.where(valid, rs - col * spr, 0).to(torch.int32)
@@ -481,11 +529,12 @@ def moe_ffn_a2a(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
         rx[None], local[None, :, None], valid[None, :, None].float(),
         lambda buf: expert_ffn(p, buf), spr, cap2,
         valid=valid[None, :, None], fused=m.fused_dispatch, impl=impl)
-    y_back = _all_to_all(y_rx[0], group)             # [mdl * cap_s, D]
+    y_back = _Collective.apply(y_rx[0], group, "a2a",
+                               "a2a")               # [mdl * cap_s, D]
     if m.fused_dispatch:
-        y = dispatch_ops.combine(y_back.reshape(1, mdl, cap_s, d),
-                                 weight.float(), col_of, rank2, keep2,
-                                 impl).to(x.dtype)
+        y = dispatch_ops.Combine.apply(y_back.reshape(1, mdl, cap_s, d),
+                                       weight.float(), col_of, rank2, keep2,
+                                       all_valid, impl).to(x.dtype)
     else:
         gathered = y_back[torch.where(keep, dest, 0)]
         y = torch.zeros((1, t_loc, d), dtype=x.dtype, device=dev)
@@ -509,7 +558,7 @@ def moe_ffn_a2a(p, x, plan_slots, plan_cum, cfg: ArchConfig, mesh,
     stats = torch.cat([probs[0].mean(0), rz.reshape(1)])
     if world > 1:
         ints = _all_reduce(ints, None)
-        stats = _all_reduce(stats, None) / world
+        stats = _Collective.apply(stats, None, "sum", "sum") / world
     s = num_slots(cfg)
     slot_counts, e_counts = ints[:s], ints[s:s + m.num_experts]
     pbar, rz = stats[:m.num_experts], stats[m.num_experts]

@@ -90,9 +90,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(leaves))
 
 
-def apply(params, grads, state: OptState, cfg: AdamWCfg, lr_scale=1.0):
-    """Returns (new_params, new_state, metrics {grad_norm, lr})."""
-    gnorm = global_norm(grads)
+def apply(params, grads, state: OptState, cfg: AdamWCfg, lr_scale=1.0,
+          gnorm=None):
+    """Returns (new_params, new_state, metrics {grad_norm, lr}).  ``gnorm``
+    is the clipping norm when the caller knows more of the gradients than
+    ``grads`` holds (``runtime.train.global_norm`` over a mesh); by default
+    ``global_norm(grads)``."""
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     count = state.count + 1
     lr = schedule(cfg, state.count) * lr_scale

@@ -12,6 +12,8 @@ row * |model| + model column``, as the reference's ``P(("data",
 
 Held, with the fused gating and dispatch off and on, at a capacity factor
 at which assignments drop (at the source's buckets and at the experts'):
+the layer's gradients flow through its all-to-alls (finite, not all zero;
+their values are ``tests/test_torch_mesh_train.py``'s);
 y within the reference's dispatch tolerance (atol and rtol 1e-5,
 ``tests/test_moe_dispatch.py``); ``slot_counts``, ``kept_counts``,
 ``expert_counts`` and ``dropped`` equal.  The reference's a2a reports
@@ -181,6 +183,18 @@ def worker(rank, world, tmp, seed):
                 out[f"{tag}{case}/bytes"] = np.asarray(
                     [moe_lib.COLLECTIVE_BYTES[k] for k in (
                         "all_reduce", "all_gather", "all_to_all")])
+            # the layer's gradients, through its all-to-alls
+            cfg = case_cfg(case)
+            plan = moe_lib.identity_plan(cfg, 1, device="cpu")
+            p, x = _layer(a, cfg, mesh, rows)
+            for v in (x, *p.values()):
+                v.requires_grad_(True)
+            y, m = moe_lib.moe_ffn(p, x, plan.slots[0], plan.cum[0], cfg, 0,
+                                   mesh=mesh, layout="dp")
+            (y.square().sum() + m["aux_loss"].sum() +
+             m["router_z"].sum()).backward()
+            for k, v in (("x", x), *p.items()):
+                out[f"{case}/grad/{k}"] = v.grad.numpy()
         if world == 2:
             cfg = case_cfg("fused", NO_DROP_FACTOR)
             params = lm.init(cfg, torch.Generator().manual_seed(3),
@@ -278,17 +292,25 @@ def test_dp_forward_matches_unsharded(runs):
                                           got[f"fwd0/{key}"])
 
 
-def test_a2a_is_forward_only_and_checks_the_layout(suite_seed):
-    """Autograd does not see the all-to-alls: the layer refuses to run
-    where autograd would record; ``moe_ffn`` names its layouts."""
+def test_a2a_gradients_flow_and_checks_the_layout(runs, suite_seed):
+    """The layer is differentiable through its all-to-alls: on every rank
+    of both worlds and in both cases, x's, the router's and the rank's
+    slots' gradients of ``sum(y^2) + aux + z`` are finite and not all zero
+    (their values are held to ``jax.grad`` of the reference's layer in
+    ``tests/test_torch_mesh_train.py``); ``moe_ffn`` names its layouts."""
+    _, port, _ = runs
+    for world in MESHES:
+        for got in port[world]:
+            for case in CASES:
+                for k in ("x", "router", "w_gate", "w_up", "w_down"):
+                    g = got[f"{case}/grad/{k}"]
+                    assert np.isfinite(g).all() and np.abs(g).max() > 0, \
+                        (case, k)
     a = make_inputs(suite_seed)
     cfg = case_cfg("plain")
     plan = moe_lib.identity_plan(cfg, 1, device="cpu")
     p = {k: torch.from_numpy(v) for k, v in a.items() if k != "x"}
-    p["router"].requires_grad_(True)
     x = torch.from_numpy(a["x"])[None]
-    with pytest.raises(RuntimeError, match="forward only"):
-        moe_lib.moe_ffn_a2a(p, x, plan.slots[0], plan.cum[0], cfg, None, 0)
     with pytest.raises(ValueError, match="layout"):
         moe_lib.moe_ffn(p, x, plan.slots[0], plan.cum[0], cfg, 0,
                         mesh=object(), layout="fsdp")

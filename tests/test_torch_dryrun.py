@@ -61,7 +61,7 @@ def test_cli_prints_pass_and_skip_and_writes_json(tmp_path, capsys):
 
 
 def test_cli_reports_a_failed_cell(tmp_path, capsys, monkeypatch):
-    def broken(cfg, shape):
+    def broken(cfg, shape, remat="none"):
         raise ValueError("shape mismatch")
     monkeypatch.setattr(dryrun, "trace_step", broken)
     rc = dryrun.main(["--arch", "paper-moe-100m", "--shape", "decode_32k",

@@ -9,7 +9,9 @@ process of its own (``XLA_FLAGS=--xla_force_host_platform_device_count=4``;
 this suite's conftest strips ``XLA_FLAGS`` in the parent).  Inputs are f32,
 made with numpy from the suite's seed and handed to both.
 
-Held: y within the reference's dispatch tolerance (atol and rtol 1e-5,
+Held: the layer's gradients flow through its collectives (finite, not
+all zero; their values are ``tests/test_torch_mesh_train.py``'s); y within
+the reference's dispatch tolerance (atol and rtol 1e-5,
 ``tests/test_moe_dispatch.py``); ``slot_counts``, ``kept_counts`` and
 ``expert_counts`` equal; ``dropped`` equal to the drops the reference's own
 kept counts imply (the reference's ``dropped`` is the first model column's
@@ -155,15 +157,21 @@ def worker(rank, world, tmp, seed):
                 p[k] = moe_lib.local_experts(torch.from_numpy(a[k]), cfg,
                                              mesh).contiguous()
             x = torch.from_numpy(a["x"][row * t_loc:(row + 1) * t_loc])[None]
+            for v in (x, *p.values()):
+                v.requires_grad_(True)
             moe_lib.reset_collective_bytes()
             y, m = moe_lib.moe_ffn_sharded(p, x, plan.slots[0], plan.cum[0],
                                            cfg, mesh, 0)
-            out[f"{case}/y"] = y[0].numpy()
+            out[f"{case}/y"] = y[0].detach().numpy()
             for k, v in m.items():
                 out[f"{case}/{k}"] = v[0].detach().numpy()
             out[f"{case}/bytes"] = np.asarray(
                 [moe_lib.COLLECTIVE_BYTES[k] for k in ("all_reduce",
                                                        "all_gather")])
+            (y.square().sum() + m["aux_loss"].sum() +
+             m["router_z"].sum()).backward()
+            for k, v in (("x", x), *p.items()):
+                out[f"{case}/grad/{k}"] = v.grad.numpy()
         if world == 2:
             cfg = case_cfg("fused")
             params = lm.init(cfg, torch.Generator().manual_seed(3),
@@ -248,14 +256,16 @@ def test_sharded_forward_matches_unsharded(runs):
                                           got[f"fwd0/{key}"])
 
 
-def test_sharded_is_forward_only(suite_seed):
-    """Autograd does not see the collectives, so the layer refuses to run
-    where autograd would record (a router that requires its gradient)."""
-    a = make_inputs(suite_seed)
-    cfg = case_cfg("plain")
-    plan = moe_lib.identity_plan(cfg, 1, device="cpu")
-    p = {k: torch.from_numpy(v) for k, v in a.items() if k != "x"}
-    p["router"].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        moe_lib.moe_ffn_sharded(p, torch.from_numpy(a["x"])[None],
-                                plan.slots[0], plan.cum[0], cfg, None, 0)
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_gradients_flow(runs, case):
+    """The layer is differentiable through its collectives: on every rank
+    of both worlds, x's, the router's and the rank's slots' gradients of
+    ``sum(y^2) + aux + z`` are finite and not all zero (their values are
+    held to ``jax.grad`` of the reference's layer in
+    ``tests/test_torch_mesh_train.py``)."""
+    _, port, _ = runs
+    for world in MESHES:
+        for got in port[world]:
+            for k in ("x", "router", "w_gate", "w_up", "w_down"):
+                g = got[f"{case}/grad/{k}"]
+                assert np.isfinite(g).all() and np.abs(g).max() > 0, k
