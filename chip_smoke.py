@@ -80,8 +80,23 @@
    pool's capture's eager warm-up step), per pool; each migration batch's
    time against its bytes bound, the new pool's first serve, the memory
    around pool 0's retirement;
+   ``[placed]``: the ``[pools]`` server with both pools placed on the card
+   (``placements={0: "cuda:0", 1: torch.device("cuda", 0)}``), 8 of the
+   ``[migrate]`` prompts, 12 new tokens each, pool 0 drained once a pool-0
+   request has emitted a token and a placed pool joined the next tick
+   (``add_pool(placement=[torch.device("cuda", 0)])``): every output the
+   first 12 tokens of ``[migrate]``'s ``generate_static`` (greedy), none
+   dropped, at least one slot migrated, pools 1 and 2 left and placed, an
+   ``admission_pool`` decision and a candidate with ``load`` > 0, every
+   placed pool reading the engine's weight tensors (the same
+   ``data_ptr``s) and the engine and its placed weights allocating no
+   more than the pools' rows and the tick's routing plan, every MoE launch
+   a replay (or a capture's warm-up step); then the same requests with the
+   two pools given distinct device-group keys on the one card, a stand-in
+   for two cards whose overlap it does not measure: parallel group ticks
+   ran, every output the oracle's;
    the MoE kernels also on inputs at compact heights 1 and 2 and on pools
-   1's and 2's rows, against their plain versions;
+   1's and 2's rows and a placed pool's, against their plain versions;
 6. ``[train]``: first ``adamw.apply_`` (in place) against ``adamw.apply``
    bit for bit over 5 steps on ``paper-moe-100m``'s f32 tree; then trains
    ``paper-moe-100m`` at full width with ``TrainLoop``
@@ -158,7 +173,7 @@
    tokens, so the ring wraps; e. ``BatchedServer.generate`` on 4 prompts
    of 16..1040 tokens after a warm-up that captures the tick's graph; f.
    greedy ``ServeEngine`` against ``generate_static`` on ``[2, 1040] +
-   16`` at the first 13 layers (11 ``local``, 2 ``attn``); g. ``TrainLoop``:
+   16`` at the first 7 layers (6 ``local``, 1 ``attn``); g. ``TrainLoop``:
    one microbatch through the kernels against the
    plain versions, then 3 steps of 2 x 2048 tokens in 2 microbatches, each
    step launching 52 ``flash_fwd`` and 52 ``flash_bwd``.  Each step and
@@ -290,9 +305,10 @@ GEMMA_PROMPT_LENS = (16, 200, 600, 1040)
 GEMMA_NEW = 16
 GEMMA_STATIC = (2, 1040)
 # step f's depth: its eager generate_static took 49-54 s of the run at all
-# 26 layers on an H100 80GB HBM3 at 700 W; the first 13 hold 11 local and
-# 2 attn layers, so the ring still wraps in both block types
-GEMMA_STATIC_LAYERS = 13
+# 26 layers and 28.4 s at 13 on an H100 80GB HBM3 at 700 W; the first 7
+# hold 6 local and 1 attn layer, so the ring still wraps in both block
+# types
+GEMMA_STATIC_LAYERS = 7
 GEMMA_TRAIN = (2, 2048, 2)
 GEMMA_STEPS = 3
 GEMMA_ATOL = 0.08
@@ -2541,7 +2557,7 @@ def migrate_phase(torch, dev, cfg, srv, oracle, fails) -> list:
     their plain versions.  Logs each migration batch (engine-measured,
     and the move's device time by graph replay against its bytes bound),
     pool 2's first serve and the memory around pool 0's retirement.
-    Returns the kernels' JSON rows."""
+    Returns the kernels' JSON rows and the prompts."""
     import weakref
 
     from repro_torch.engine.serve import SlotPool
@@ -2687,13 +2703,198 @@ def migrate_phase(torch, dev, cfg, srv, oracle, fails) -> list:
     log_kernel_rows(suffixed(rows, f"pool{added}"), shapes)
     del eng, psrv, copy
     _free(torch)
+    return rows, prompts
+
+
+# [placed]: the [pools] server with both pools placed on the card, 8 of the
+# [migrate] prompts (whose greedy oracle holds 16 new tokens: these take
+# the first 12), pool 0 drained and a placed pool joined; then the same
+# requests over two device-group keys on the one card
+PLACED_REQS, PLACED_NEW = 8, 12
+PLACED_BUDGET_S = 25.0
+
+
+def alloc_bytes(tensors) -> int:
+    """Bytes the caching allocator hands out for ``tensors``: each rounded
+    up to its 512-byte blocks."""
+    return sum(-(-t.numel() * t.element_size() // 512) * 512
+               for t in tensors)
+
+
+def placed_run(torch, eng, submit, prompts, card=None) -> tuple:
+    """Serve ``prompts`` (PLACED_NEW new tokens each) on ``eng``; with
+    ``card`` pool 0 is drained once a pool-0 request has emitted a token
+    and a pool placed on ``card`` joins the next tick.  Returns (requests,
+    wall seconds, the largest candidate ``load`` seen, every graph the
+    run's ticks held, the drain's and the join's tick and lid)."""
+    cands, loads = eng._candidates, [0.0]
+
+    def logged():
+        out = cands()
+        loads.extend(c.load for c in out)
+        return out
+
+    eng._candidates = logged
+    seen = dict(eng._tick.graphs)
+    drained = added = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [submit(p, PLACED_NEW) for p in prompts]
+    for _ in range(20_000):
+        if all(r.done.is_set() for r in reqs):
+            break
+        if card and drained is None and any(r.tokens for r in reqs
+                                            if r.pool == 0):
+            drained = eng.tick_no
+            eng.drain_pool(0)
+        elif card and drained is not None and added is None:
+            added = eng.add_pool(placement=[card])
+        assert eng.tick()
+        freeze_graphs(seen, eng._tick.graphs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng._candidates = cands
+    return reqs, wall, max(loads), seen, drained, added
+
+
+def placed_phase(torch, dev, cfg, srv, oracle, prompts, fails) -> list:
+    """Device-placed pools on the card: see the module docstring's
+    [placed].  Returns the MoE kernels' JSON rows on a placed pool's
+    rows."""
+    from repro_torch.engine.serve import SlotPool
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_lib
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    prompts = prompts[:PLACED_REQS]
+    want_tok = [oracle(p, MIGRATE_NEW)[:PLACED_NEW] for p in prompts]
+    card = torch.device(dev.type, 0)
+    placements = {0: f"{card}", 1: card}
+    # a. placed on the card by two names of it: the engine and the placed
+    # pools' weights allocate the pools' rows and the tick's routing plan,
+    # and no second copy of the weights
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    psrv = pool_server(cfg, srv, dev, placements=placements)
+    eng = psrv.engine()
+    weights = [eng._params_for(sp)[0] for sp in eng.pools]
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - mem0
+    rows_b = sum(alloc_bytes([c for _, c, _ in sp.row_leaves()] + [sp.pos])
+                 for sp in eng.pools)
+    plan = moe_lib.identity_plan(cfg, lm.n_moe_layers(cfg), device="meta")
+    plan_b = alloc_bytes([plan.slots, plan.cum])
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
+    ptrs = [t.data_ptr() for t in _leaves(eng.params)]
+    shared = all([t.data_ptr() for t in _leaves(w)] == ptrs for w in weights)
+    log(f"[placed] a: 2 pools x {POOL_SLOTS} slots placed on {placements}; "
+        f"memory_allocated grew {grown} B over the engine's construction "
+        f"and its placed pools' weights (the pools' rows {rows_b} B, the "
+        f"tick's routing plan {plan_b} B; the weights {w_bytes} B); the "
+        f"placed pools read the engine's weight tensors: {shared}")
+    warm_pools(torch, eng, cfg, rng)
+    since = {k: g.replays for k, g in eng._tick.graphs.items()}
+    n_dec = len(eng.engine.decisions)
+    reset_launches()
+    reqs, wall, load, seen, drained, added = placed_run(
+        torch, eng, psrv.submit, prompts, card)
+    launches = dict(LAUNCHES)
+    fresh = [g for k, g in seen.items() if k not in since]
+    want = graph_launches(seen, since)
+    for g in fresh:
+        for k, n in g.per_replay.items():
+            want[k] += n
+    per_pool = {lid: graph_launches(seen, since,
+                                    lambda key, lid=lid: key[0] == lid)
+                for lid in sorted({k[0] for k in seen})}
+    decisions = [d["decision"] for d in list(eng.engine.decisions)[n_dec:]]
+    status = eng._inspect("status")
+    bad = [i for i, (r, w) in enumerate(zip(reqs, want_tok))
+           if not np.array_equal(r.output(), w)]
+    short = [i for i, r in enumerate(reqs) if len(r.output()) != PLACED_NEW]
+    pools = [sp.lid for sp in eng.pools]
+    weights = [eng._params_for(sp)[0] for sp in eng.pools]
+    shared_end = all([t.data_ptr() for t in _leaves(w)] == ptrs
+                     for w in weights)
+    log(f"[placed] a: {PLACED_REQS} requests ({PLACED_NEW} new tokens "
+        f"each); pool 0 drained at tick {drained}, pool {added} joined "
+        f"placed at tick {drained + 1}; {wall:.4f} s, "
+        f"{sum(len(r.output()) for r in reqs) / wall:.1f} generated tok/s; "
+        f"placement {status['placement']}; pools left {pools}, devices "
+        f"{[p['devices'] for p in status['pools']]}; decisions "
+        f"admission_pool {decisions.count('admission_pool')}, "
+        f"migration_dst {decisions.count('migration_dst')}, serve_job "
+        f"{decisions.count('serve_job')}; largest candidate load {load}; "
+        f"{len(reqs) - len(short)} of {len(reqs)} requests complete, "
+        f"{len(reqs) - len(bad)} equal to generate_static")
+    log(f"[placed] a: launches {_nonzero(launches)} (replays x per replay, "
+        f"and one eager warm-up step per capture in the run ({len(fresh)}): "
+        f"{'equal' if launches == want else want}); by pool "
+        + "; ".join(f"{lid}: {_nonzero(m)}" for lid, m in per_pool.items()))
+    checks = {
+        "requests differ from generate_static": bad,
+        "requests incomplete": short,
+        "no slot migrated": eng.migrated_slots < 1,
+        f"pools left {pools}, not [1, 2]": pools != [1, 2],
+        f"placed pools {status['placement']['placed_pools']}, not 2":
+            status["placement"]["placed_pools"] != 2
+            or any(p["devices"] is None for p in status["pools"]),
+        "no admission_pool decision": "admission_pool" not in decisions,
+        "no candidate with load > 0": not load > 0,
+        "a placed pool reads a copy of the weights":
+            not (shared and shared_end),
+        f"memory_allocated grew {grown} B, over the rows and the plan "
+        f"{rows_b + plan_b} B": grown > rows_b + plan_b,
+        f"launches {launches} are not the replays' {want}": launches != want,
+        "a pool's graphs launched not every MoE kernel": not all(
+            m[k] for m in per_pool.values() for k in MOE_KERNELS),
+    }
+    # the MoE kernels on the joined placed pool's rows, through its weights
+    copy = SlotPool(cfg, POOL_SLOTS, SERVE_MAX_LEN, dev)
+    sp = eng._pool(added)
+    sp.gather_into(copy, torch.arange(POOL_SLOTS, device=dev))
+    rows, shapes = check_kernels(
+        torch, step_inputs(torch, cfg, eng._params_for(sp)[0], dev, rng,
+                           copy), per_pool.get(added, want))
+    log_kernel_rows(suffixed(rows, "placed"), shapes)
+    del eng, psrv, copy, sp, seen, weights
+    _free(torch)
+    # b. the two pools given distinct device-group keys on the one card: a
+    # stand-in for two cards (the group path's plan, dispatch of every
+    # tick, then each tick's one host copy) whose overlap it cannot show
+    psrv = pool_server(cfg, srv, dev, placements=placements)
+    eng = psrv.engine()
+    for p in eng.pools:
+        p.devices = lambda lid=p.lid: (f"{card}, group {lid}",)
+    reqs, wall_b, _, _, _, _ = placed_run(torch, eng, psrv.submit, prompts)
+    bad_b = [i for i, (r, w) in enumerate(zip(reqs, want_tok))
+             if not np.array_equal(r.output(), w)]
+    log(f"[placed] b: the 2 pools under distinct device-group keys on the "
+        f"one card (a same-card stand-in for two cards; the overlap is not "
+        f"measured): {eng.tick_no} ticks, parallel_group_ticks "
+        f"{eng.parallel_group_ticks}, {wall_b:.4f} s, "
+        f"{sum(len(r.output()) for r in reqs) / wall_b:.1f} generated "
+        f"tok/s (graphs captured in the run); "
+        f"{len(reqs) - len(bad_b)} of {len(reqs)} equal to generate_static")
+    checks["b: no parallel group tick"] = eng.parallel_group_ticks < 1
+    checks["b: requests differ from generate_static"] = bad_b
+    del eng, psrv
+    _free(torch)
+    secs = time.perf_counter() - t_phase
+    log(f"[placed] phase {secs:.1f} s (budget {PLACED_BUDGET_S} s)")
+    for what, bad_ in checks.items():
+        if bad_:
+            fails.append(f"placed: {what}" + (f": {bad_[:5]}"
+                                              if isinstance(bad_, list)
+                                              else ""))
     return rows
 
 
 def serve_features_phase(torch, dev, fails, phase_time) -> list:
-    """[spec], [prefix], [publish], [pools], [compact], [autotune] and
-    [migrate] on one full-width model.  Returns the kernels' JSON rows of
-    [pools], [compact] and [migrate]."""
+    """[spec], [prefix], [publish], [pools], [compact], [autotune],
+    [migrate] and [placed] on one full-width model.  Returns the kernels'
+    JSON rows of [pools], [compact], [migrate] and [placed]."""
     from repro_torch.models import lm
     from repro_torch.runtime.serve import BatchedServer
     cfg = moe_cfg()
@@ -2714,8 +2915,12 @@ def serve_features_phase(torch, dev, fails, phase_time) -> list:
     phase_time("compact")
     autotune_phase(torch, dev, cfg, srv, oracle, allow, fails)
     phase_time("autotune")
-    rows += migrate_phase(torch, dev, cfg, srv, oracle, fails)
+    migrate_rows, prompts = migrate_phase(torch, dev, cfg, srv, oracle,
+                                          fails)
+    rows += migrate_rows
     phase_time("migrate")
+    rows += placed_phase(torch, dev, cfg, srv, oracle, prompts, fails)
+    phase_time("placed")
     return rows
 
 

@@ -12,9 +12,11 @@ overlap perfectly).  The reference also parsed its compiled HLO's
 collectives; the port compiles no HLO, so ``hlo_collective_bytes`` is the
 count a caller measured a device (``chip_smoke.py``'s ``[ep]``, from
 ``models.moe.COLLECTIVE_BYTES``), 0 where none did.  ``remat`` is the
-training step's recompute policy (``launch.dryrun --remat``); the analytic
-model's other options (FSDP, layout, KV bytes) stay at the reference's
-defaults: no caller here sets them."""
+training step's recompute policy (``launch.dryrun --remat``); ``fsdp``,
+``layout``, ``kv_bytes`` and ``seq_shard_decode`` are the analytic
+model's layout options (``launch.dryrun --layout``, ``--kv-dtype``,
+``--force-seq-shard``).  ``Roofline.row`` is a markdown table row under
+``HEADER``."""
 from __future__ import annotations
 
 import dataclasses
@@ -59,17 +61,26 @@ class Roofline:
         useful = self.model_flops / (self.chips * PEAK_FLOPS_BF16)
         return useful / max(self.bound_s, 1e-30)
 
+    def row(self) -> str:
+        return (f"| {self.arch} | {self.shape} | {self.compute_s:.3e} | "
+                f"{self.memory_s:.3e} | {self.collective_s:.3e} | "
+                f"{self.dominant} | {self.model_flops:.3e} | "
+                f"{self.usefulness:.2f} | {self.roofline_fraction:.2%} |")
+
 
 def analyze(cfg: ArchConfig, shape: ShapeCfg, mesh_shape: Dict[str, int],
-            hlo_collective_bytes: float = 0.0,
-            remat: str = "none") -> Roofline:
+            hlo_collective_bytes: float = 0.0, remat: str = "none",
+            fsdp: bool = True, layout: str = "tp", kv_bytes: int = 2,
+            seq_shard_decode: bool = False) -> Roofline:
     chips = 1
     for v in mesh_shape.values():
         chips *= v
     m = mesh_shape.get("model", 1)
     fc = F.step_flops(cfg, shape, remat)
-    bytes_dev = F.step_bytes_per_device(cfg, shape, chips, m, remat)
-    coll_dev = F.collective_bytes_per_device(cfg, shape, mesh_shape)
+    bytes_dev = F.step_bytes_per_device(cfg, shape, chips, m, remat,
+                                        kv_bytes, seq_shard_decode)
+    coll_dev = F.collective_bytes_per_device(cfg, shape, mesh_shape, fsdp,
+                                             layout)
     return Roofline(
         arch=cfg.name, shape=shape.name, chips=chips,
         compute_s=fc.hlo_flops / (chips * PEAK_FLOPS_BF16),
@@ -80,3 +91,7 @@ def analyze(cfg: ArchConfig, shape: ShapeCfg, mesh_shape: Dict[str, int],
         hlo_collective_bytes=hlo_collective_bytes,
     )
 
+
+HEADER = ("| arch | shape | compute (s) | memory (s) | collective (s) | "
+          "bottleneck | MODEL_FLOPS | useful | roofline frac |\n"
+          "|---|---|---|---|---|---|---|---|---|")

@@ -1,7 +1,9 @@
 from repro_torch.configs.base import (SHAPES, ArchConfig, MoECfg, SSMCfg,
                                       ShapeCfg, reduced)
-from repro_torch.configs.registry import (ARCH_IDS, cell_applicable, get_arch,
+from repro_torch.configs.registry import (ARCH_IDS, all_cells,
+                                          cell_applicable, get_arch,
                                           get_shape)
 
 __all__ = ["ArchConfig", "MoECfg", "SSMCfg", "ShapeCfg", "SHAPES", "reduced",
-           "get_arch", "get_shape", "ARCH_IDS", "cell_applicable"]
+           "get_arch", "get_shape", "ARCH_IDS", "all_cells",
+           "cell_applicable"]

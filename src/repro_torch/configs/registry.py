@@ -6,7 +6,8 @@ import importlib
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCfg, reduced
 
-_MODULES = {
+# the reference's ten architectures, the dry run's cells (``all_cells``)
+_CELL_MODULES = {
     "whisper-base": "repro_torch.configs.whisper_base",
     "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
@@ -17,10 +18,12 @@ _MODULES = {
     "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
-    "paper-moe-100m": "repro_torch.configs.paper_moe_100m",
 }
+_MODULES = {**_CELL_MODULES,
+            "paper-moe-100m": "repro_torch.configs.paper_moe_100m"}
 
 ARCH_IDS = tuple(_MODULES)
+CELL_ARCH_IDS = tuple(_CELL_MODULES)
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -42,3 +45,13 @@ def cell_applicable(arch: ArchConfig, shape: ShapeCfg) -> tuple[bool, str]:
         return False, ("pure full-attention arch: 512k dense KV cache per "
                        "layer is the non-sub-quadratic case")
     return True, ""
+
+
+def all_cells():
+    """Yield ``(arch, shape, applicable, reason)`` for the reference's 40
+    cells: its ten architectures x the four shapes."""
+    for a in CELL_ARCH_IDS:
+        arch = get_arch(a)
+        for s in SHAPES:
+            ok, why = cell_applicable(arch, SHAPES[s])
+            yield a, s, ok, why

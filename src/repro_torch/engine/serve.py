@@ -134,12 +134,35 @@ position; ``pool_id`` offsets the pools' cost-kind ids
 (``pool_id..pool_id+pools-1``) so that several engines can share one
 ``Engine``.
 
-Device placements (a pool's own device group, its params copy, parallel
-group ticks and the ``load`` term) need more than one device and are not
-ported yet.
+**Device-placed pools** (``placements={lid: placement}``,
+``add_pool(placement=...)``): a pool may own a device group, a device,
+its name or a sequence of them, made a pool mesh at ``serve.pool_tp``
+(``runtime.sharding.pool_mesh``).  Its rows live on the group's device,
+and it reads the weights through ``_params_for``: one copy per device
+group, made by ``serving_params`` (which keeps a tensor already on the
+device, so a pool placed on the engine's own card reads the engine's
+tensors), cached by ``SlotPool.devices()`` and dropped with the graphs on
+every publish.  Each device has its own ``SlotTick`` (graphed on a card,
+eager on the CPU) and graph memory pool.  Placement feeds the decisions:
+with placements a candidate carries the ``load`` term (the occupied share
+of the other pools on its devices, ``_group_busy``), admission over
+several pools is ``Engine.choose_admission_pool``, and the drain's
+options carry the device count.  With ``serve.parallel_ticks`` the
+round's winner is joined by plain ticks of the other placed pools whose
+device groups are disjoint from it and from each other
+(``_group_plans``): every tick is enqueued before any is awaited (a
+tick's dispatch ends on the device, its commit makes its one host copy),
+and each pool's time runs from the round's start.  A migration between
+devices moves each row leaf with one copy and carries a sampled
+request's generator state into a generator of the destination.  A pool
+mesh of more than one device (``data`` > 1 or ``pool_tp`` > 1) and a
+placement on another device type than the engine's raise.  Without
+placements every pool sits on the engine's device and every decision is
+the one the engine makes without them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import threading
@@ -162,6 +185,7 @@ from repro_torch.engine.prefix_cache import (PrefixAnalyzer, PrefixCache,
 from repro_torch.kernels import LAUNCHES, credit_launches, launches_since
 from repro_torch.models import lm
 from repro_torch.models import moe as moe_lib
+from repro_torch.runtime import sharding as SH
 from repro_torch.runtime.serve import serving_params
 
 # xxhash/murmur-style odd multipliers, one per n-gram context position (the
@@ -414,7 +438,8 @@ class SlotTick:
     select and the valid mask between steps, sampling and the tick's one
     host copy stay outside the graph.  Without it (a CPU pool) the same
     steps run eagerly.  ``record``, when a list, receives each step's
-    logits."""
+    logits.  ``dispatch`` enqueues a tick and returns its tokens on the
+    device, ``collect`` makes its one host copy; a call does both."""
 
     def __init__(self, cfg: ArchConfig, device, graph: bool,
                  draft_cfg: Optional[ArchConfig] = None):
@@ -484,10 +509,37 @@ class SlotTick:
                              "other weights or another pool")
         return g
 
-    @torch.no_grad()
     def __call__(self, pool, params, dparams, toks, n_given, active, reset,
                  temps, gens, arm: str = ""):
+        return (pool.pos,) + self.collect(*self.dispatch(
+            pool, params, dparams, toks, n_given, active, reset, temps, gens,
+            arm))
+
+    @staticmethod
+    def collect(out, n_valid):
+        """A dispatched tick's one host copy: ``(emitted [B, L], n_valid
+        [B])`` as numpy."""
+        host = out.cpu().numpy()
+        if n_valid is None:
+            return host[:, :-1], host[:, -1]
+        return host, n_valid
+
+    @torch.no_grad()
+    def dispatch(self, pool, params, dparams, toks, n_given, active, reset,
+                 temps, gens, arm: str = ""):
+        """Enqueue a tick on the pool's device without waiting for it:
+        returns ``(out, n_valid)``, ``out`` the emitted tokens ``[B, L]``
+        on the device and ``n_valid`` on the host, or under an arm ``out``
+        ``[B, L+1]``, its last column each row's valid count, and
+        ``n_valid`` None."""
         dev = pool.pos.device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            return self._dispatch(dev, pool, params, dparams, toks, n_given,
+                                  active, reset, temps, gens, arm)
+
+    def _dispatch(self, dev, pool, params, dparams, toks, n_given, active,
+                  reset, temps, gens, arm):
         if reset.any():
             pool.zero_rows(torch.as_tensor(np.flatnonzero(reset),
                                            device=dev))
@@ -509,8 +561,7 @@ class SlotTick:
                 n_valid += valid
                 if j + 1 < L:
                     valid = valid & (chain[:, j + 1] == greedy)
-            out = torch.stack(emitted + [n_valid], 1).cpu().numpy()
-            return pool.pos, out[:, :L], out[:, L]
+            return torch.stack(emitted + [n_valid], 1), None
         n_given_t = torch.as_tensor(n_given, device=dev)
         prev = toks[:, 0]
         emitted = []
@@ -521,8 +572,7 @@ class SlotTick:
                 self.record.append(logits.clone())
             prev = sample_rows(logits, greedy, temps, gens)
             emitted.append(prev)
-        n_valid = np.where(active, L, 0)
-        return pool.pos, torch.stack(emitted, 1).cpu().numpy(), n_valid
+        return torch.stack(emitted, 1), np.where(active, L, 0)
 
 
 @dataclasses.dataclass
@@ -580,12 +630,20 @@ class SlotPool:
     ``pool_id`` (``lid`` unless given) is its id in the engine's cost
     kinds (``jobs.pool_kind``, ``TickCandidate``, acceptance EMAs).
     ``draining`` stops admission to it.  ``compact_rows(n)`` is the pool's
-    persistent buffer set of height ``n`` for compact ticks."""
+    persistent buffer set of height ``n`` for compact ticks.
+
+    ``mesh`` (a ``runtime.sharding.pool_mesh``) places the pool: every
+    leaf is made on its group's device (one device: ``pool_specs`` then
+    replicates nothing and splits nothing), and ``devices()`` is the
+    group."""
 
     def __init__(self, cfg: ArchConfig, slots: int, max_len: int, device,
                  draft_cfg: Optional[ArchConfig] = None, lid: int = 0,
-                 pool_id: Optional[int] = None):
+                 pool_id: Optional[int] = None, mesh=None):
         self.cfg, self.max_len, self.draft_cfg = cfg, max_len, draft_cfg
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.group[0]
         self.lid = lid
         self.pool_id = lid if pool_id is None else pool_id
         self.draining = False
@@ -611,6 +669,31 @@ class SlotPool:
 
     def free_slots(self) -> int:
         return sum(r is None for r in self.active)
+
+    def devices(self) -> tuple:
+        """The device group the pool's rows live on: its mesh's, or the
+        one device of a pool that is not placed.  The key of the engine's
+        per-group weights and of parallel group ticks' disjointness."""
+        if self.mesh is not None:
+            return self.mesh.group
+        return (self.pos.device,)
+
+    def put(self, x):
+        """``x`` (a tensor, or a nested dict of them) on the pool's
+        device."""
+        if isinstance(x, dict):
+            return {k: self.put(v) for k, v in x.items()}
+        return x.to(self.pos.device)
+
+    def state(self) -> Dict[str, Any]:
+        """The pool's rows and positions as a tree (``pool_specs``'s
+        input): ``caches`` and ``draft`` ``[n, slots, ...]``, ``ng``,
+        ``ctx`` and ``pos`` ``[slots, ...]``."""
+        out = {"caches": self.caches, "ng": self.ng, "ctx": self.ctx,
+               "pos": self.pos}
+        if self.draft is not None:
+            out["draft"] = self.draft
+        return out
 
     def compact_rows(self, rows: int) -> "SlotPool":
         """The buffer set a compact tick of ``rows`` rows runs on: a pool
@@ -640,13 +723,16 @@ class SlotPool:
 
     def move_rows(self, dst: "SlotPool", src_idx, dst_idx) -> None:
         """Copy rows ``src_idx`` of every per-slot leaf and their positions
-        into rows ``dst_idx`` of ``dst`` (device index tensors): one
-        ``index_select`` and one in-place ``index_copy_`` a leaf, so none
-        of ``dst``'s tensors is replaced."""
+        into rows ``dst_idx`` of ``dst`` (index tensors on each pool's
+        device): one ``index_select``, one copy to ``dst``'s device where
+        it is another, and one in-place ``index_copy_`` a leaf, so none of
+        ``dst``'s tensors is replaced."""
         for (_, c, dim), (_, cc, _) in zip(self.row_leaves(),
                                            dst.row_leaves()):
-            cc.index_copy_(dim, dst_idx, c.index_select(dim, src_idx))
-        dst.pos.index_copy_(0, dst_idx, self.pos.index_select(0, src_idx))
+            cc.index_copy_(dim, dst_idx,
+                           dst.put(c.index_select(dim, src_idx)))
+        dst.pos.index_copy_(0, dst_idx,
+                            dst.put(self.pos.index_select(0, src_idx)))
 
     def row_leaves(self):
         """``(path, tensor, slot dim)`` of every per-slot leaf a snapshot
@@ -691,7 +777,7 @@ class SlotPool:
                 for key in path:
                     r = r[key]
                 vals.append(r)
-            c.index_copy_(dim, idx, torch.stack(vals, dim).to(dev))
+            c.index_copy_(dim, idx, self.put(torch.stack(vals, dim)))
         self.pos.index_copy_(0, idx, torch.as_tensor(pos, device=dev))
 
 
@@ -699,7 +785,10 @@ class SlotPool:
 class _TickPlan:
     """One planned tick: its pool, resolved arm, length, participants, the
     rows it runs (``idx``: the compact gather, or every slot) and job
-    records, plus the dispatch thunk that runs it."""
+    records, plus the thunk that enqueues it on the device (``dispatch``)
+    and the one that makes its host copy (``finish``: the dispatch's
+    result -> ``(pos, emitted [slots, L], n_valid [slots])``).  A round of
+    parallel group ticks dispatches every plan before it finishes any."""
     sp: SlotPool
     mode: str
     spec: bool
@@ -712,6 +801,7 @@ class _TickPlan:
     job: Job
     extras: tuple
     dispatch: Any
+    finish: Any
 
 
 class ServeEngine:
@@ -724,9 +814,13 @@ class ServeEngine:
                  prefix_cache: bool = False, params_version: int = 0,
                  draft: Optional[str] = None,
                  draft_cfg: Optional[ArchConfig] = None, draft_params=None,
+                 placements: Optional[Dict[int, Any]] = None,
                  autotune: Any = False, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
+        # the engine's device with its index: a placement's key and the
+        # card a placement "cuda" names
+        self._home = SH.as_device(self.device)
         self.params = serving_params(params, self.device)
         self.engine = engine or Engine()
         self.max_len = max_len
@@ -788,19 +882,33 @@ class ServeEngine:
             if not pids or not all(0 <= p < n_pools for p in pids):
                 raise ValueError(f"class_pools[{cls!r}]={pids}: pool ids "
                                  f"must be in [0, {n_pools})")
+        # device placements: lid -> pool mesh (``_as_mesh``); a pool not
+        # listed sits on the engine's device
+        self.placements: Dict[int, SH.Mesh] = {}
+        for i, plc in (placements or {}).items():
+            if not 0 <= int(i) < n_pools:
+                raise ValueError(f"placements[{i}]: no such pool "
+                                 f"(pools={n_pools})")
+            self.placements[int(i)] = self._as_mesh(plc)
+        # placed pools' weights, one copy per device group (_params_for)
+        self._pool_params: Dict[tuple, Dict[str, Any]] = {}
         # the live pools, in lid order; a drained pool drops out, so pools
         # are looked up by lid (``_pool``), never by list position
         self.pools: List[SlotPool] = [
             SlotPool(cfg, slots, max_len, self.device, self.draft_cfg, lid=i,
-                     pool_id=pool_id + i)
+                     pool_id=pool_id + i, mesh=self.placements.get(i))
             for i in range(n_pools)]
         self._next_local = n_pools
         # the pool a drain last routed into (its candidates carry ``xfer``)
         self._last_mig_dst: Optional[int] = None
         self.migrated_slots = 0
-        self._tick = SlotTick(cfg, self.device,
-                              graph=self.device.type == "cuda",
-                              draft_cfg=self.draft_cfg)
+        self.parallel_group_ticks = 0
+        # one tick per device, the engine's made here; a placed pool on
+        # another device ticks on that device's own (``_tick_for``)
+        self._ticks: Dict[torch.device, SlotTick] = {
+            self._home: SlotTick(cfg, self.device,
+                                 graph=self.device.type == "cuda",
+                                 draft_cfg=self.draft_cfg)}
         # tick shapes (pool, arm, L, rows) and row copies already run once:
         # a first run carries one-time costs (kernel library builds and
         # loads, allocator growth, a graph's capture) and must not enter
@@ -857,15 +965,96 @@ class ServeEngine:
                 return sp
         return None
 
-    def _busy(self, sp: SlotPool) -> float:
-        """The occupied share of the other pools' slots: every pool shares
-        the one device, so this is the contention a pool's ticks meet."""
+    @property
+    def _tick(self) -> SlotTick:
+        """The engine device's tick (read-only; ``_ticks`` holds them
+        all)."""
+        return self._ticks[self._home]
+
+    # ------------------------------------------------------------ placement
+    def _as_mesh(self, plc) -> SH.Mesh:
+        """A placement (a pool mesh, a device, its name or a sequence of
+        them) as a pool mesh at ``serve.pool_tp``; a card without an index
+        (``"cuda"``) is the engine's own.  Only a mesh of one device of the
+        engine's type runs: rows split over several cards (``data`` > 1)
+        and a tensor-parallel decode step (``pool_tp`` > 1) are not
+        ported, and a sampled request's generator moves between pools only
+        within one device type."""
+        if isinstance(plc, SH.Mesh):
+            raw = plc.group
+        else:
+            raw = [plc] if isinstance(plc, (str, torch.device)) else plc
+        group = []
+        for d in map(torch.device, raw):
+            if d.type != self.device.type:
+                raise ValueError(
+                    f"placement on {d} for an engine on {self.device}: a "
+                    "pool must sit on the engine's device type (a "
+                    "request's sampling generator cannot carry its stream "
+                    "between a CPU and a CUDA generator)")
+            group.append(self._home if d.index is None else d)
+        tp = self.cfg.serve.pool_tp
+        if len(group) != 1 or tp > 1:
+            raise ValueError(
+                f"a pool mesh over {len(group)} device(s) at pool_tp={tp}: "
+                "a pool split over several cards (data > 1) or a "
+                "tensor-parallel decode step (pool_tp > 1) is not ported; "
+                "its specs are (runtime.sharding.pool_specs), its run "
+                "waits for two cards (ROADMAP.md queue 1: pools over "
+                "several cards)")
+        return plc if isinstance(plc, SH.Mesh) else SH.pool_mesh(group)
+
+    def _params_for(self, sp: SlotPool):
+        """(weights, draft weights) a pool's ticks read: the engine's own
+        for a pool that is not placed; for a placed pool a copy per device
+        group (``serving_params`` keeps a tensor already on the device, so
+        a group on the engine's card reads the engine's tensors), cached by
+        ``sp.devices()`` and remade when ``update`` rebinds the weights or
+        the draft."""
+        if sp.mesh is None:
+            return self.params, self.draft_params
+        ent = self._pool_params.setdefault(sp.devices(), {})
+        dev = sp.pos.device
+        if ent.get("src") is not self.params:
+            ent["params"] = serving_params(self.params, dev)
+            ent["src"] = self.params
+        if self.draft_cfg is not None and \
+                ent.get("dsrc") is not self.draft_params:
+            ent["draft"] = serving_params(self.draft_params, dev)
+            ent["dsrc"] = self.draft_params
+        return ent["params"], ent.get("draft")
+
+    def _group_busy(self, sp: SlotPool) -> float:
+        """The occupied share of the slots of the other pools that share a
+        device with ``sp``: the contention its ticks meet (admission's and
+        the drain's ``busy``, the candidates' ``load``).  Without
+        placements every pool shares the engine's device."""
+        devs = set(sp.devices())
         tot = occ = 0
         for o in self.pools:
-            if o is not sp:
-                tot += o.slots
-                occ += o.slots - o.free_slots()
+            if o is sp or not devs & set(o.devices()):
+                continue
+            tot += o.slots
+            occ += o.slots - o.free_slots()
         return occ / tot if tot else 0.0
+
+    def _tick_for(self, sp: SlotPool) -> SlotTick:
+        """The tick of the pool's device, made on first use: graphed on a
+        card, with a graph memory pool of its own, eager on the CPU."""
+        dev = sp.pos.device
+        tick = self._ticks.get(dev)
+        if tick is None:
+            tick = self._ticks[dev] = SlotTick(
+                self.cfg, dev, graph=dev.type == "cuda",
+                draft_cfg=self.draft_cfg)
+        return tick
+
+    def _release(self) -> None:
+        """Drop every graph of every device and the placed pools' weights:
+        a publish rebinds the weights they hold."""
+        for tick in self._ticks.values():
+            tick.release()
+        self._pool_params.clear()
 
     # --------------------------------------------------------- elasticity
     def add_pool(self, placement=None, slots: Optional[int] = None) -> int:
@@ -875,16 +1064,17 @@ class ServeEngine:
         captured on first use, marked cold, into the shared graph memory
         pool.  Sampling generators are keyed by request (``_stream_seed``),
         not by pool, so an engine grown to N pools gives each request the
-        stream an engine built with N pools gives it.  Device placements
-        are not ported: ``placement`` must be None."""
-        if placement is not None:
-            raise ValueError("device placements are not ported; "
-                             "add_pool takes placement=None only")
+        stream an engine built with N pools gives it.  ``placement`` (as
+        ``placements``' values) places the pool."""
+        mesh = None if placement is None else self._as_mesh(placement)
         lid = self._next_local
         self._next_local += 1
         self.pools.append(SlotPool(self.cfg, slots or self.slots,
                                    self.max_len, self.device, self.draft_cfg,
-                                   lid=lid, pool_id=self.pool_id + lid))
+                                   lid=lid, pool_id=self.pool_id + lid,
+                                   mesh=mesh))
+        if mesh is not None:
+            self.placements[lid] = mesh
         return lid
 
     def drain_pool(self, lid: int) -> None:
@@ -915,7 +1105,8 @@ class ServeEngine:
             occ = [(s, r) for s, r in enumerate(src.active) if r is not None]
             if occ:
                 opts = [{"pool": o.pool_id, "free": o.free_slots(),
-                         "busy": self._busy(o)}
+                         "busy": self._group_busy(o),
+                         "devices": len(o.devices())}
                         for o in self.pools
                         if o is not src and not o.draining
                         and o.free_slots() > 0]
@@ -930,10 +1121,15 @@ class ServeEngine:
                 self._retire(src)
 
     def _retire(self, sp: SlotPool) -> None:
-        """Remove an empty pool with its graphs and compact buffer sets."""
+        """Remove an empty pool with its placement, its graphs, its compact
+        buffer sets and a weights copy no live pool reads."""
         self.pools.remove(sp)
-        self._tick.drop_pool(sp.lid)
+        self.placements.pop(sp.lid, None)
+        self._tick_for(sp).drop_pool(sp.lid)
         sp._compact.clear()
+        live = {o.devices() for o in self.pools if o.mesh is not None}
+        for key in [k for k in self._pool_params if k not in live]:
+            del self._pool_params[key]
 
     def _migrate_slots(self, src: SlotPool, dst: SlotPool,
                        moves: List[tuple]) -> None:
@@ -945,15 +1141,18 @@ class ServeEngine:
         which ``dst``'s next tick zeroes), the sampling generator (the same
         object, not re-seeded) and ``Request.pool/slot``.  A slot's row,
         position and generator determine its continuation, so the outputs
-        are those of an unmigrated run.  Measured as a ``serve_migrate``
+        are those of an unmigrated run.  Between two devices a generator's
+        state moves into a generator of the destination, so its stream goes
+        on unchanged.  Measured as a ``serve_migrate``
         job (per moved position) and under ``dst``'s pool kind, which
         ``choose_migration_dst`` and the ``xfer`` term read."""
         k = len(moves)
         free = [s for s in range(dst.slots) if dst.active[s] is None]
         assert 0 < k <= len(free)
         dst_slots = free[:k]
-        src_idx = torch.as_tensor([s for s, _ in moves], device=self.device)
-        dst_idx = torch.as_tensor(dst_slots, device=self.device)
+        src_dev, dst_dev = src.pos.device, dst.pos.device
+        src_idx = torch.as_tensor([s for s, _ in moves], device=src_dev)
+        dst_idx = torch.as_tensor(dst_slots, device=dst_dev)
         ntok = max(int(sum(src.pos_host[s] for s, _ in moves)), 1)
         warm = ("migrate", k)
         cold = warm not in self._warm
@@ -964,12 +1163,17 @@ class ServeEngine:
 
         def thunk():
             src.move_rows(dst, src_idx, dst_idx)
-            self._sync()
+            self._sync(src_dev, dst_dev)
 
         self.engine.run_job(job, thunk, extra=(pjob,))
         for (s, r), d in zip(moves, dst_slots):
+            gen = src.gens[s]
+            if gen is not None and gen.device != dst_dev:
+                moved = torch.Generator(device=dst_dev)
+                moved.set_state(gen.get_state())
+                gen = moved
             dst.active[d], src.active[s] = r, None
-            dst.gens[d], src.gens[s] = src.gens[s], None
+            dst.gens[d], src.gens[s] = gen, None
             dst.pos_host[d], src.pos_host[s] = src.pos_host[s], 0
             dst.reset[d], src.reset[s] = bool(src.reset[s]), False
             r.pool, r.slot = dst.lid, d
@@ -1058,9 +1262,11 @@ class ServeEngine:
         self.tokens_out += len(req.tokens)
         req.done.set()
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, *devs) -> None:
+        """Wait for the card(s) ``devs`` (by default the engine's)."""
+        for dev in devs or (self.device,):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _row_job(self, sp: SlotPool, kind: str, tokens: int, fn):
         """Run a row copy (snapshot or seed write) as a measured job, also
@@ -1074,7 +1280,7 @@ class ServeEngine:
 
         def thunk():
             out = fn()
-            self._sync()
+            self._sync(sp.pos.device)
             return out
 
         return self.engine.run_job(job, thunk, extra=(pjob,))
@@ -1108,9 +1314,11 @@ class ServeEngine:
         Routing: a pinned request joins only its pool; otherwise
         ``class_pools`` restricts the admissible pools, and among those the
         emptiest wins (ties: the lowest id); a draining pool admits
-        nothing.  A request whose admissible pools are all full stays
-        queued, in order, without blocking later requests bound for a free
-        pool.
+        nothing.  With placements, a choice among several pools is
+        ``Engine.choose_admission_pool``'s: per-token EMAs inflated by each
+        pool's device-group occupancy.  A request whose admissible pools are
+        all full stays queued, in order, without blocking later requests
+        bound for a free pool.
 
         Prefix cache (when enabled): an exact result-cache hit answers the
         request here — it never takes a slot.  Otherwise a greedy request
@@ -1136,7 +1344,15 @@ class ServeEngine:
             if not cands:
                 remaining.append(req)
                 continue
-            pid = max(cands, key=lambda p: (self._pool(p).free_slots(), -p))
+            if self.placements and len(cands) > 1:
+                pid = self.engine.choose_admission_pool(
+                    [{"pool": c.pool_id, "free": c.free_slots(),
+                      "busy": self._group_busy(c),
+                      "devices": len(c.devices())}
+                     for c in map(self._pool, cands)]) - self.pool_id
+            else:
+                pid = max(cands,
+                          key=lambda p: (self._pool(p).free_slots(), -p))
             sp = self._pool(pid)
             slot = next(s for s in range(sp.slots) if sp.active[s] is None)
             req.pool, req.slot = pid, slot
@@ -1166,7 +1382,7 @@ class ServeEngine:
                 sp.pos_host[slot] = 0
             if req.temperature > 0:
                 sp.gens[slot] = torch.Generator(
-                    device=self.device).manual_seed(req.seed)
+                    device=sp.pos.device).manual_seed(req.seed)
         self.queue = remaining
         for pid, ss in seeds.items():
             sp = self._pool(pid)
@@ -1202,9 +1418,15 @@ class ServeEngine:
                           for r in self.active],
                 "pools": [{"id": sp.pool_id, "lid": sp.lid,
                            "slots": sp.slots, "free": sp.free_slots(),
-                           "draining": sp.draining}
+                           "draining": sp.draining,
+                           "devices": ([str(d) for d in sp.devices()]
+                                       if sp.mesh is not None else None)}
                           for sp in self.pools],
                 "migrated_slots": self.migrated_slots,
+                "placement": {"placed_pools": len(self.placements),
+                              "migrated_slots": self.migrated_slots,
+                              "parallel_group_ticks":
+                                  self.parallel_group_ticks},
                 "classes": {n: {"weight": c.weight,
                                 "max_defer": c.max_defer}
                             for n, c in self.classes.items()},
@@ -1259,7 +1481,7 @@ class ServeEngine:
             # construction (enabling one would need the pool's draft rows)
             self.draft_params = serving_params(updates["draft_params"],
                                                self.device)
-            self._tick.release()
+            self._release()
         if "prefix_cache" in updates:
             on = bool(updates["prefix_cache"])
             if on and self.prefix is None:
@@ -1273,16 +1495,17 @@ class ServeEngine:
                 self.prefix = None
         if "params" in updates:
             # the weight publish: the incoming tree (numpy or tensors) is
-            # converted once and rebound, and every graph of every pool and
-            # height, which hold the old weights' addresses, is dropped for
-            # a capture on its next use.  Rebinding never writes into the
+            # converted once and rebound, and every graph of every pool,
+            # height and device, which hold the old weights' addresses, is
+            # dropped with the placed pools' weight copies for a capture on
+            # its next use.  Rebinding never writes into the
             # old tensors, which the caller may share (BatchedServer hands
             # its own).
             self.params = serving_params(updates["params"], self.device)
             if self._self_draft:
                 self.draft_params = slice_draft_params(
                     self.params, self.cfg, self.draft_cfg)
-            self._tick.release()
+            self._release()
             # an explicit params_version in the same update wins; a bare
             # params swap auto-bumps so stale results can never serve
             self._bump_version(int(updates.get(
@@ -1370,8 +1593,10 @@ class ServeEngine:
         candidate is ``aged`` once any of its requests has sat out its
         class's ``max_defer`` scheduled ticks.  ``xfer`` is the migration
         traffic about to land on a pool: while a drain routes into it, the
-        pending batches times the measured ``serve_migrate`` time.  Without
-        placements ``load`` is 0."""
+        pending batches times the measured ``serve_migrate`` time.  With
+        placements ``load`` is the pool's device-group occupancy
+        (``_group_busy``); without them 0, so the scores are the weighted
+        FRTs of an engine without placements."""
         cands = []
         draining = any(sp.draining for sp in self.pools)
         for sp in self.pools:
@@ -1384,6 +1609,7 @@ class ServeEngine:
             def weight(rs):
                 return sum(self.classes[r.priority].weight for r in rs)
 
+            load = self._group_busy(sp) if self.placements else 0.0
             xfer = 0.0
             if draining and self._last_mig_dst == sp.lid:
                 pend = sum(o.slots - o.free_slots()
@@ -1399,7 +1625,7 @@ class ServeEngine:
                     sp.pool_id, "decode", n_dec=len(dec), n_pre=len(pre),
                     chunk=self.decode_chunk, weight=weight(dec),
                     spec_len=self.spec_len if arms else 0, arms=arms,
-                    xfer=xfer))
+                    load=load, xfer=xfer))
             if pre:
                 overdue = max(r.deferred - self.classes[r.priority].max_defer
                               for r in pre)
@@ -1407,7 +1633,8 @@ class ServeEngine:
                     sp.pool_id, "prefill", n_dec=len(dec), n_pre=len(pre),
                     pre_toks=sum(len(r.prompt) - r.prompt_off for r in pre),
                     chunk=self.prefill_chunk, weight=weight(pre),
-                    aged=overdue >= 0, overdue=max(overdue, 0), xfer=xfer))
+                    aged=overdue >= 0, overdue=max(overdue, 0), load=load,
+                    xfer=xfer))
         return cands
 
     def _age_prefills(self, part: List[Request]) -> None:
@@ -1428,7 +1655,7 @@ class ServeEngine:
                    mode: str) -> Optional[_TickPlan]:
         """Resolve the speculative arm, tick length, participants, layout
         (compact or full) and job records of one pool's tick, and close
-        over the dispatch thunk."""
+        over its dispatch and finish thunks and the pool's weights."""
         if mode == "spec":
             # a bare "spec" maps to the strongest proposer this engine has
             mode = "spec:draft" if self.draft_cfg is not None \
@@ -1485,9 +1712,9 @@ class ServeEngine:
                 idx = np.asarray(part_slots + pads[:nc - len(part)])
         # a compact tick as high as the pool runs on the pool itself
         run_on = sp.compact_rows(len(idx)) if len(idx) < sp.slots else sp
+        tick = self._tick_for(sp)
         warm = (sp.lid, arm, L, len(idx))
-        cold = warm not in self._warm or \
-            self._tick.capture_pending(run_on, arm)
+        cold = warm not in self._warm or tick.capture_pending(run_on, arm)
         self._warm.add(warm)
         kind = "serve_prefill" if mode == "prefill" \
             else spec_kind(arm) if spec else "serve_decode"
@@ -1506,31 +1733,37 @@ class ServeEngine:
             extras.append(Job(layout_kind(compact, sp.pool_id),
                               tokens=ntok, meta={"cold": cold}))
         reset = sp.reset.copy()
+        params, dparams = self._params_for(sp)
 
         def dispatch():
             if run_on is sp:
-                return self._tick(sp, self.params, self.draft_params, toks,
-                                  n_given, active, reset, temps, sp.gens,
-                                  arm=arm)
+                return tick.dispatch(sp, params, dparams, toks, n_given,
+                                     active, reset, temps, sp.gens, arm=arm)
             # the compact tick: gather the rows into the buffer set, tick
             # it (its reset rows zeroed there), write them back in place
-            rows = torch.as_tensor(idx, device=self.device)
+            rows = torch.as_tensor(idx, device=sp.pos.device)
             sp.gather_into(run_on, rows)
-            _, em_c, nv_c = self._tick(
-                run_on, self.params, self.draft_params, toks[idx],
-                n_given[idx], active[idx], reset[idx], temps[idx],
-                [sp.gens[s] for s in idx], arm=arm)
+            out = tick.dispatch(run_on, params, dparams, toks[idx],
+                                n_given[idx], active[idx], reset[idx],
+                                temps[idx], [sp.gens[s] for s in idx],
+                                arm=arm)
             sp.scatter_from(run_on, rows)
-            em = np.zeros((sp.slots, L), em_c.dtype)
-            em[idx] = em_c
+            return out
+
+        def finish(out):
+            em_r, nv_r = tick.collect(*out)
+            if run_on is sp:
+                return sp.pos, em_r, nv_r
+            em = np.zeros((sp.slots, L), em_r.dtype)
+            em[idx] = em_r
             nv = np.zeros((sp.slots,), np.int64)
-            nv[idx] = nv_c
+            nv[idx] = nv_r
             return sp.pos, em, nv
 
         return _TickPlan(sp=sp, mode=mode, spec=spec, arm=arm, L=L,
                          part=part, n_given=n_given, idx=idx,
                          compact=compact, job=job, extras=tuple(extras),
-                         dispatch=dispatch)
+                         dispatch=dispatch, finish=finish)
 
     def _commit_tick(self, plan: _TickPlan, outs) -> int:
         """Write a tick's results back: the reset flags of the rows it ran,
@@ -1597,6 +1830,34 @@ class ServeEngine:
                                            arm=plan.arm)
         return n_new
 
+    def _group_plans(self, winner: _TickPlan) -> List[_TickPlan]:
+        """The parallel group tick's co-ticks: plain ticks (prefill while
+        the pool has prompt left, else decode) of the other placed pools
+        whose device groups are disjoint from the winner's and from each
+        other's.  They add work to devices that would idle this round; the
+        winner and the decisions are unchanged.  Empty without placements
+        or with ``serve.parallel_ticks`` off."""
+        if not self.cfg.serve.parallel_ticks or winner.sp.mesh is None:
+            return []
+        used = set(winner.sp.devices())
+        out = []
+        for sp in self.pools:
+            if sp is winner.sp or sp.mesh is None:
+                continue
+            devs = set(sp.devices())
+            if devs & used:
+                continue
+            act = [r for r in sp.active if r is not None]
+            if not act:
+                continue
+            mode = "prefill" if any(r.prefilling for r in act) else "decode"
+            plan = self._plan_tick(sp, act, mode)
+            if plan is None:
+                continue
+            used |= devs
+            out.append(plan)
+        return out
+
     def tick(self) -> bool:
         """One engine iteration.  Returns False when stopped, True otherwise
         (including idle ticks).  Control messages land here, between
@@ -1606,7 +1867,12 @@ class ServeEngine:
         With one pool and the single default class the composition is
         ``Engine.choose_serve_tick``; otherwise every pool's candidate
         ticks go to ``Engine.choose_serve_job`` (weighted FRT and the
-        per-class aging bounds) and one pool wins the round."""
+        per-class aging bounds) and one pool wins the round.  With placed
+        pools on disjoint devices the winner's tick is joined by theirs
+        (``_group_plans``): every plan is dispatched before any is
+        finished, and each pool's time is measured from the round's start,
+        as ``Engine.run_job`` measures (a cold shape stays out of the
+        EMAs)."""
         if self._poll():
             return False
         self._drain_step()
@@ -1634,10 +1900,19 @@ class ServeEngine:
         plan = self._plan_tick(sp, act, mode)
         if plan is None:
             return True
-        outs = self.engine.run_job(plan.job, plan.dispatch,
-                                   extra=plan.extras)
-        n_new = self._commit_tick(plan, outs)
-        self._age_prefills(plan.part)
+        group = self._group_plans(plan)
+        t0 = time.perf_counter()
+        live = [(p, p.dispatch()) for p in [plan] + group]
+        part, n_new = [], 0
+        for p, out in live:
+            outs = p.finish(out)
+            dt = time.perf_counter() - t0
+            for j in (p.job,) + p.extras:
+                self.engine.observe(j, dt)
+            n_new += self._commit_tick(p, outs)
+            part = part + p.part
+        self.parallel_group_ticks += len(group)
+        self._age_prefills(part)
         self.tokens_out += n_new
         self._check_breakpoints(n_new)
         self.tick_no += 1

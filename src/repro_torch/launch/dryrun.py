@@ -3,17 +3,20 @@ has storage, so nothing is allocated on any device.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--mesh 1x1,1x4]
         [--arch <id>[,<id>..]] [--shape <name>[,..]]
-        [--remat none|dots|full] [--out results.json]
+        [--remat none|dots|full] [--layout tp|dp] [--kv-dtype bf16|f8]
+        [--force-seq-shard] [--microbatches N] [--out results.json]
 
 For every cell that ``cell_applicable`` admits it
 
 (a) builds the abstract state on ``meta``: the parameters (f32 for
     ``train``, with both AdamW moments; bf16 to serve), and for
-    ``decode`` the cache through ``lm.init_cache``;
+    ``decode`` the cache through ``lm.init_cache`` (its attention K/V in
+    fp8 under ``--kv-dtype f8``);
 (b) traces the step at full width on those tensors, which catches shape
     errors: ``train`` runs the fused step (``loss_fn``'s forward and
     backward over one microbatch under the ``--remat`` policy, so a
-    recompute's tensors count where the backward makes them, the f32
+    recompute's tensors count where the backward makes them; a
+    ``--microbatches`` count sets the microbatch's rows), the f32
     gradient sum, the in-place AdamW update), ``prefill``
     ``lm.forward``, ``decode`` ``lm.decode_step``.  The kernels take the card's route, and
     ``meta_kernels`` stands in for their wrappers while it traces: each
@@ -29,7 +32,13 @@ For every cell that ``cell_applicable`` admits it
     mesh, assumed split evenly over its devices: the port runs no
     tensor-parallel forward that would show it), the analytic step bytes, FLOPs
     and collective bytes (``analysis.flops``, with the policy's recompute)
-    and the roofline's three terms with the H100's constants;
+    and the roofline's three terms with the H100's constants.  The
+    reference's layout options reach the specs, the bytes and the
+    roofline: ``--layout dp`` (the batch and activations over ``model``
+    too, the MoE over an all-to-all), ``--force-seq-shard``
+    (weight-stationary decode: the cache's sequence over ``data``, the
+    weights over every device) and ``--kv-dtype f8`` (one byte a K/V
+    element);
 (d) records whether the cell fits in one card's 80 GB on that mesh and at
     most how many layers would: the bytes at full depth and at one layer
     (a second trace of ``cut(cfg, 1)``) set a line in the layer count.
@@ -258,12 +267,16 @@ def abstract_state(cfg: ArchConfig) -> Dict[str, Any]:
             "step": scalar.clone()}
 
 
-def trace_step(cfg: ArchConfig, shape: ShapeCfg,
-               remat: str = "none") -> Dict[str, Any]:
+KV_DTYPES = {None: None, "bf16": None, "f8": torch.float8_e4m3fn}
+
+
+def trace_step(cfg: ArchConfig, shape: ShapeCfg, remat: str = "none",
+               kv_dtype: Optional[str] = None) -> Dict[str, Any]:
     """(a) and (b): the state on ``meta`` and the step traced over it
-    (a training step under the recompute policy ``remat``).  Returns the
-    state (``params``, and ``cache`` for decode) and the peak of the step's
-    own live bytes."""
+    (a training step under the recompute policy ``remat``; a decode step
+    over a cache whose attention K/V are ``KV_DTYPES[kv_dtype]``).
+    Returns the state (``params``, and ``cache`` for decode) and the peak
+    of the step's own live bytes."""
     rows = batch_rows(shape)
     nl = lm.n_moe_layers(cfg)
     plan = moe_lib.identity_plan(cfg, nl, device=META) if nl else None
@@ -286,8 +299,9 @@ def trace_step(cfg: ArchConfig, shape: ShapeCfg,
         _check_shape(logits, (rows, shape.seq_len, cfg.vocab))
     else:
         params = out["params"] = lm.abstract(cfg, torch.bfloat16)
-        cache = out["cache"] = lm.init_cache(cfg, rows, shape.seq_len,
-                                             device=META)
+        cache = out["cache"] = lm.init_cache(
+            cfg, rows, shape.seq_len, kv_dtype=KV_DTYPES[kv_dtype],
+            device=META)
         token = torch.empty((rows, 1), dtype=torch.long, device=META)
         mem = MemTrace(params, cache)
         with torch.no_grad(), meta_kernels(), mem:
@@ -302,8 +316,10 @@ def _check_shape(x, want):
         raise ValueError(f"logits {tuple(x.shape)}, want {tuple(want)}")
 
 
-def device_bytes(cfg: ArchConfig, shape: ShapeCfg, traced, mesh) -> Dict:
-    """(c)'s bytes on one device of ``mesh``."""
+def device_bytes(cfg: ArchConfig, shape: ShapeCfg, traced, mesh,
+                 force_seq_shard: bool = False) -> Dict:
+    """(c)'s bytes on one device of ``mesh`` (the cache's sequence over
+    ``data`` with ``force_seq_shard``)."""
     pspec = SH.param_specs(cfg, mesh)
     params = traced["params"]
     out = {"params": 0, "optimizer": 0, "gradients": 0, "cache": 0}
@@ -319,46 +335,60 @@ def device_bytes(cfg: ArchConfig, shape: ShapeCfg, traced, mesh) -> Dict:
     if "cache" in traced:
         cache = traced["cache"]
         out["cache"] = SH.bytes_per_device(
-            cache["caches"], SH.cache_specs(cfg, mesh, shape,
-                                            cache)["caches"], mesh)
+            cache["caches"], SH.cache_specs(
+                cfg, mesh, shape, cache,
+                force_seq_shard=force_seq_shard)["caches"], mesh)
     out["transient"] = transient / mesh.devices
     out["total"] = sum(out.values())
     return out
 
 
-def dry_cell(cfg: ArchConfig, shape: ShapeCfg, meshes,
-             remat: str = "none") -> List[Dict]:
+def dry_cell(cfg: ArchConfig, shape: ShapeCfg, meshes, remat: str = "none",
+             layout: str = "tp", kv_dtype: Optional[str] = None,
+             force_seq_shard: bool = False,
+             microbatches: Optional[int] = None) -> List[Dict]:
     """Every record of one cell, one per mesh, under the recompute policy
-    ``remat``."""
+    ``remat`` and the reference's layout options (``main``'s flags)."""
+    if microbatches:
+        shape = dataclasses.replace(shape, microbatches=microbatches)
+    kv_bytes = 1 if kv_dtype == "f8" else 2
     t0 = time.perf_counter()
-    full = trace_step(cfg, shape, remat)
+    full = trace_step(cfg, shape, remat, kv_dtype)
     t_trace = time.perf_counter() - t0
     one = None                  # the 1-layer trace, made when needed
     fc = F.step_flops(cfg, shape, remat)
     records = []
     for mesh in meshes:
-        mem = device_bytes(cfg, shape, full, mesh)
+        mem = device_bytes(cfg, shape, full, mesh, force_seq_shard)
         layers = cfg.num_layers
         if mem["total"] > HBM_BYTES:
             if one is None and cfg.num_layers > 1:
-                one = trace_step(cut(cfg, 1), shape, remat)
-            small = device_bytes(cut(cfg, 1), shape, one, mesh)["total"] \
+                one = trace_step(cut(cfg, 1), shape, remat, kv_dtype)
+            small = device_bytes(cut(cfg, 1), shape, one, mesh,
+                                 force_seq_shard)["total"] \
                 if one else mem["total"]
             per = (mem["total"] - small) / max(cfg.num_layers - 1, 1)
             layers = max(0, int((HBM_BYTES - small + per) // per)) \
                 if per > 0 else 0
-        rl = RL.analyze(cfg, shape, mesh.shape, remat=remat)
+        rl = RL.analyze(cfg, shape, mesh.shape, remat=remat, layout=layout,
+                        kv_bytes=kv_bytes, seq_shard_decode=force_seq_shard)
         records.append({
             "arch": cfg.name, "shape": shape.name, "mesh": str(mesh),
-            "remat": remat, "ok": True, "trace_s": round(t_trace, 2),
+            "remat": remat, "layout": layout, "kv_dtype": kv_dtype or "bf16",
+            "force_seq_shard": force_seq_shard,
+            "microbatches": shape.microbatches,
+            "act_spec": SH.act_spec_for(cfg, shape, mesh, layout),
+            "batch_specs": SH.batch_specs(cfg, shape, mesh, layout),
+            "ok": True, "trace_s": round(t_trace, 2),
             "bytes_per_device": mem,
             "fits": mem["total"] <= HBM_BYTES, "max_layers": layers,
             "num_layers": cfg.num_layers,
             "step_flops": {"model": fc.model_flops, "hlo": fc.hlo_flops},
             "step_bytes_per_device": F.step_bytes_per_device(
-                cfg, shape, mesh.devices, mesh.shape["model"], remat),
+                cfg, shape, mesh.devices, mesh.shape["model"], remat,
+                kv_bytes, force_seq_shard),
             "collective_bytes_per_device": F.collective_bytes_per_device(
-                cfg, shape, mesh.shape),
+                cfg, shape, mesh.shape, layout=layout),
             "roofline": {
                 "compute_s": rl.compute_s, "memory_s": rl.memory_s,
                 "collective_s": rl.collective_s, "dominant": rl.dominant,
@@ -377,6 +407,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--remat", default="none", choices=("none", "dots",
                                                          "full"),
                     help="the training steps' recompute policy")
+    ap.add_argument("--layout", default="tp", choices=("tp", "dp"),
+                    help="dp: the batch over data x model, the MoE over "
+                    "an all-to-all")
+    ap.add_argument("--kv-dtype", default=None, choices=("bf16", "f8"),
+                    help="the decode cache's attention K/V dtype")
+    ap.add_argument("--force-seq-shard", action="store_true",
+                    help="weight-stationary decode: the cache's sequence "
+                    "over data")
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="a training step's microbatches (by default the "
+                    "shape's)")
     ap.add_argument("--out", default=os.path.join("build", "dryrun.json"))
     args = ap.parse_args(argv)
     archs = ARCH_IDS if args.arch == "all" else args.arch.split(",")
@@ -395,7 +436,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                                     "ok": None, "skip_reason": why})
                 continue
             try:
-                recs = dry_cell(cfg, shape, meshes, args.remat)
+                recs = dry_cell(cfg, shape, meshes, args.remat, args.layout,
+                                args.kv_dtype, args.force_seq_shard,
+                                args.microbatches)
             except Exception as e:      # a failed cell is reported, the
                 traceback.print_exc()   # run goes on to the next
                 for mesh in meshes:

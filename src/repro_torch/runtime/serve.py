@@ -79,6 +79,8 @@ class BatchedServer:
     independent ``draft_cfg`` + ``draft_params`` (e.g. from
     ``engine.draft.distill_draft``) gives the draft arm its model;
     ``prefix_cache`` turns on the cross-request prefix and result cache.
+    ``placements`` (pool id -> a device, its name, a sequence of them or
+    a pool mesh) places pools on device groups (``ServeEngine``).
     Greedy outputs are the same with any of them."""
 
     def __init__(self, cfg: ArchConfig, params, max_len: int = 128,
@@ -88,7 +90,7 @@ class BatchedServer:
                  draft_cfg: Optional[ArchConfig] = None, draft_params=None,
                  pools: int = 1, class_pools: Optional[Dict] = None,
                  compact_decode: Optional[bool] = None, autotune=False,
-                 device="cuda"):
+                 placements: Optional[Dict] = None, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = serving_params(params, self.device)
@@ -105,6 +107,7 @@ class BatchedServer:
         self.class_pools = class_pools
         self.compact_decode = compact_decode
         self.autotune = autotune
+        self.placements = placements
         self._step = build_serve_step(cfg)
         self._engine = None
 
@@ -120,7 +123,8 @@ class BatchedServer:
                 class_pools=self.class_pools,
                 prefix_cache=self.prefix_cache, draft=self.draft,
                 draft_cfg=self.draft_cfg, draft_params=self.draft_params,
-                autotune=self.autotune, device=self.device)
+                placements=self.placements, autotune=self.autotune,
+                device=self.device)
         return self._engine
 
     def submit(self, prompt, max_new: int = 16, temperature: float = 0.0,

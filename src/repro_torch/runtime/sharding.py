@@ -14,23 +14,33 @@ over ``data`` (+``pod``) (FSDP/ZeRO-style), experts over ``model``.  A dim
 that its axes do not divide falls back to replication, per leaf (whisper's
 vocab of 51865).  The port runs only the experts' split so far
 (``models.moe.moe_ffn_sharded``); the rest is what the dry run prices.
-The reference's other layouts (no FSDP, batch over ``model`` too,
-weight-stationary decode) are options no caller here sets, so the port
-has only the baseline.
+The reference's other layouts are options here as there: ``fsdp=False``
+(the embed dim replicated), ``layout="dp"`` (the batch over ``model``
+too, where it divides) and ``force_seq_shard`` (weight-stationary decode:
+the cache's sequence over ``data``, the batch replicated).
+
+A serve slot pool *placed* on a device group (``ServeEngine(placements=
+...)``) has a mesh of its own, ``pool_mesh``: axes ``("data",
+"model")`` and the group's devices, and ``pool_specs`` gives its rows'
+specs.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.models.params import ParamDef, map_defs
 
 
 class Mesh(NamedTuple):
-    """A device mesh's axis names and sizes."""
+    """A device mesh's axis names and sizes, and for a pool's mesh
+    (``pool_mesh``) the devices of its group, row-major over the axes."""
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
+    group: Tuple[torch.device, ...] = ()
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -66,10 +76,10 @@ def axis_size(mesh, axes) -> int:
     return int(math.prod(mesh.shape[a] for a in axes))
 
 
-def logical_rules(mesh) -> Dict[str, object]:
+def logical_rules(mesh, fsdp: bool = True) -> Dict[str, object]:
     return {
         "vocab": "model",
-        "embed": data_axes(mesh),
+        "embed": data_axes(mesh) if fsdp else None,
         "qkv": "model",
         "mlp": "model",
         "experts": "model",
@@ -77,11 +87,11 @@ def logical_rules(mesh) -> Dict[str, object]:
     }
 
 
-def param_specs(cfg: ArchConfig, mesh):
+def param_specs(cfg: ArchConfig, mesh, fsdp: bool = True):
     """Spec tree of ``lm.model_defs(cfg)`` with the per-leaf divisibility
-    fallback."""
+    fallback; without ``fsdp`` the embed dim is replicated."""
     from repro_torch.models.lm import model_defs
-    rules = logical_rules(mesh)
+    rules = logical_rules(mesh, fsdp)
 
     def spec(d: ParamDef):
         parts = []
@@ -98,8 +108,19 @@ def param_specs(cfg: ArchConfig, mesh):
     return map_defs(spec, model_defs(cfg))
 
 
-def batch_specs(cfg: ArchConfig, shape: ShapeCfg, mesh):
+def _batch_axes(shape: ShapeCfg, mesh, layout: str) -> Tuple[str, ...]:
+    """The axes a batch splits over: the data axes, and under ``"dp"``
+    ``model`` too where the global batch divides by them all."""
     da = data_axes(mesh)
+    if layout == "dp":
+        full = da + ("model",)
+        if shape.global_batch % axis_size(mesh, full) == 0:
+            return full
+    return da
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeCfg, mesh, layout: str = "tp"):
+    da = _batch_axes(shape, mesh, layout)
     dp = axis_size(mesh, da)
     seq_sharded = shape.global_batch < dp        # long_500k: batch of 1
     tok = (None, da) if seq_sharded else (da, None)
@@ -121,16 +142,33 @@ def _model_dim_part(mesh, *dims) -> Optional[int]:
     return None
 
 
+def act_spec_for(cfg: ArchConfig, shape: ShapeCfg, mesh,
+                 layout: str = "tp"):
+    """Spec of ``[B, S, D]`` activations under ``layout``: the batch over
+    the data axes (and ``model`` under ``"dp"`` where it divides), or the
+    sequence where the batch is smaller than the data axes."""
+    da = data_axes(mesh)
+    if layout == "dp":
+        full = da + ("model",)
+        if shape.global_batch % axis_size(mesh, full) == 0:
+            return (full, None, None)
+    if shape.global_batch < axis_size(mesh, da):
+        return (None, da, None)
+    return (da, None, None)
+
+
 KV_TYPES = ("attn", "local", "moe", "shared_attn", "dec")
 
 
-def cache_specs(cfg: ArchConfig, mesh, shape: ShapeCfg, cache_tree):
+def cache_specs(cfg: ArchConfig, mesh, shape: ShapeCfg, cache_tree,
+                force_seq_shard: bool = False):
     """Spec tree matching ``lm.init_cache``'s output.  decode_*: batch over
     data; long_500k (batch < dp): KV sequence over data, SSM state over
-    model."""
+    model.  ``force_seq_shard``: weight-stationary decode, the KV sequence
+    over data and the batch replicated at any batch."""
     da = data_axes(mesh)
     dp = axis_size(mesh, da)
-    seq_sharded = shape.global_batch < dp
+    seq_sharded = shape.global_batch < dp or force_seq_shard
     batch = None if seq_sharded else da
 
     def leaf_spec(btype, x):
@@ -156,6 +194,70 @@ def cache_specs(cfg: ArchConfig, mesh, shape: ShapeCfg, cache_tree):
     caches = {t: {k: leaf_spec(t, v) for k, v in leaves.items()}
               for t, leaves in cache_tree["caches"].items()}
     return {"caches": caches, "pos": ()}
+
+
+def as_device(dev) -> torch.device:
+    """``dev`` (a string or a ``torch.device``) as a device with its index:
+    ``"cuda"`` names the current card, so that two names of one card
+    compare equal."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def pool_mesh(devices, tp: int = 1) -> Mesh:
+    """A ``("data", "model")`` mesh over an explicit device group (a
+    device, its name, or a sequence of them): the unit a serve slot pool
+    is placed on.  ``tp`` is the tensor-parallel degree within the pool:
+    ``model`` gets ``tp`` devices and ``data`` the rest.  The default
+    ``tp=1`` keeps every product's reduction on one device, which keeps
+    the engine's greedy outputs those of ``generate_static``."""
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    group = tuple(as_device(d) for d in devices)
+    if not group:
+        raise ValueError("pool_mesh needs at least one device")
+    tp = max(int(tp), 1)
+    if len(group) % tp:
+        raise ValueError(f"{len(group)} devices do not divide by tp={tp}")
+    return Mesh(("data", "model"), (len(group) // tp, tp), group)
+
+
+def _slot_dim(path: Tuple[str, ...]) -> int:
+    """The slot dim of a pool leaf: 1 in the cache and draft rows
+    ``[n, slots, ...]``, 0 in ``ng``, ``ctx`` and ``pos``."""
+    return 1 if path[0] in ("caches", "draft") else 0
+
+
+def pool_specs(mesh, pool_tree):
+    """Spec tree of a slot pool's rows (``SlotPool.state()``: ``caches``
+    and ``draft`` leaves ``[n, slots, ...]``, ``ng``, ``ctx`` and ``pos``
+    ``[slots, ...]``): the slot dim over ``data`` where its size divides
+    (slots are independent, so the split touches no reduction) and, at
+    ``model`` > 1, the first dim past the slot's successor that ``model``
+    divides (the reference's rule on its ``[slots, n, 1, ...]`` leaves,
+    whose batch-of-one dim no axis divides).  Other leaves replicate."""
+    da = data_axes(mesh)
+    dp = axis_size(mesh, da)
+
+    def leaf(path, x):
+        nd, s = len(x.shape), _slot_dim(path)
+        spec = [None] * nd
+        if da and x.shape[s] % dp == 0:
+            spec[s] = da
+        if nd >= 3 and axis_size(mesh, "model") > 1:
+            i = _model_dim_part(mesh, *x.shape[2:])
+            if i is not None:
+                spec[2 + i] = "model"
+        return tuple(spec)
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            return {k: walk(path + (k,), v) for k, v in node.items()}
+        return leaf(path, node)
+
+    return walk((), pool_tree)
 
 
 def opt_state_specs(param_spec_tree):

@@ -98,26 +98,83 @@ def _pairs(ref, port):
 
 @pytest.mark.parametrize("text", MESHES)
 def test_specs_match_reference(text):
+    """The baseline layout, and each of the reference's other layouts:
+    no FSDP, the batch and activations over ``model`` too (``"dp"``),
+    and the weight-stationary decode cache (``force_seq_shard``)."""
     mesh = S.parse_mesh(text)
     for arch in ARCH_IDS:
         cfg, jcfg = get_arch(arch), j_get_arch(arch)
-        pairs = list(_pairs(JS.param_specs(jcfg, mesh),
-                            S.param_specs(cfg, mesh)))
-        assert pairs and all(_same(r, p) for r, p in pairs)
+        for fsdp in (True, False):
+            pairs = list(_pairs(JS.param_specs(jcfg, mesh, fsdp=fsdp),
+                                S.param_specs(cfg, mesh, fsdp=fsdp)))
+            assert pairs and all(_same(r, p) for r, p in pairs)
         for sname, shape in SHAPES.items():
-            assert all(_same(r, p) for r, p in _pairs(
-                JS.batch_specs(jcfg, J_SHAPES[sname], mesh),
-                S.batch_specs(cfg, shape, mesh)))
+            for layout in ("tp", "dp"):
+                jshape = J_SHAPES[sname]
+                assert all(_same(r, p) for r, p in _pairs(
+                    JS.batch_specs(jcfg, jshape, mesh, layout),
+                    S.batch_specs(cfg, shape, mesh, layout)))
+                assert _same(JS.act_spec_for(jcfg, jshape, mesh, layout),
+                             S.act_spec_for(cfg, shape, mesh, layout))
             if shape.kind != "decode":
                 continue
             j_cache = jax.eval_shape(lambda: j_lm.init_cache(
                 jcfg, shape.global_batch, shape.seq_len))
             cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len,
                                   device="meta")
-            pairs = list(_pairs(JS.cache_specs(jcfg, mesh, J_SHAPES[sname],
-                                               j_cache),
-                                S.cache_specs(cfg, mesh, shape, cache)))
-            assert all(_same(r, p) for r, p in pairs)
+            for seq in (False, True):
+                pairs = list(_pairs(
+                    JS.cache_specs(jcfg, mesh, J_SHAPES[sname], j_cache,
+                                   force_seq_shard=seq),
+                    S.cache_specs(cfg, mesh, shape, cache,
+                                  force_seq_shard=seq)))
+                assert all(_same(r, p) for r, p in pairs)
+
+
+def test_layout_options_reach_the_roofline():
+    """``analyze``'s layout options give the reference's FLOPs, and each
+    term equals the reference's once multiplied back by its own constant
+    (the port divides by the H100's, the reference by a TPU's)."""
+    from repro.analysis import roofline as JRL
+    from repro.launch import mesh as JM
+    opts = dict(fsdp=False, layout="dp", kv_bytes=1, seq_shard_decode=True)
+    for arch in ("olmoe-1b-7b", "gemma3-1b", "zamba2-7b"):
+        cfg, jcfg = get_arch(arch), j_get_arch(arch)
+        for sname, shape in SHAPES.items():
+            for text in ("2x16x16", "1x4"):
+                mesh = S.parse_mesh(text)
+                got = RL.analyze(cfg, shape, mesh.shape, **opts)
+                want = JRL.analyze(jcfg, J_SHAPES[sname], mesh.shape, **opts)
+                base = RL.analyze(cfg, shape, mesh.shape)
+                assert (got.model_flops, got.hlo_flops) == \
+                    (want.model_flops, want.hlo_flops)
+                for term, mine, theirs in (
+                        ("compute_s", M.PEAK_FLOPS_BF16,
+                         JM.PEAK_FLOPS_BF16),
+                        ("memory_s", M.HBM_BW, JM.HBM_BW),
+                        ("collective_s", M.NVLINK_BW, JM.ICI_BW)):
+                    assert getattr(got, term) * mine == pytest.approx(
+                        getattr(want, term) * theirs, rel=1e-12), term
+                if shape.kind == "decode":
+                    assert got.memory_s < base.memory_s
+                if shape.kind == "train" and mesh.devices > 1:
+                    assert got.collective_s != base.collective_s
+
+
+def test_all_cells_and_the_roofline_table():
+    from repro.configs import all_cells as j_all_cells
+    from repro_torch.configs import all_cells
+    # the same cells and verdicts (the port words its reasons its own way)
+    assert [c[:3] for c in all_cells()] == [c[:3] for c in j_all_cells()]
+    assert len(list(all_cells())) == 40
+    cfg = get_arch("paper-moe-100m")
+    rl = RL.analyze(cfg, SHAPES["train_4k"], S.parse_mesh("1x4").shape)
+    header, rule = RL.HEADER.split("\n")
+    cols = header.count("|") - 1
+    assert rule.count("|") - 1 == cols
+    row = rl.row()
+    assert row.count("|") - 1 == cols and row.startswith(
+        "| paper-moe-100m | train_4k |")
 
 
 def test_bytes_per_device_follow_the_specs():

@@ -61,7 +61,7 @@ def test_cli_prints_pass_and_skip_and_writes_json(tmp_path, capsys):
 
 
 def test_cli_reports_a_failed_cell(tmp_path, capsys, monkeypatch):
-    def broken(cfg, shape, remat="none"):
+    def broken(cfg, shape, remat="none", kv_dtype=None):
         raise ValueError("shape mismatch")
     monkeypatch.setattr(dryrun, "trace_step", broken)
     rc = dryrun.main(["--arch", "paper-moe-100m", "--shape", "decode_32k",
@@ -69,6 +69,46 @@ def test_cli_reports_a_failed_cell(tmp_path, capsys, monkeypatch):
     assert rc == 1
     assert "FAIL paper-moe-100m x decode_32k x 1x1: shape mismatch" in \
         capsys.readouterr().out
+
+
+def test_layout_flags_reach_the_records(tmp_path, capsys):
+    """``--kv-dtype f8`` halves a decode cell's attention-cache bytes and
+    its roofline's cache traffic; ``--layout dp``, ``--force-seq-shard``
+    and ``--microbatches`` reach the record, its specs and its terms."""
+    def cell(*flags):
+        out = tmp_path / "d.json"
+        rc = dryrun.main(["--arch", "paper-moe-100m", "--shape",
+                          "decode_32k", "--mesh", "2x2", "--out", str(out),
+                          *flags])
+        assert rc == 0
+        (rec,) = json.loads(out.read_text())
+        return rec
+
+    bf16, f8 = cell(), cell("--kv-dtype", "f8")
+    assert (bf16["kv_dtype"], f8["kv_dtype"]) == ("bf16", "f8")
+    assert f8["bytes_per_device"]["cache"] * 2 == \
+        bf16["bytes_per_device"]["cache"] > 0
+    assert f8["bytes_per_device"]["params"] == \
+        bf16["bytes_per_device"]["params"]
+    assert f8["step_bytes_per_device"] < bf16["step_bytes_per_device"]
+    assert (bf16["layout"], bf16["force_seq_shard"]) == ("tp", False)
+    dp = cell("--layout", "dp", "--force-seq-shard")
+    assert (dp["layout"], dp["force_seq_shard"]) == ("dp", True)
+    assert dp["act_spec"] == [["data", "model"], None, None]
+    assert dp["batch_specs"]["tokens"] == [["data", "model"], None]
+    assert bf16["act_spec"] == [["data"], None, None]
+    # weight-stationary decode: each device reads a quarter of the
+    # weights, not the half of its 2 model ways
+    assert dp["step_bytes_per_device"] < bf16["step_bytes_per_device"]
+    assert dp["roofline"]["memory_s"] < bf16["roofline"]["memory_s"]
+    (mb,) = dryrun.dry_cell(get_arch("paper-moe-100m"), SHAPES["train_4k"],
+                            MESHES[:1], microbatches=4)
+    (one,) = dryrun.dry_cell(get_arch("paper-moe-100m"), SHAPES["train_4k"],
+                             MESHES[:1])
+    assert (mb["microbatches"], one["microbatches"]) == \
+        (4, SHAPES["train_4k"].microbatches)
+    assert mb["bytes_per_device"]["transient"] != \
+        one["bytes_per_device"]["transient"]
 
 
 def test_recurrent_training_cells_pass(tmp_path, capsys):

@@ -227,7 +227,7 @@ def test_drain_and_join_refuse_bad_input():
     with pytest.raises(ValueError):
         eng.drain_pool(3)                   # no such pool
     with pytest.raises(ValueError):
-        eng.add_pool(placement="cuda:1")    # placements are not ported
+        eng.add_pool(placement="cuda:1")    # another device type
     lid = eng.add_pool()
     eng.drain_pool(0)
     with pytest.raises(ValueError):
@@ -309,7 +309,7 @@ def test_request_served_after_pool_zero_drained_away():
     _assert_oracle("gemma3-1b", prompts, 6, reqs)
     pools = eng._inspect("status")["pools"]
     assert pools == [{"id": 1, "lid": 1, "slots": 2, "free": 2,
-                      "draining": False}]
+                      "draining": False, "devices": None}]
 
 
 def test_pool_id_namespaces_engines_sharing_one_engine():
