@@ -83,8 +83,8 @@ def main() -> int:
     toks = srv.generate(prompts, MAX_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    _, busy_us, _ = device_trace(torch, lambda: srv.generate(prompts,
-                                                             MAX_NEW))
+    _, busy_us, _, _ = device_trace(
+        torch, lambda: srv.generate(prompts, MAX_NEW))
     out.update(serve_wall_s=wall, serve_gen_tok_s=toks.size / wall,
                serve_device_us=busy_us, serve_busy=busy_us / 1e6 / wall,
                serve_ticks=srv.engine().tick_no)

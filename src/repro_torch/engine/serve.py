@@ -137,11 +137,18 @@ position; ``pool_id`` offsets the pools' cost-kind ids
 **Device-placed pools** (``placements={lid: placement}``,
 ``add_pool(placement=...)``): a pool may own a device group, a device,
 its name or a sequence of them, made a pool mesh at ``serve.pool_tp``
-(``runtime.sharding.pool_mesh``).  Its rows live on the group's device,
-and it reads the weights through ``_params_for``: one copy per device
-group, made by ``serving_params`` (which keeps a tensor already on the
-device, so a pool placed on the engine's own card reads the engine's
-tensors), cached by ``SlotPool.devices()`` and dropped with the graphs on
+(``runtime.sharding.pool_mesh``).  Its rows lie on the group as
+``runtime.sharding.pool_shards`` says: split over ``data`` where it
+divides the slots (each shard's rows and its tick on its own row of the
+group; a tick enqueues every shard before it makes its one host copy),
+else whole on the group's first row; at ``pool_tp`` > 1 a pool's rows
+split by heads and its step is ``models.tp``'s tensor-parallel step.  A
+group may name one card several times: every split and every shard's
+step runs there, one after the other.  A placed pool reads the weights
+through ``_params_for``: one copy per device group of its rows, made by
+``serving_params`` (which keeps a tensor already on the device, so a pool
+placed on the engine's own card reads the engine's tensors) or, at
+``pool_tp`` > 1, ``tp.split_params``, and dropped with the graphs on
 every publish.  Each device has its own ``SlotTick`` (graphed on a card,
 eager on the CPU) and graph memory pool.  Placement feeds the decisions:
 with placements a candidate carries the ``load`` term (the occupied share
@@ -152,13 +159,13 @@ round's winner is joined by plain ticks of the other placed pools whose
 device groups are disjoint from it and from each other
 (``_group_plans``): every tick is enqueued before any is awaited (a
 tick's dispatch ends on the device, its commit makes its one host copy),
-and each pool's time runs from the round's start.  A migration between
-devices moves each row leaf with one copy and carries a sampled
-request's generator state into a generator of the destination.  A pool
-mesh of more than one device (``data`` > 1 or ``pool_tp`` > 1) and a
-placement on another device type than the engine's raise.  Without
-placements every pool sits on the engine's device and every decision is
-the one the engine makes without them.
+and each pool's time runs from the round's start.  A migration moves
+each row leaf between any two layouts, one copy a piece where the device
+differs, and carries a sampled request's generator state into a
+generator of the destination shard's device.  A placement on another
+device type than the engine's raises.  Without placements every pool
+sits on the engine's device and every decision is the one the engine
+makes without them.
 """
 from __future__ import annotations
 
@@ -185,6 +192,7 @@ from repro_torch.engine.prefix_cache import (PrefixAnalyzer, PrefixCache,
 from repro_torch.kernels import LAUNCHES, credit_launches, launches_since
 from repro_torch.models import lm
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import tp as tp_lib
 from repro_torch.runtime import sharding as SH
 from repro_torch.runtime.serve import serving_params
 
@@ -252,7 +260,12 @@ def build_decode_step(cfg: ArchConfig, device,
     tensors in place — the draft reads ``pos`` before the target's advanced
     positions are copied back into it — so a CUDA graph can capture it over
     them.  The MoE routing plans are built once, here: ``decode_step``
-    would build one on every call."""
+    would build one on every call.
+
+    A pool whose rows split by heads over a group of ``tp`` > 1 devices
+    (``SlotPool.tp``) runs the tensor-parallel step ``models.tp``'s, with
+    ``params`` its shards' weights (``tp.split_params``); the draft runs
+    unsplit on the group's first device."""
     plan = _plan(cfg, device)
     dplan = _plan(draft_cfg, device) if draft_cfg is not None else None
 
@@ -264,10 +277,15 @@ def build_decode_step(cfg: ArchConfig, device,
             lm.decode_step(dparams, {"caches": pool.draft, "pos": pool.pos},
                            tok[:, None], draft_cfg, plan=dplan,
                            moe_groups="row", active=active)
-        logits, st = lm.decode_step(params, {"caches": pool.caches,
-                                             "pos": pool.pos},
-                                    tok[:, None], cfg, plan=plan,
-                                    moe_groups="row", active=active)
+        state = {"caches": pool.caches, "pos": pool.pos}
+        if pool.tp > 1:
+            logits, st = tp_lib.decode_step(params, state, tok[:, None], cfg,
+                                            pool.group, plan=plan,
+                                            moe_groups="row", active=active)
+        else:
+            logits, st = lm.decode_step(params, state, tok[:, None], cfg,
+                                        plan=plan, moe_groups="row",
+                                        active=active)
         pool.pos.copy_(st["pos"])
         return logits, torch.argmax(logits, dim=-1)
 
@@ -332,12 +350,22 @@ class GraphedStep:
             step(*state, self.tok, self.active)
         torch.cuda.current_stream(dev).wait_stream(side)
         before = dict(LAUNCHES)
-        self.graph = torch.cuda.CUDAGraph()
+        # the captured graph is kept beside its executable, so that its
+        # nodes can be read (``kernel_nodes``)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(self.graph, pool=mempool):
             self.logits, self.greedy = step(*state, self.tok, self.active)
+        self.graph.instantiate()
         self.per_replay = launches_since(before)
         LAUNCHES.update(before)              # the capture launched nothing
         self.replays = 0
+
+    def kernel_nodes(self):
+        """The kernel name of each kernel node of the captured step: what
+        every replay launches on the device (``kernels.graphs``)."""
+        from repro_torch.kernels.graphs import graph_nodes
+        return [name for kind, name in graph_nodes(self.graph)
+                if kind == "kernel"]
 
     def bound_to(self, *state) -> bool:
         return len(state) == len(self.state) and \
@@ -433,7 +461,9 @@ class SlotTick:
 
     With ``graph`` (a pool on the card) each step runs as a
     ``GraphedStep``, captured on its first use over each (pool, height):
-    a pool's full rows and each compact buffer set are separate states.
+    a pool's full rows, each shard of a split pool and each compact buffer
+    set are separate states.  A tensor-parallel step (a group on one card:
+    ``ServeEngine._as_mesh`` refuses one over distinct cards) is one graph.
     All share one graph memory pool.  The reset zeroing, the token
     select and the valid mask between steps, sampling and the tick's one
     host copy stay outside the graph.  Without it (a CPU pool) the same
@@ -455,15 +485,20 @@ class SlotTick:
 
     @staticmethod
     def key(pool, name: str) -> tuple:
-        return (pool.lid, name, pool.slots)
+        """A graph's key: (pool lid, step name, rows), and for a shard of a
+        split pool its index (-1 for the split pool's compact buffer
+        sets), so that two shards on one card never share a graph."""
+        if pool.shard is None:
+            return (pool.lid, name, pool.slots)
+        return (pool.lid, name, pool.slots, pool.shard)
 
     @property
     def graphed(self) -> Optional[GraphedStep]:
         """The target step graph at full height of the first live pool that
         has one (a retired pool's graphs are dropped, ``drop_pool``); None
         before any capture."""
-        steps = [(lid, g) for (lid, n, _), g in self.graphs.items()
-                 if n == "step"]
+        steps = [(k[0], g) for k, g in self.graphs.items()
+                 if k[1] == "step"]
         if not steps:
             return None
         first = min(lid for lid, _ in steps)
@@ -472,8 +507,8 @@ class SlotTick:
 
     def capture_pending(self, pool, arm: str = "") -> bool:
         need = ("step", "propose") if arm == "draft" else ("step",)
-        return self.graph and any(self.key(pool, n) not in self.graphs
-                                  for n in need)
+        return self.graph and any(
+            self.key(pool, n) not in self.graphs for n in need)
 
     def release(self) -> None:
         """Drop every graph of every pool and height: the next tick
@@ -541,8 +576,7 @@ class SlotTick:
     def _dispatch(self, dev, pool, params, dparams, toks, n_given, active,
                   reset, temps, gens, arm):
         if reset.any():
-            pool.zero_rows(torch.as_tensor(np.flatnonzero(reset),
-                                           device=dev))
+            pool.zero_rows(np.flatnonzero(reset))
         toks = torch.as_tensor(toks, device=dev)
         active_t = torch.as_tensor(active, device=dev)
         run = self.runner("step", params, dparams, pool)
@@ -632,48 +666,110 @@ class SlotPool:
     ``draining`` stops admission to it.  ``compact_rows(n)`` is the pool's
     persistent buffer set of height ``n`` for compact ticks.
 
-    ``mesh`` (a ``runtime.sharding.pool_mesh``) places the pool: every
-    leaf is made on its group's device (one device: ``pool_specs`` then
-    replicates nothing and splits nothing), and ``devices()`` is the
-    group."""
+    ``mesh`` (a ``runtime.sharding.pool_mesh``) places the pool, and
+    ``devices()`` is its group.  The rows lie on it as
+    ``runtime.sharding.pool_shards`` says: where ``data`` > 1 divides the
+    slots, the pool is *split* — ``shards`` are pools of ``slots / data``
+    rows each (``shard`` their index), on their own row of the group, and
+    this pool keeps only the host state (requests, generators, host
+    positions, reset flags) and routes every row operation by slot to
+    ``(shard, row)``; otherwise its rows are its own (``shards`` is
+    ``[self]``), on the group's first row.  A pool's own rows at
+    ``model`` > 1 (``group``, its devices, more than one) split with the
+    heads they belong to (``models.tp.cache_pieces``) for the
+    tensor-parallel step: ``caches`` is then one cache tree a shard of
+    ``models.tp``; the n-gram rows, the positions and a draft's rows (the
+    draft runs unsplit) sit on the group's first device.
+
+    Row operations take host slot indices: ``zero_rows``, ``gather_into``
+    and ``scatter_from`` (between a pool and its compact buffer sets, which
+    have its layout), and ``move_rows``, ``snapshot`` and ``seed_rows``,
+    which go through the rows' layout-free form (every leaf whole, as
+    ``lm.init_cache`` makes it), so a migration or a prefix snapshot moves
+    between pools of any layout."""
 
     def __init__(self, cfg: ArchConfig, slots: int, max_len: int, device,
                  draft_cfg: Optional[ArchConfig] = None, lid: int = 0,
-                 pool_id: Optional[int] = None, mesh=None):
+                 pool_id: Optional[int] = None, mesh=None,
+                 shard: Optional[int] = None, group=None):
         self.cfg, self.max_len, self.draft_cfg = cfg, max_len, draft_cfg
         self.mesh = mesh
-        if mesh is not None:
-            device = mesh.group[0]
         self.lid = lid
         self.pool_id = lid if pool_id is None else pool_id
+        self.shard = shard
         self.draining = False
         self.slots = slots
-        state = lm.init_cache(cfg, slots, max_len, device=device)
-        self.caches = state["caches"]
-        self.pos = state["pos"]
-        self.ng = torch.zeros((slots, cfg.serve.spec_table),
-                              dtype=torch.int32, device=device)
-        self.ctx = torch.zeros((slots, cfg.serve.spec_ctx),
-                               dtype=torch.int32, device=device)
-        self.draft = self.scratch = None
-        if draft_cfg is not None:
-            self.draft = lm.init_cache(draft_cfg, slots, max_len,
-                                       device=device)["caches"]
-            self.scratch = lm.init_cache(draft_cfg, slots, max_len,
-                                         device=device)
         self.pos_host = np.zeros((slots,), np.int64)
         self.reset = np.zeros((slots,), bool)
         self.gens: List[Optional[torch.Generator]] = [None] * slots
         self.active: List[Optional[Request]] = [None] * slots
         self._compact: Dict[int, SlotPool] = {}
+        self.shards: List[SlotPool] = [self]
+        self.bounds = [(0, slots)]
+        if group is None and mesh is not None:
+            parts = SH.pool_shards(mesh, slots)
+            if len(parts) > 1:
+                self.bounds = [(lo, hi) for lo, hi, _ in parts]
+                self.shards = [SlotPool(cfg, hi - lo, max_len, None,
+                                        draft_cfg, lid, self.pool_id, mesh,
+                                        shard=i, group=devs)
+                               for i, (lo, hi, devs) in enumerate(parts)]
+                self.group = parts[0][2]
+                self.caches = self.pos = self.ng = self.ctx = None
+                self.draft = self.scratch = None
+                return
+            group = parts[0][2]
+        self.group = tuple(group) if group is not None else (device,)
+        dev = self.group[0]
+        if len(self.group) > 1:
+            self.caches = tp_lib.init_cache(cfg, slots, max_len,
+                                            len(self.group), self.group)
+            self.pos = torch.zeros((slots,), dtype=torch.long, device=dev)
+        else:
+            state = lm.init_cache(cfg, slots, max_len, device=dev)
+            self.caches, self.pos = state["caches"], state["pos"]
+        self.ng = torch.zeros((slots, cfg.serve.spec_table),
+                              dtype=torch.int32, device=dev)
+        self.ctx = torch.zeros((slots, cfg.serve.spec_ctx),
+                               dtype=torch.int32, device=dev)
+        self.draft = self.scratch = None
+        if draft_cfg is not None:
+            self.draft = lm.init_cache(draft_cfg, slots, max_len,
+                                       device=dev)["caches"]
+            self.scratch = lm.init_cache(draft_cfg, slots, max_len,
+                                         device=dev)
 
     def free_slots(self) -> int:
         return sum(r is None for r in self.active)
 
+    @property
+    def split(self) -> bool:
+        """Whether the rows are split over ``data`` (held by ``shards``)."""
+        return self.shards[0] is not self
+
+    @property
+    def tp(self) -> int:
+        """The tensor-parallel degree of the pool's own rows."""
+        return len(self.shards[0].group)
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the (first shard's) positions, n-gram rows and
+        tick: where the pool's host copies and generators live."""
+        return self.shards[0].pos.device
+
+    def shard_of(self, slot: int) -> "SlotPool":
+        """The pool holding slot ``slot``'s rows (this one, unless split):
+        its device is where the slot's sampling generator lives."""
+        for sh, (lo, hi) in zip(self.shards, self.bounds):
+            if lo <= slot < hi:
+                return sh
+        raise IndexError(f"slot {slot} of a pool of {self.slots}")
+
     def devices(self) -> tuple:
         """The device group the pool's rows live on: its mesh's, or the
-        one device of a pool that is not placed.  The key of the engine's
-        per-group weights and of parallel group ticks' disjointness."""
+        one device of a pool that is not placed.  The key of parallel group
+        ticks' disjointness and of the load term."""
         if self.mesh is not None:
             return self.mesh.group
         return (self.pos.device,)
@@ -683,12 +779,13 @@ class SlotPool:
         device."""
         if isinstance(x, dict):
             return {k: self.put(v) for k, v in x.items()}
-        return x.to(self.pos.device)
+        return x.to(self.device)
 
     def state(self) -> Dict[str, Any]:
-        """The pool's rows and positions as a tree (``pool_specs``'s
-        input): ``caches`` and ``draft`` ``[n, slots, ...]``, ``ng``,
-        ``ctx`` and ``pos`` ``[slots, ...]``."""
+        """The rows and positions of a pool whose rows are whole on one
+        device, as a tree (``pool_specs``'s input): ``caches`` and
+        ``draft`` ``[n, slots, ...]``, ``ng``, ``ctx`` and ``pos``
+        ``[slots, ...]``."""
         out = {"caches": self.caches, "ng": self.ng, "ctx": self.ctx,
                "pos": self.pos}
         if self.draft is not None:
@@ -697,88 +794,223 @@ class SlotPool:
 
     def compact_rows(self, rows: int) -> "SlotPool":
         """The buffer set a compact tick of ``rows`` rows runs on: a pool
-        of ``rows`` slots with this pool's ids, made on first use and kept,
-        so that the graphs captured over it stay bound."""
+        of ``rows`` slots with this pool's ids and the layout of its (first
+        shard's) rows, made on first use and kept, so that the graphs
+        captured over it stay bound."""
         sub = self._compact.get(rows)
         if sub is None:
+            first = self.shards[0]
             sub = self._compact[rows] = SlotPool(
-                self.cfg, rows, self.max_len, self.pos.device,
-                self.draft_cfg, lid=self.lid, pool_id=self.pool_id)
+                self.cfg, rows, self.max_len, None, self.draft_cfg,
+                lid=self.lid, pool_id=self.pool_id, mesh=self.mesh,
+                shard=-1 if self.split else None, group=first.group)
         return sub
 
-    def gather_into(self, sub: "SlotPool", idx) -> None:
-        """Copy rows ``idx`` (a device index tensor) of every per-slot leaf
-        and their positions into ``sub``'s tensors, in place."""
-        for (_, c, dim), (_, cc, _) in zip(self.row_leaves(),
-                                           sub.row_leaves()):
-            cc.copy_(c.index_select(dim, idx))
-        sub.pos.copy_(self.pos.index_select(0, idx))
-
-    def scatter_from(self, sub: "SlotPool", idx) -> None:
-        """Write ``sub``'s rows back into rows ``idx``, in place."""
-        for (_, c, dim), (_, cc, _) in zip(self.row_leaves(),
-                                           sub.row_leaves()):
-            c.index_copy_(dim, idx, cc)
-        self.pos.index_copy_(0, idx, sub.pos)
-
-    def move_rows(self, dst: "SlotPool", src_idx, dst_idx) -> None:
-        """Copy rows ``src_idx`` of every per-slot leaf and their positions
-        into rows ``dst_idx`` of ``dst`` (index tensors on each pool's
-        device): one ``index_select``, one copy to ``dst``'s device where
-        it is another, and one in-place ``index_copy_`` a leaf, so none of
-        ``dst``'s tensors is replaced."""
-        for (_, c, dim), (_, cc, _) in zip(self.row_leaves(),
-                                           dst.row_leaves()):
-            cc.index_copy_(dim, dst_idx,
-                           dst.put(c.index_select(dim, src_idx)))
-        dst.pos.index_copy_(0, dst_idx,
-                            dst.put(self.pos.index_select(0, src_idx)))
-
+    # ------------------------------------------------------------ row ops
     def row_leaves(self):
-        """``(path, tensor, slot dim)`` of every per-slot leaf a snapshot
-        holds: the caches and draft rows have the slot at dim 1, the n-gram
-        table and window at dim 0."""
+        """``(path, tensor, slot dim)`` of every per-slot tensor of the
+        pool's own rows: the caches and draft rows have the slot at dim 1,
+        the n-gram table and window at dim 0.  A cache split by heads
+        lists each piece, its path ending with the piece's key and
+        shard."""
         out = [(("ng",), self.ng, 0), (("ctx",), self.ctx, 0)]
-        for top, caches in (("caches", self.caches), ("draft", self.draft)):
-            for t, leaves in (caches or {}).items():
+        caches = self.caches if isinstance(self.caches, list) \
+            else [self.caches]
+        for j, tree in enumerate(caches):
+            for t, leaves in tree.items():
                 for k, c in leaves.items():
-                    out.append(((top, t, k), c, 1))
+                    path = ("caches", t, k) if len(caches) == 1 \
+                        else ("caches", t, k, j)
+                    out.append((path, c, 1))
+        for t, leaves in (self.draft or {}).items():
+            for k, c in leaves.items():
+                out.append((("draft", t, k), c, 1))
         return out
 
-    def zero_rows(self, rows) -> None:
-        """Zero the pool state and positions of ``rows`` (a device index
-        tensor), in place."""
-        for _, c, dim in self.row_leaves():
-            c.index_fill_(dim, rows, 0)
-        self.pos.index_fill_(0, rows, 0)
+    def _canon(self):
+        """``(path, slot dim, pieces)`` of every leaf of the pool's own
+        rows in the layout-free form, ``pieces`` ``[(tensor, dim, lo,
+        hi)]``: the piece holds the leaf's ``[lo, hi)`` along ``dim``, or
+        all of it (``dim`` None)."""
+        if not isinstance(self.caches, list):
+            return [(p, d, [(c, None, 0, 0)])
+                    for p, c, d in self.row_leaves()]
+        out = [(("ng",), 0, [(self.ng, None, 0, 0)]),
+               (("ctx",), 0, [(self.ctx, None, 0, 0)])]
+        for (t, k), pieces in tp_lib.cache_pieces(self.cfg,
+                                                  self.tp).items():
+            out.append((("caches", t, k), 1,
+                        [(self.caches[j][t][key], dim, lo, hi)
+                         for j, key, dim, lo, hi in pieces]))
+        for t, leaves in (self.draft or {}).items():
+            for k, c in leaves.items():
+                out.append((("draft", t, k), 1, [(c, None, 0, 0)]))
+        return out
+
+    def _routes(self, slots):
+        """``[(shard pool, its rows, positions in slots)]`` of host slot
+        indices ``slots``; an index tensor (on the device) goes as it is
+        to a pool that is not split, so that a row copy can be captured
+        in a CUDA graph."""
+        if isinstance(slots, torch.Tensor):
+            if not self.split:
+                return [(self, slots, None)]
+            slots = slots.tolist()
+        slots = [int(s) for s in slots]
+        if not self.split:
+            return [(self, slots, list(range(len(slots))))]
+        out = []
+        for sh, (lo, hi) in zip(self.shards, self.bounds):
+            at = [i for i, s in enumerate(slots) if lo <= s < hi]
+            if at:
+                out.append((sh, [slots[i] - lo for i in at], at))
+        return out
+
+    @staticmethod
+    def _index(rows, device, memo=None):
+        """``rows`` as an index tensor on ``device``, made once a device
+        where ``memo`` (a dict) is given."""
+        if isinstance(rows, torch.Tensor):
+            return rows.to(device)
+        if memo is None:
+            return torch.as_tensor(rows, dtype=torch.long, device=device)
+        got = memo.get(device)
+        if got is None:
+            got = memo[device] = torch.as_tensor(rows, dtype=torch.long,
+                                                 device=device)
+        return got
+
+    def zero_rows(self, slots) -> None:
+        """Zero the rows and positions of host slot indices ``slots``, in
+        place."""
+        for sh, rows, _ in self._routes(slots):
+            memo = {}
+            for _, c, dim in sh.row_leaves():
+                c.index_fill_(dim, self._index(rows, c.device, memo), 0)
+            sh.pos.index_fill_(0, self._index(rows, sh.pos.device, memo), 0)
+
+    def gather_into(self, sub: "SlotPool", slots) -> None:
+        """Copy slots ``slots`` (host indices) of every per-slot tensor and
+        their positions into rows ``0..len(slots)-1`` of ``sub`` (a pool of
+        this pool's row layout: a compact buffer set), in place."""
+        for sh, rows, at in self._routes(slots):
+            at = range(len(rows)) if at is None else at
+            whole, src, dst = list(at) == list(range(sub.slots)), {}, {}
+            for (_, c, dim), (_, cc, _) in zip(
+                    sh.row_leaves() + [(None, sh.pos, 0)],
+                    sub.row_leaves() + [(None, sub.pos, 0)]):
+                v = c.index_select(dim, self._index(rows, c.device, src)) \
+                    .to(cc.device)
+                if whole:
+                    cc.copy_(v)
+                else:
+                    cc.index_copy_(dim, self._index(list(at), cc.device,
+                                                    dst), v)
+
+    def scatter_from(self, sub: "SlotPool", slots) -> None:
+        """Write ``sub``'s rows ``0..len(slots)-1`` back into slots
+        ``slots``, in place."""
+        for sh, rows, at in self._routes(slots):
+            at = range(len(rows)) if at is None else at
+            whole, src, dst = list(at) == list(range(sub.slots)), {}, {}
+            for (_, c, dim), (_, cc, _) in zip(
+                    sh.row_leaves() + [(None, sh.pos, 0)],
+                    sub.row_leaves() + [(None, sub.pos, 0)]):
+                v = cc if whole else cc.index_select(
+                    dim, self._index(list(at), cc.device, src))
+                c.index_copy_(dim, self._index(rows, c.device, dst),
+                              v.to(c.device))
+
+    def read_rows(self, slots, pos: bool = False) -> Dict[tuple, Any]:
+        """Slots ``slots``' rows in the layout-free form, ``{path:
+        [.., len(slots), ..]}`` on the pool's device (with ``pos`` their
+        positions under ``("pos",)``)."""
+        routes = self._routes(slots)
+        parts = []
+        for sh, rows, _ in routes:
+            got, memo = {}, {}
+            for path, dim, pieces in sh._canon():
+                vals = [t.index_select(dim, self._index(rows, t.device, memo))
+                        .to(self.device) for t, _, _, _ in pieces]
+                got[path] = vals[0] if len(vals) == 1 else \
+                    torch.cat(vals, pieces[0][1])
+            if pos:
+                got[("pos",)] = sh.pos.index_select(
+                    0, self._index(rows, sh.pos.device, memo)).to(self.device)
+            parts.append(got)
+        if len(parts) == 1:
+            return parts[0]
+        order = [i for _, _, at in routes for i in at]
+        back = self._index(np.argsort(order), self.device)
+        dims = {p: d for p, d, _ in self.shards[0]._canon()}
+        dims[("pos",)] = 0
+        return {p: torch.cat([g[p] for g in parts], dims[p])
+                .index_select(dims[p], back) for p in parts[0]}
+
+    def write_rows(self, slots, vals: Dict[tuple, Any]) -> None:
+        """Write ``vals`` (``read_rows``' form, rows in the order of
+        ``slots``) into slots ``slots``, in place, with one copy to each
+        piece's device where it is another."""
+        dims = {p: d for p, d, _ in self.shards[0]._canon()}
+        dims[("pos",)] = 0
+        for sh, rows, at in self._routes(slots):
+            src, dst = {}, {}
+
+            def mine(p):
+                v = vals[p]
+                if self.split:
+                    v = v.index_select(dims[p],
+                                       self._index(at, v.device, src))
+                return v
+
+            for path, dim, pieces in sh._canon():
+                if path not in vals:
+                    continue
+                v = mine(path)
+                for t, fdim, lo, hi in pieces:
+                    part = v if fdim is None else v.narrow(fdim, lo, hi - lo)
+                    t.index_copy_(dim, self._index(rows, t.device, dst),
+                                  part.to(t.device))
+            if ("pos",) in vals:
+                sh.pos.index_copy_(0, self._index(rows, sh.pos.device, dst),
+                                   mine(("pos",)).to(sh.pos.device))
+
+    def move_rows(self, dst: "SlotPool", src_slots, dst_slots) -> None:
+        """Copy slots ``src_slots`` of every per-slot leaf and their
+        positions into slots ``dst_slots`` of ``dst`` (host indices; any
+        two layouts): one ``index_select`` a piece, one copy to ``dst``'s
+        device where it is another, and one in-place ``index_copy_`` a
+        piece, so none of ``dst``'s tensors is replaced."""
+        dst.write_rows(dst_slots, self.read_rows(src_slots, pos=True))
 
     def snapshot(self, slot: int) -> Dict[str, Any]:
         """Slot ``slot``'s whole row as host tensors, nested as
         ``{"caches": {type: {leaf}}, "ng", "ctx"[, "draft"]}``."""
         row: Dict[str, Any] = {}
-        for path, c, dim in self.row_leaves():
+        dims = {p: d for p, d, _ in self.shards[0]._canon()}
+        for path, v in self.read_rows([slot]).items():
             node = row
             for key in path[:-1]:
                 node = node.setdefault(key, {})
-            node[path[-1]] = c.select(dim, slot)
+            node[path[-1]] = v.select(dims[path], 0)
         return to_host(row)
 
     def seed_rows(self, slots: List[int], rows: List[Dict[str, Any]],
                   pos: List[int]) -> None:
         """Write snapshot ``rows`` into ``slots`` and set their positions,
-        one batched in-place copy per leaf.  Writing the whole row subsumes
-        the reset zeroing: a seeded slot starts from the snapshot state as
-        a reset slot starts from zeros."""
-        dev = self.pos.device
-        idx = torch.as_tensor(slots, device=dev)
-        for path, c, dim in self.row_leaves():
-            vals = []
+        one batched in-place copy per piece.  Writing the whole row
+        subsumes the reset zeroing: a seeded slot starts from the snapshot
+        state as a reset slot starts from zeros."""
+        vals = {}
+        for path, dim, _ in self.shards[0]._canon():
+            leaf = []
             for r in rows:
                 for key in path:
                     r = r[key]
-                vals.append(r)
-            c.index_copy_(dim, idx, self.put(torch.stack(vals, dim)))
-        self.pos.index_copy_(0, idx, torch.as_tensor(pos, device=dev))
+                leaf.append(r)
+            vals[path] = self.put(torch.stack(leaf, dim))
+        vals[("pos",)] = torch.as_tensor(pos, device=self.device)
+        self.write_rows(slots, vals)
 
 
 @dataclasses.dataclass
@@ -975,11 +1207,12 @@ class ServeEngine:
     def _as_mesh(self, plc) -> SH.Mesh:
         """A placement (a pool mesh, a device, its name or a sequence of
         them) as a pool mesh at ``serve.pool_tp``; a card without an index
-        (``"cuda"``) is the engine's own.  Only a mesh of one device of the
-        engine's type runs: rows split over several cards (``data`` > 1)
-        and a tensor-parallel decode step (``pool_tp`` > 1) are not
-        ported, and a sampled request's generator moves between pools only
-        within one device type."""
+        (``"cuda"``) is the engine's own.  A group may name several
+        devices, or one device several times (a group on one card: every
+        split and every shard's step runs, one after the other).  Every
+        device must be of the engine's type: a sampled request's generator
+        moves between pools only within one device type.  The ``model``
+        devices of each ``data`` row must be one card."""
         if isinstance(plc, SH.Mesh):
             raw = plc.group
         else:
@@ -993,30 +1226,35 @@ class ServeEngine:
                     "request's sampling generator cannot carry its stream "
                     "between a CPU and a CUDA generator)")
             group.append(self._home if d.index is None else d)
-        tp = self.cfg.serve.pool_tp
-        if len(group) != 1 or tp > 1:
+        mesh = plc._replace(group=tuple(group)) if isinstance(
+            plc, SH.Mesh) else SH.pool_mesh(group, self.cfg.serve.pool_tp)
+        t = mesh.shape.get("model", 1)
+        if any(len(set(group[i:i + t])) > 1 for i in range(0, len(group), t)):
             raise ValueError(
-                f"a pool mesh over {len(group)} device(s) at pool_tp={tp}: "
-                "a pool split over several cards (data > 1) or a "
-                "tensor-parallel decode step (pool_tp > 1) is not ported; "
-                "its specs are (runtime.sharding.pool_specs), its run "
-                "waits for two cards (ROADMAP.md queue 1: pools over "
-                "several cards)")
-        return plc if isinstance(plc, SH.Mesh) else SH.pool_mesh(group)
+                f"a tensor-parallel pool over distinct cards {group}: its "
+                "step is captured as one graph on one card, and the form "
+                "across cards (a graph per card, the copies between them "
+                "outside) waits for a machine with two cards (ROADMAP.md, "
+                "queue 1, item 8)")
+        return mesh
 
     def _params_for(self, sp: SlotPool):
         """(weights, draft weights) a pool's ticks read: the engine's own
-        for a pool that is not placed; for a placed pool a copy per device
-        group (``serving_params`` keeps a tensor already on the device, so
-        a group on the engine's card reads the engine's tensors), cached by
-        ``sp.devices()`` and remade when ``update`` rebinds the weights or
-        the draft."""
+        for a pool that is not placed; for a placed pool's rows (a whole
+        pool, a shard of a split one or a compact buffer set) a copy per
+        device group of the rows, ``sp.group`` (``serving_params`` keeps a
+        tensor already on the device, so a group on the engine's card
+        reads the engine's tensors; at ``pool_tp`` > 1 each shard's slices,
+        ``tp.split_params``), remade when ``update`` rebinds the weights or
+        the draft.  The draft runs unsplit on the group's first device."""
         if sp.mesh is None:
             return self.params, self.draft_params
-        ent = self._pool_params.setdefault(sp.devices(), {})
-        dev = sp.pos.device
+        ent = self._pool_params.setdefault(sp.group, {})
+        dev = sp.group[0]
         if ent.get("src") is not self.params:
-            ent["params"] = serving_params(self.params, dev)
+            ent["params"] = serving_params(self.params, dev) \
+                if len(sp.group) == 1 else tp_lib.split_params(
+                    self.params, self.cfg, len(sp.group), sp.group)
             ent["src"] = self.params
         if self.draft_cfg is not None and \
                 ent.get("dsrc") is not self.draft_params:
@@ -1039,9 +1277,10 @@ class ServeEngine:
         return occ / tot if tot else 0.0
 
     def _tick_for(self, sp: SlotPool) -> SlotTick:
-        """The tick of the pool's device, made on first use: graphed on a
-        card, with a graph memory pool of its own, eager on the CPU."""
-        dev = sp.pos.device
+        """The tick of the device of a pool's rows (a shard's, for a shard
+        of a split pool), made on first use: graphed on a card, with a
+        graph memory pool of its own, eager on the CPU."""
+        dev = sp.device
         tick = self._ticks.get(dev)
         if tick is None:
             tick = self._ticks[dev] = SlotTick(
@@ -1125,9 +1364,11 @@ class ServeEngine:
         buffer sets and a weights copy no live pool reads."""
         self.pools.remove(sp)
         self.placements.pop(sp.lid, None)
-        self._tick_for(sp).drop_pool(sp.lid)
+        for tick in self._ticks.values():
+            tick.drop_pool(sp.lid)
         sp._compact.clear()
-        live = {o.devices() for o in self.pools if o.mesh is not None}
+        live = {sh.group for o in self.pools if o.mesh is not None
+                for sh in o.shards}
         for key in [k for k in self._pool_params if k not in live]:
             del self._pool_params[key]
 
@@ -1150,9 +1391,8 @@ class ServeEngine:
         free = [s for s in range(dst.slots) if dst.active[s] is None]
         assert 0 < k <= len(free)
         dst_slots = free[:k]
-        src_dev, dst_dev = src.pos.device, dst.pos.device
-        src_idx = torch.as_tensor([s for s, _ in moves], device=src_dev)
-        dst_idx = torch.as_tensor(dst_slots, device=dst_dev)
+        src_slots = [s for s, _ in moves]
+        devs = {g for sp in (src, dst) for sh in sp.shards for g in sh.group}
         ntok = max(int(sum(src.pos_host[s] for s, _ in moves)), 1)
         warm = ("migrate", k)
         cold = warm not in self._warm
@@ -1162,14 +1402,15 @@ class ServeEngine:
                    meta={"cold": cold})
 
         def thunk():
-            src.move_rows(dst, src_idx, dst_idx)
-            self._sync(src_dev, dst_dev)
+            src.move_rows(dst, src_slots, dst_slots)
+            self._sync(*devs)
 
         self.engine.run_job(job, thunk, extra=(pjob,))
         for (s, r), d in zip(moves, dst_slots):
             gen = src.gens[s]
-            if gen is not None and gen.device != dst_dev:
-                moved = torch.Generator(device=dst_dev)
+            to = dst.shard_of(d).device
+            if gen is not None and gen.device != to:
+                moved = torch.Generator(device=to)
                 moved.set_state(gen.get_state())
                 gen = moved
             dst.active[d], src.active[s] = r, None
@@ -1280,7 +1521,7 @@ class ServeEngine:
 
         def thunk():
             out = fn()
-            self._sync(sp.pos.device)
+            self._sync(*{g for sh in sp.shards for g in sh.group})
             return out
 
         return self.engine.run_job(job, thunk, extra=(pjob,))
@@ -1382,7 +1623,7 @@ class ServeEngine:
                 sp.pos_host[slot] = 0
             if req.temperature > 0:
                 sp.gens[slot] = torch.Generator(
-                    device=sp.pos.device).manual_seed(req.seed)
+                    device=sp.shard_of(slot).device).manual_seed(req.seed)
         self.queue = remaining
         for pid, ss in seeds.items():
             sp = self._pool(pid)
@@ -1416,12 +1657,7 @@ class ServeEngine:
                            "max_new": r.max_new, "priority": r.priority,
                            "deferred": r.deferred}
                           for r in self.active],
-                "pools": [{"id": sp.pool_id, "lid": sp.lid,
-                           "slots": sp.slots, "free": sp.free_slots(),
-                           "draining": sp.draining,
-                           "devices": ([str(d) for d in sp.devices()]
-                                       if sp.mesh is not None else None)}
-                          for sp in self.pools],
+                "pools": [self._pool_status(sp) for sp in self.pools],
                 "migrated_slots": self.migrated_slots,
                 "placement": {"placed_pools": len(self.placements),
                               "migrated_slots": self.migrated_slots,
@@ -1440,6 +1676,24 @@ class ServeEngine:
                              if self.autotuner is not None
                              else {"enabled": False}),
                 "engine": self.engine.inspect()}
+
+    @staticmethod
+    def _pool_status(sp: SlotPool) -> Dict[str, Any]:
+        """A pool's entry in ``_inspect()["pools"]``; a placed pool's
+        ``layout`` says how its rows lie on its devices: ``rows`` "split"
+        (over ``data``: each shard's slots and devices) or "whole" (on the
+        group's first row: one data row, or a slot count that ``data`` does
+        not divide), and the tensor-parallel degree ``tp``."""
+        out = {"id": sp.pool_id, "lid": sp.lid, "slots": sp.slots,
+               "free": sp.free_slots(), "draining": sp.draining,
+               "devices": None}
+        if sp.mesh is not None:
+            out["devices"] = [str(d) for d in sp.devices()]
+            out["layout"] = {
+                "rows": "split" if sp.split else "whole", "tp": sp.tp,
+                "shards": [[lo, hi, [str(d) for d in sh.group]]
+                           for sh, (lo, hi) in zip(sp.shards, sp.bounds)]}
+        return out
 
     def _apply_updates(self, updates: Dict[str, Any]) -> None:
         if "max_prefill_defer" in updates:
@@ -1697,8 +1951,12 @@ class ServeEngine:
         # on the pool's buffer set of that height; the config pins the
         # choice or Engine.choose_compact makes it from measured EMAs
         part_slots = [r.slot for r in part]
+        # (a split pool's compact tick runs on its first shard's devices,
+        # so only where every shard shares them: a sampled row's generator
+        # lives on its own shard's device)
         compact_ok = mode != "prefill" \
-            and len(part) <= int(sp.slots * self.compact_frac)
+            and len(part) <= int(sp.slots * self.compact_frac) \
+            and (not sp.split or len(set(sp.devices())) == 1)
         compact = compact_ok and (
             self.compact_decode if self.compact_decode is not None
             else self.engine.choose_compact(sp.pool_id))
@@ -1710,11 +1968,17 @@ class ServeEngine:
             if nc < sp.slots:
                 pads = [s for s in range(sp.slots) if s not in part_slots]
                 idx = np.asarray(part_slots + pads[:nc - len(part)])
-        # a compact tick as high as the pool runs on the pool itself
+        # a compact tick as high as the pool runs on the pool itself, and a
+        # split pool's full tick on each shard's rows, each on its device
         run_on = sp.compact_rows(len(idx)) if len(idx) < sp.slots else sp
-        tick = self._tick_for(sp)
+        runs = [(run_on, idx)] if run_on is not sp or not sp.split else \
+            [(sh, np.arange(lo, hi)) for sh, (lo, hi) in zip(sp.shards,
+                                                              sp.bounds)]
+        ticks = [(self._tick_for(r), r, rows) + self._params_for(r)
+                 for r, rows in runs]
         warm = (sp.lid, arm, L, len(idx))
-        cold = warm not in self._warm or tick.capture_pending(run_on, arm)
+        cold = warm not in self._warm or any(
+            t.capture_pending(r, arm) for t, r, *_ in ticks)
         self._warm.add(warm)
         kind = "serve_prefill" if mode == "prefill" \
             else spec_kind(arm) if spec else "serve_decode"
@@ -1733,25 +1997,31 @@ class ServeEngine:
             extras.append(Job(layout_kind(compact, sp.pool_id),
                               tokens=ntok, meta={"cold": cold}))
         reset = sp.reset.copy()
-        params, dparams = self._params_for(sp)
 
         def dispatch():
-            if run_on is sp:
-                return tick.dispatch(sp, params, dparams, toks, n_given,
-                                     active, reset, temps, sp.gens, arm=arm)
             # the compact tick: gather the rows into the buffer set, tick
-            # it (its reset rows zeroed there), write them back in place
-            rows = torch.as_tensor(idx, device=sp.pos.device)
-            sp.gather_into(run_on, rows)
-            out = tick.dispatch(run_on, params, dparams, toks[idx],
-                                n_given[idx], active[idx], reset[idx],
-                                temps[idx], [sp.gens[s] for s in idx],
-                                arm=arm)
-            sp.scatter_from(run_on, rows)
-            return out
+            # it (its reset rows zeroed there), write them back in place;
+            # every shard's tick is enqueued before any is awaited
+            if run_on is not sp:
+                sp.gather_into(run_on, idx)
+            outs = [t.dispatch(r, params, dparams, toks[rows], n_given[rows],
+                               active[rows], reset[rows], temps[rows],
+                               [sp.gens[s] for s in rows], arm=arm)
+                    for t, r, rows, params, dparams in ticks]
+            if run_on is not sp:
+                sp.scatter_from(run_on, idx)
+            return outs
 
-        def finish(out):
-            em_r, nv_r = tick.collect(*out)
+        def finish(outs):
+            if len(outs) == 1:
+                em_r, nv_r = ticks[0][0].collect(*outs[0])
+            else:
+                # the shards' tokens gathered on the first shard's device:
+                # the tick's one host copy
+                out = torch.cat([o.to(sp.device) for o, _ in outs])
+                nv = None if outs[0][1] is None else \
+                    np.concatenate([n for _, n in outs])
+                em_r, nv_r = ticks[0][0].collect(out, nv)
             if run_on is sp:
                 return sp.pos, em_r, nv_r
             em = np.zeros((sp.slots, L), em_r.dtype)

@@ -43,6 +43,10 @@ For every cell that ``cell_applicable`` admits it
     most how many layers would: the bytes at full depth and at one layer
     (a second trace of ``cut(cfg, 1)``) set a line in the layer count.
 
+``--mesh`` takes sizes (``1x4``: data x model, ``2x16x16``: pod x data x
+model) or ``production`` and ``production2``: the H100 production mesh of
+one and two pods (``launch.mesh.production_mesh``, 32 x 8 and 2 x 32 x 8).
+
 It prints ``PASS``/``FAIL``/``SKIP`` a cell, writes the records as JSON to
 ``--out``, and exits 1 if any cell failed.
 """
@@ -71,7 +75,7 @@ from repro_torch.kernels.mamba2_ssd.mamba2_ssd import \
     bwd_scratch as mamba2_scratch
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import \
     bwd_scratch as rwkv6_scratch
-from repro_torch.launch.mesh import HBM_BYTES
+from repro_torch.launch.mesh import HBM_BYTES, production_mesh
 from repro_torch.models import lm
 from repro_torch.models import moe as moe_lib
 from repro_torch.optim import adamw
@@ -398,10 +402,21 @@ def dry_cell(cfg: ArchConfig, shape: ShapeCfg, meshes, remat: str = "none",
     return records
 
 
+def _mesh(text: str):
+    """A ``--mesh`` entry: ``"production"``/``"production2"`` (the H100
+    production mesh, one or two pods: ``launch.mesh.production_mesh``) or
+    sizes as ``"1x4"``."""
+    if text in ("production", "production2"):
+        return production_mesh(multi_pod=text == "production2")
+    return SH.parse_mesh(text)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mesh", default="1x1,1x4",
-                    help="meshes, data x model (or pod x data x model)")
+                    help="meshes, data x model (or pod x data x model), "
+                         "or production (H100 nodes: 32 x 8) and "
+                         "production2 (2 x 32 x 8)")
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--remat", default="none", choices=("none", "dots",
@@ -422,7 +437,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
     archs = ARCH_IDS if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
-    meshes = [SH.parse_mesh(m) for m in args.mesh.split(",")]
+    meshes = [_mesh(m) for m in args.mesh.split(",")]
     results = []
     for a in archs:
         cfg = get_arch(a)

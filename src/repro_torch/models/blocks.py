@@ -103,9 +103,11 @@ def _self_attention(cfg, p, x, ctx, window=None, causal=True):
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
 
 
-def _decode_attention(cfg, p, x, cache, ctx, window=None, rolling=False):
+def _decode_attention(cfg, p, x, cache, ctx, window=None, rolling=False,
+                      project=True):
     """x [B,1,D] (normed); writes this token's K/V into ``cache`` in place
-    and returns the attention output projected back to [B,1,D].  A
+    and returns the attention output projected back to [B,1,D] (without
+    ``project``: the heads' output [B,1,H*hd] before ``wo``).  A
     ``rolling`` cache is a ring: row ``pos % Smax``."""
     pos = ctx["pos"]                                     # [B]
     q, k, v = _project_qkv(cfg, p, x)
@@ -127,7 +129,8 @@ def _decode_attention(cfg, p, x, cache, ctx, window=None, rolling=False):
         c[rows, widx] = new
     out = attn_lib.decode_attention(q, cache["k"], cache["v"], pos,
                                     window=window, rolling=rolling)
-    return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
+    return out @ p["wo"].to(x.dtype) if project else out
 
 
 def attn_cache(cfg: ArchConfig, batch: int, smax: int, kv_dtype, device):
@@ -200,7 +203,8 @@ def _moe_ffn(p, h, ctx):
     "batch" groups only) the experts are parallel over its ``model`` dim,
     as ``ctx["layout"]`` says (``moe.moe_ffn``: "tp" ``moe_ffn_sharded``,
     "dp" ``moe_ffn_a2a``): ``p`` holds this rank's slots and ``h`` this
-    rank's rows."""
+    rank's rows.  ``ctx["expert_fn"]`` runs the experts over the dispatch
+    buffer in place of ``p``'s (``models.tp``'s split over shards)."""
     cfg = ctx["cfg"]
     b, s, d = h.shape
     xn = rms_norm(h, p["ln2"], cfg.norm_eps)
@@ -213,7 +217,8 @@ def _moe_ffn(p, h, ctx):
     y, metrics = moe_lib.moe_ffn(p, flat, ctx["plan_slots"],
                                  ctx["plan_cum"], cfg, offset,
                                  ctx.get("impl", "auto"), ctx.get("mesh"),
-                                 ctx.get("layout", "tp"))
+                                 ctx.get("layout", "tp"),
+                                 expert_fn=ctx.get("expert_fn"))
     ctx["moe_metrics"].append(metrics)
     return h + y.reshape(b, s, d)
 
@@ -288,12 +293,14 @@ def _rwkv_decay(p, xw):
                                 .clamp(-8, 1.5)))
 
 
-def rwkv_time_mix(p, x, ctx, x_prev=None, state=None):
-    """x [B,S,D].  Returns (out, last row of x, new WKV state).  A one-token
-    call with a state is a decode step; anything else runs the scan (the
-    kernel on the card)."""
+def rwkv_time_heads(p, x, ctx, x_prev=None, state=None):
+    """x [B,S,D].  The time mix's heads (``ctx["cfg"]``'s, which under
+    ``models.tp`` are a shard's, with ``p`` its slices) before ``ln_x``:
+    (their output [B,S,H*N], the gate's input g [B,S,H*N], new WKV
+    state).  A one-token call with a state is a decode step; anything else
+    runs the scan (the kernel on the card)."""
     cfg = ctx["cfg"]
-    b, s, d = x.shape
+    b, s, _ = x.shape
     h, n = cfg.n_heads, cfg.hd
     xs = _shift(x, x_prev)
 
@@ -320,17 +327,33 @@ def rwkv_time_mix(p, x, ctx, x_prev=None, state=None):
     else:
         y, s_new = rwkv6(to_heads(r), to_heads(k), to_heads(v), to_heads(w),
                          u, s0=state, impl=ctx.get("impl", "auto"))
-    y = y.transpose(1, 2).reshape(b, s, d)
-    y = rms_norm(y, p["ln_x"], cfg.norm_eps) * F.silu(g)
+    return y.transpose(1, 2).reshape(b, s, h * n), g, s_new
+
+
+def rwkv_time_mix(p, x, ctx, x_prev=None, state=None):
+    """x [B,S,D].  Returns (out, last row of x, new WKV state)
+    (``rwkv_time_heads``, then ``ln_x``, the gate and ``wo``)."""
+    y, g, s_new = rwkv_time_heads(p, x, ctx, x_prev, state)
+    y = rms_norm(y, p["ln_x"], ctx["cfg"].norm_eps) * F.silu(g)
     return y @ p["wo"].to(x.dtype), x[:, -1:], s_new
 
 
-def rwkv_channel_mix(p, x, x_prev=None):
+def rwkv_channel_key(p, xk):
+    """The channel mix's key relu(xk @ wck)^2 over ``p``'s ``d_ff``
+    columns."""
+    return torch.square(torch.relu(xk @ p["wck"].to(xk.dtype)))
+
+
+def rwkv_channel_mix(p, x, x_prev=None, value=None):
+    """Returns (out, last row of x).  ``value(xk)`` computes the key's
+    product with ``wcv`` in place of ``p``'s (``models.tp``'s sum over
+    shards)."""
     xs = _shift(x, x_prev)
     xk = x + p["mu_ck"].to(x.dtype) * (xs - x)
     r = torch.sigmoid(xk @ p["wcr"].to(x.dtype))
-    k = torch.square(torch.relu(xk @ p["wck"].to(x.dtype)))
-    return r * (k @ p["wcv"].to(x.dtype)), x[:, -1:]
+    kv = rwkv_channel_key(p, xk) @ p["wcv"].to(x.dtype) if value is None \
+        else value(xk)
+    return r * kv, x[:, -1:]
 
 
 def rwkv_apply(p, x, ctx):
@@ -403,6 +426,26 @@ def _mamba_ssm_inputs(p, dt):
     return dt_full, -torch.exp(p["a_log"].float())
 
 
+def conv_step(conv, new, w):
+    """One step of a causal depthwise conv: (its window [B,K,C], ``conv``
+    [B,K-1,C] with ``new`` [B,1,C] appended, and silu of the window's
+    product with ``w`` [K,C])."""
+    window = torch.cat([conv.to(new.dtype), new], dim=1)
+    return window, F.silu(torch.einsum("bkc,kc->bc", window,
+                                       w.to(new.dtype)))
+
+
+def mamba_heads_step(p, xs, dt, bm, c, state, head_dim):
+    """The SSM's decode step over ``p``'s heads (a shard's under
+    ``models.tp``): ``xs`` [B,H*P], ``dt`` [B,H].  Returns (y [B,1,H*P]
+    before the gated norm, new state)."""
+    b = xs.shape[0]
+    dt_full, a = _mamba_ssm_inputs(p, dt)
+    y, h_new = mamba2_decode_step(xs.reshape(b, -1, head_dim), dt_full, a,
+                                  bm, c, p["d_skip"].float(), state)
+    return y.reshape(b, 1, -1), h_new
+
+
 def _mamba_out(p, x, y, z, cfg):
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return x + y @ p["out_proj"].to(x.dtype)
@@ -440,19 +483,15 @@ def mamba_cache(cfg, batch, smax, kv_dtype, device):
 
 def mamba_decode(p, x, cache, ctx):
     cfg = ctx["cfg"]
-    ssm = cfg.ssm
-    b = x.shape[0]
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     z, xbc, dt, di, h, n = _mamba_split(cfg, xn @ p["in_proj"].to(x.dtype))
-    window = torch.cat([cache["conv"].to(x.dtype), xbc], dim=1)  # [B,K,C]
-    conv = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(x.dtype))
-    xs, bm, c = torch.split(F.silu(conv), [di, n, n], dim=-1)
-    dt_full, a = _mamba_ssm_inputs(p, dt[:, 0])
-    y, h_new = mamba2_decode_step(xs.reshape(b, h, ssm.head_dim), dt_full,
-                                  a, bm, c, p["d_skip"].float(), cache["h"])
+    window, act = conv_step(cache["conv"], xbc, p["conv_w"])
+    xs, bm, c = torch.split(act, [di, n, n], dim=-1)
+    y, h_new = mamba_heads_step(p, xs, dt[:, 0], bm, c, cache["h"],
+                                cfg.ssm.head_dim)
     _write_rows(cache["conv"], window[:, 1:], ctx.get("active"))
     _write_rows(cache["h"], h_new, ctx.get("active"))
-    return _mamba_out(p, x, y.reshape(b, 1, di), z, cfg)
+    return _mamba_out(p, x, y, z, cfg)
 
 
 # ------------------------------------------------------------- whisper enc/dec

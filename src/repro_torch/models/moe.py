@@ -190,13 +190,16 @@ def expert_ffn(p, buf):
 
 
 def moe_ffn(p, x, plan_slots, plan_cum, cfg: ArchConfig, token_offset,
-            impl: str = "auto", mesh=None, layout: str = "tp"):
+            impl: str = "auto", mesh=None, layout: str = "tp",
+            expert_fn=None):
     """Full MoE FFN over groups.  p: dict(router, w_gate [S,D,F], w_up,
     w_down [S,F,D]); x [G,T,D]; token_offset [G]; ``impl`` picks the
     kernels or their plain versions (``kernels.*.ops``).  With a ``mesh``
     (one group) the layer is expert-parallel, as the reference's
     ``moe_ffn``: ``layout="tp"`` runs ``moe_ffn_sharded``, ``"dp"``
-    ``moe_ffn_a2a``.
+    ``moe_ffn_a2a``.  ``expert_fn`` (the dispatch buffer ``[G,S,C,D]`` ->
+    the experts' outputs) replaces ``expert_ffn`` over ``p``'s experts:
+    ``models.tp`` runs each shard's slots where they live.
 
     Returns (y [G,T,D], metrics), every metric with a leading group dim:
     slot_counts/kept_counts [G,S] (the Reshape load metric phi per physical
@@ -212,7 +215,8 @@ def moe_ffn(p, x, plan_slots, plan_cum, cfg: ArchConfig, token_offset,
     slot, weight, probs, top_e, r_counts = route(
         p["router"], x, plan_slots, plan_cum, cfg, token_offset, impl)
     y, metrics = dispatch_combine(x, slot, weight,
-                                  lambda buf: expert_ffn(p, buf),
+                                  expert_fn or (lambda buf: expert_ffn(p,
+                                                                       buf)),
                                   num_slots(cfg), capacity(cfg, t),
                                   fused=m.fused_dispatch, impl=impl)
 

@@ -21,8 +21,11 @@ the cache's sequence over ``data``, the batch replicated).
 
 A serve slot pool *placed* on a device group (``ServeEngine(placements=
 ...)``) has a mesh of its own, ``pool_mesh``: axes ``("data",
-"model")`` and the group's devices, and ``pool_specs`` gives its rows'
-specs.
+"model")`` and the group's devices; ``pool_specs`` gives its rows'
+specs, and ``pool_shards`` how the port lays them out (which shard and
+row each slot has): the slots split over ``data`` where it divides them,
+each shard's rows on its row of the group, split by heads over ``model``
+(``models.tp``).
 """
 from __future__ import annotations
 
@@ -212,7 +215,8 @@ def pool_mesh(devices, tp: int = 1) -> Mesh:
     is placed on.  ``tp`` is the tensor-parallel degree within the pool:
     ``model`` gets ``tp`` devices and ``data`` the rest.  The default
     ``tp=1`` keeps every product's reduction on one device, which keeps
-    the engine's greedy outputs those of ``generate_static``."""
+    the engine's greedy outputs those of ``generate_static``.  A group may
+    name one device several times."""
     if isinstance(devices, (str, torch.device)):
         devices = [devices]
     group = tuple(as_device(d) for d in devices)
@@ -282,3 +286,20 @@ def bytes_per_device(tree, spec_tree, mesh) -> int:
         return sum(bytes_per_device(tree[k], spec_tree[k], mesh)
                    for k in tree)
     return shard_numel(tree.shape, spec_tree, mesh) * tree.element_size()
+
+
+def pool_shards(mesh, slots: int):
+    """How a pool of ``slots`` slots lies on its mesh: ``[(lo, hi,
+    devices)]``, one entry a data shard holding slots ``[lo, hi)`` on the
+    ``model`` devices of its row of the group (row-major over (data,
+    model)).  The slot dim splits over ``data`` where it divides, as
+    ``pool_specs`` says; where it does not, the reference replicates the
+    rows over ``data`` and the port keeps them whole on the group's first
+    row, which gives the same results."""
+    d, t = mesh.shape["data"], mesh.shape["model"]
+    rows = [tuple(mesh.group[i * t:(i + 1) * t]) for i in range(d)]
+    if d > 1 and slots % d == 0:
+        n = slots // d
+        return [(i * n, (i + 1) * n, rows[i]) for i in range(d)]
+    return [(0, slots, rows[0])]
+

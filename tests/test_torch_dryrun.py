@@ -223,3 +223,82 @@ def test_stand_ins_make_the_wrappers_outputs():
     assert mem.peak == 2 * r.numel() + 4 * dt.numel() + 2 * 4 * 2 + \
         2 * 2 * bm.numel() + sum(4 * math.prod(s) for s in
                                  mamba2_scratch(1, 2, 70, 16, 16).values())
+
+
+def test_production_meshes_reach_the_records(tmp_path, capsys):
+    """``--mesh production,production2``: the H100 production mesh of one
+    pod (32 nodes x 8 cards) and of two, priced as any mesh: each record
+    names it, splits the weights over its cards and passes."""
+    out = tmp_path / "d.json"
+    rc = dryrun.main(["--arch", "paper-moe-100m", "--shape", "decode_32k",
+                      "--mesh", "1x1,production,production2",
+                      "--out", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0
+    for m in ("1x1", "32x8", "2x32x8"):
+        assert f"PASS paper-moe-100m x decode_32k x {m}" in text
+    one, prod, prod2 = json.loads(out.read_text())
+    assert [r["mesh"] for r in (one, prod, prod2)] == ["1x1", "32x8",
+                                                       "2x32x8"]
+    assert one["bytes_per_device"]["params"] > \
+        prod["bytes_per_device"]["params"] >= \
+        prod2["bytes_per_device"]["params"]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_shape(multi_pod):
+    from repro_torch.launch import mesh as M
+    m = M.production_mesh(multi_pod=multi_pod)
+    if multi_pod:
+        assert m.axis_names == ("pod", "data", "model")
+        assert m.sizes == (2, 32, 8) and m.devices == 512
+    else:
+        assert m.axis_names == ("data", "model") and m.sizes == (32, 8)
+    assert m.shape["model"] == M.NODE_CARDS == 8 and not m.group
+    assert M.production_shape(multi_pod, nodes=1, per_node=2) == (
+        ((2, 1, 2), ("pod", "data", "model")) if multi_pod
+        else ((1, 2), ("data", "model")))
+
+
+def _production_rank(rank, tmp):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/init",
+                            rank=int(rank), world_size=2)
+    try:
+        mesh = make_production_mesh(nodes=1, per_node=2, device_type="cpu")
+        x = torch.tensor([float(rank) + 1])
+        dist.all_reduce(x, group=mesh.get_group("model"))
+        print(json.dumps({"names": list(mesh.mesh_dim_names),
+                          "shape": list(mesh.mesh.shape),
+                          "model_rank": mesh.get_local_rank("model"),
+                          "sum": x.item()}))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_make_production_mesh_over_gloo_ranks(tmp_path):
+    """``make_production_mesh(nodes=1, per_node=2)`` over 2 gloo ranks on
+    the CPU: one node of two cards, the ranks along ``model``, a sum over
+    ``model`` reaching both."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([src, os.path.dirname(__file__),
+                                           os.environ.get("PYTHONPATH",
+                                                          "")]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, test_torch_dryrun as t; "
+         "t._production_rank(*sys.argv[1:])", str(r), str(tmp_path)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    outs = []
+    for p in procs:
+        out, _ = p.communicate(timeout=120)
+        assert p.returncode == 0, out.decode()[-3000:]
+        outs.append(json.loads(out.decode().strip().splitlines()[-1]))
+    for r, o in enumerate(outs):
+        assert o == {"names": ["data", "model"], "shape": [1, 2],
+                     "model_rank": r, "sum": 3.0}

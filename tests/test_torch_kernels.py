@@ -12,7 +12,6 @@ dtype (relative 2^-7 for bf16, 1e-4 for f32: the sums run in another
 order, so a value may round to the neighbouring ulp) plus 1e-4 of the
 output's scale, the final state within 1e-4 of its scale.
 """
-import time
 
 import numpy as np
 import jax.numpy as jnp
@@ -191,27 +190,22 @@ def test_cuda_gating_matches_plain(cuda, rng, g, t, e, k):
 @pytest.mark.parametrize("g,t,e,k", [(8, 1, 16, 2), (1, 4096, 16, 2),
                                      (3, 700, 16, 2), (1, 513, 128, 8)])
 def test_cuda_gating_one_launch_and_replays(cuda, rng, g, t, e, k):
-    """One kernel launch a call and no memset (a CUDA-only trace of one
-    call); two calls in a row, and a CUDA graph of one call replayed three
-    times, each give phi equal to the plain version's: the ticket counters
-    that the last block of a group puts back to 0 hold across launches."""
-    from torch.profiler import ProfilerActivity, profile
+    """One kernel launch a call and no memset (the nodes of a CUDA graph
+    of one call: a capture cannot lose a node, where a CUDA-only profiler
+    trace of one call sometimes comes back empty); two calls in a row, and
+    a CUDA graph of one call replayed three times, each give phi equal to
+    the plain version's: the ticket counters that the last block of a
+    group puts back to 0 hold across launches."""
+    from repro_torch.kernels.graphs import capture_nodes
     from repro_torch.kernels.moe_gating.moe_gating import gating_cuda
     x = _t(rng.standard_normal((g, t, e)).astype(np.float32)).to(cuda)
     _, rids, rcnt = gating_ref(x, k)
     gating_cuda(x, k)
     torch.cuda.synchronize()
-    # a short host pause on each side of the traced call, so that no
-    # record of it is lost at the trace's edges (chip_smoke.py
-    # device_trace does the same)
-    time.sleep(0.05)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        gating_cuda(x, k)
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-    names = [e_.name for e_ in prof.events()
-             if e_.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(names) == 1 and "gating" in names[0], names
+    nodes, _ = capture_nodes(torch, lambda: gating_cuda(x, k))
+    kernels = [name for kind, name in nodes if kind == "kernel"]
+    assert len(kernels) == 1 and "gating" in kernels[0], nodes
+    assert not any(kind == "memset" for kind, _ in nodes), nodes
     for _ in range(2):
         _, ids, cnt = gating_cuda(x, k)
         assert torch.equal(ids, rids) and torch.equal(cnt, rcnt)

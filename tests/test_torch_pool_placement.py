@@ -15,11 +15,13 @@ The reference is held where it is sound: its spec functions
 (``pool_specs`` on the same leaves, in its ``[slots, n, 1, ...]``
 layout), its scheduling units, and its decisions under one frozen
 CostBook with both engines placed, which depend on lengths, not on token
-values.  The port's own checks: a placement of another device type and a
-pool mesh of two devices are refused, and the parallel group tick's path
-(plan, then every dispatch, then every host copy) runs on pools given
-distinct device-group keys on the one CPU device; that checks the path's
-logic and outputs, not an overlap, which needs two cards.
+values.  The port's own checks: a placement of another device type is
+refused, a pool mesh of two devices and a tensor-parallel pool serve
+(tests/test_torch_pool_mesh.py holds them in full), and the parallel
+group tick's path (plan, then every dispatch, then every host copy) runs
+on pools given distinct device-group keys on the one CPU device; that
+checks the path's logic and outputs, not an overlap, which needs two
+cards.
 
 As in tests/test_torch_pool_migration.py the tests run torch's native CPU
 GEMM (``torch.backends.mkldnn`` off), whose rows do not depend on the
@@ -512,10 +514,14 @@ def test_placed_decisions_match_reference():
 # ------------------------------------------------------------------ refusals
 
 def test_refuses_what_does_not_run():
-    """A placement on another device type (``"cuda"`` too), a pool mesh
-    of two devices (the
-    rows over two cards) and a tensor-parallel pool raise; so does a
-    placement of a pool that does not exist.  Nothing falls back."""
+    """A placement on another device type (``"cuda"`` too) and a
+    placement of a pool that does not exist raise; nothing falls back.  A
+    pool mesh of two devices (the rows split over them) and a
+    tensor-parallel pool (``pool_tp=2``) run: each serves to the end, the
+    split pool equal to the oracle (its shard's height: the native GEMM's
+    rows do not depend on it) and the tensor-parallel one emitting its
+    tokens (its split products round otherwise;
+    tests/test_torch_pool_mesh.py holds it under the near-tie rule)."""
     cfg, params, _ = _own()
     with pytest.raises(ValueError, match="device type"):
         _engine(placements={0: "cuda:0"})
@@ -526,18 +532,30 @@ def test_refuses_what_does_not_run():
     # is asked for its index
     with pytest.raises(ValueError, match="device type"):
         eng.add_pool(placement="cuda")
-    with pytest.raises(ValueError, match="several cards"):
-        eng.add_pool(placement=["cpu", "cpu"])
-    with pytest.raises(ValueError, match="several cards"):
-        eng.add_pool(placement=S.pool_mesh(["cpu"] * 2, tp=2))
     with pytest.raises(ValueError, match="no such pool"):
         _engine(placements={2: "cpu"})
+    assert [sp.lid for sp in eng.pools] == [0, 1] and not eng.placements
+    prompts = _prompts(3, seed=5)
+    split = eng.add_pool(placement=["cpu", "cpu"])
+    tp = eng.add_pool(placement=S.pool_mesh(["cpu"] * 2, tp=2))
+    lay = {p["lid"]: p["layout"] for p in eng._inspect("status")["pools"]
+           if p["devices"]}
+    assert lay[split]["rows"] == "split" and lay[split]["tp"] == 1
+    assert lay[tp]["rows"] == "whole" and lay[tp]["tp"] == 2
+    reqs = [eng.submit(p, max_new=6, pool=split) for p in prompts[:2]]
+    _run(eng, reqs)
+    _assert_oracle("gemma3-1b", prompts[:2], 6, reqs)
+    reqs = [eng.submit(p, max_new=6, pool=tp) for p in prompts]
+    _run(eng, reqs)
+    assert all(len(r.output()) == 6 for r in reqs)
     tp2 = dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve,
                                                              pool_tp=2))
-    with pytest.raises(ValueError, match="pool_tp"):
-        ServeEngine(tp2, params, max_len=MAX_LEN, pools=2,
-                    placements={0: "cpu"}, device="cpu")
-    assert [sp.lid for sp in eng.pools] == [0, 1] and not eng.placements
+    eng = ServeEngine(tp2, params, max_len=MAX_LEN, pools=2,
+                      placements={0: ["cpu", "cpu"]}, device="cpu")
+    assert eng.pools[0].tp == 2 and eng.pools[1].mesh is None
+    reqs = [eng.submit(p, max_new=6) for p in prompts]
+    _run(eng, reqs)
+    assert all(len(r.output()) == 6 for r in reqs)
 
 
 # ---------------------------------------------------------- the group path
