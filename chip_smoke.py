@@ -156,7 +156,34 @@
    (``distill_draft``'s draft) beside ``scaled_dot_product_attention``,
    the backward at the training shape and at head dim 16 beside aten's
    flash-attention backward, all by CUDA-graph replay;
-8. ``[rwkv6]`` and ``[zamba2]``: for ``rwkv6-1.6b`` (24 layers, d_model
+8. ``[control]``: the Amber control plane on the card.  a. 4 requests
+   (prompts of 16-50 tokens, 64 new each) on a 4-slot engine of
+   ``paper-moe-100m`` at full width and depth; a thread pauses it mid-
+   generation, inspects it while paused, updates ``decode_chunk`` and
+   ``max_prefill_defer`` and resumes: the tokens equal an uninterrupted
+   run's, and the pause latency prints in ticks and ms; b. the same
+   requests with the draft arm forced and a durable log: a token budget
+   that fires (a thread resumes it) and ``update(draft_params=...)``
+   carrying the draft negated as bf16 tensors on the card, logged at tick
+   2; the log reads back the tensors bit for bit, the tokens equal the
+   plain run's, and after a "crash" a ``ReplayingController`` on a fresh
+   engine replays both at their ticks, the budget pauses at the same tick
+   and the tokens are bit-identical; every launch of a and b is one that
+   a replay of the engines' graphs (or a capture's warm-up step) made,
+   and each graph's MoE kernel nodes equal its per-replay counts; c. the
+   model at full width and 2 of its 8 layers (4 x 256 tokens in 2
+   microbatches): a run of 6 steps and a run with async checkpoints every
+   2 steps that crashes after step 5, each with a thread's pause, inspect,
+   ``lr_scale`` update and resume at (4, 0); recovery from step 4 and the
+   durable log gives the uninterrupted run's parameters bit for bit;
+   snapshot, persist, a step with and without a persist in flight, and
+   the recovery wall (restore + replay) print; the recovered run again
+   under ``torch.use_deterministic_algorithms(True)`` (the op that raises,
+   if any) and with ``warn_only`` (the ops it names, and whether the
+   params still equal); d. one ``Engine`` under the recovered loop and a
+   ``ServeEngine``: its ``jobs_run`` and step-path decisions; each
+   training sub-step launches exactly what the code predicts;
+9. ``[rwkv6]`` and ``[zamba2]``: for ``rwkv6-1.6b`` (24 layers, d_model
    2048, 32 heads of 64, vocab 65536) and ``zamba2-7b`` (81 layers: 68
    Mamba2 and 13 occurrences of one shared attention block, d_model 3584,
    112 SSM heads), at full width with random bf16 weights from the seed:
@@ -191,7 +218,7 @@
    loop's first step's bit for bit, its second step launches the forward
    kernels twice, with its wall and its peak beside the dry run under
    ``"full"``;
-9. ``[gemma3]``: ``gemma3-1b`` at full width (26 layers: 22 ``local``
+10. ``[gemma3]``: ``gemma3-1b`` at full width (26 layers: 22 ``local``
    over a sliding window of 1024 keys with a rolling decode cache and 4
    ``attn``; d_model 1152, 4 heads of 256 with one KV head, d_ff 6912, a
    tied vocab of 262144; about 1.0 B parameters, random bf16 weights from
@@ -212,7 +239,7 @@
    plain versions, then 3 steps of 2 x 2048 tokens in 2 microbatches, each
    step launching 52 ``flash_fwd`` and 52 ``flash_bwd``.  Each step and
    each phase logs its wall time;
-10. the reference's last six configs at their published widths, random
+11. the reference's last six configs at their published widths, random
     bf16 weights drawn on the card from the seed, each forward the main
     path of its phase (a warm-up, then the run counted from 0, then again
     under a CUDA-only trace for its busy share and device time by kernel),
@@ -270,14 +297,14 @@
     the encoder's and the cross-attention's captured inputs against their
     plain version, timed beside ``scaled_dot_product_attention`` and aten's
     flash backward;
-11. after every forward and training step it times: ``[mfu]``, the
+12. after every forward and training step it times: ``[mfu]``, the
     model FLOPs of ``analysis.flops.step_flops`` over the wall time and
     989e12 FLOP/s, and the wall against the roofline's least time
     (``analysis.roofline``, the H100's constants), with the card's name and
     power limit; ``[dryrun]``, the meta dry run's bytes for the same step
     on one card (``launch.dryrun``) beside the peak device memory measured
     over it;
-12. prints the kernels' JSON line, the card's name and power limit, and
+13. prints the kernels' JSON line, the card's name and power limit, and
     last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA device or without
@@ -4318,6 +4345,522 @@ def train_phase(torch, dev, fails):
     return rows, launches
 
 
+# [control]: the Amber control plane on the card.  Serving under control
+# and the serve durable log's replay run paper-moe-100m at full width and
+# depth on the graphed tick (4 slots); training with async checkpoints, a
+# crash and recovery runs its full width at 2 of its 8 layers, since every
+# checkpoint holds the f32 state (0.88 GB at 2 layers, 2.9 GB at 8) and
+# the phase writes two of them; the Maestro engine is shared by the
+# recovered loop and a serve engine.
+CONTROL_LENS = (16, 24, 37, 50)
+CONTROL_NEW = 64
+CONTROL_BUDGET = 96             # b: the token budget that fires
+CONTROL_TRAIN = dict(layers=2, batch=4, seq=256, mb=2, ckpt_every=2,
+                     session_at=4, crash_after=5, steps=6)
+CONTROL_WAIT = 120.0            # s any reply or thread may take
+
+
+def serve_ticks(torch, eng, after2=None):
+    """Tick ``eng`` until its queue and slots are empty (``after2()`` runs
+    after its first 2 ticks), keeping every graph the ticks ran (a draft or
+    weight publish drops the graphs it finds and the next tick captures
+    new ones).  Returns the launches those graphs credited in the run:
+    each graph's replays in it times its per-replay counts, and for a graph
+    captured in the run its one eager warm-up step too; each graph's MoE
+    kernel nodes are held to its per-replay counts."""
+    from repro_torch.kernels import LAUNCHES
+    start = {id(g): g.replays for g in eng._tick.graphs.values()}
+    seen = {id(g): g for g in eng._tick.graphs.values()}
+    ticks = 0
+    while eng.queue or any(r is not None for r in eng.active):
+        eng.tick()
+        ticks += 1
+        if ticks == 2 and after2 is not None:
+            after2()
+        for g in eng._tick.graphs.values():
+            seen.setdefault(id(g), g)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(LAUNCHES, 0)
+    bad = []
+    for key, g in seen.items():
+        n = g.replays - start.get(key, -1)
+        for k, c in g.per_replay.items():
+            want[k] += n * c
+        nodes = g.kernel_nodes()
+        got = {"moe_gating": sum("gating_kernel" in k for k in nodes),
+               "moe_dispatch": sum("dispatch_scatter" in k for k in nodes),
+               "moe_combine": sum("combine_kernel" in k for k in nodes)}
+        if any(got[k] != g.per_replay[k] for k in got):
+            bad.append(f"a graph of {g.rows} rows holds MoE kernel nodes "
+                       f"{got}, its capture counted {_nonzero(g.per_replay)}")
+    return want, len(seen) - len(start), bad
+
+
+def lap(name, marks) -> None:
+    """Log the seconds since the last mark of ``marks`` as ``name``'s."""
+    now = time.perf_counter()
+    log(f"[control] {name}: {now - marks[-1]:.1f} s")
+    marks.append(now)
+
+
+def hold_launches(tag, launches, want, fails, need=MOE_KERNELS) -> None:
+    """``launches`` (counted from 0 just before the sub-step, read just
+    after) must be ``want`` and launch each of ``need``."""
+    if launches != want:
+        fails.append(f"control {tag}: launches {_nonzero(launches)}, the "
+                     f"graphs and steps account for {_nonzero(want)}")
+    missing = [k for k in need if not launches[k]]
+    if missing:
+        fails.append(f"control {tag}: never launched {missing}")
+
+
+def control_serve(torch, dev, cfg, params, fails, marks):
+    """[control] a and b: serving paper-moe-100m at full width under the
+    control plane; returns the uninterrupted tokens."""
+    import tempfile
+    import threading
+
+    from repro_torch.core import messages as M
+    from repro_torch.core.breakpoints import GlobalCountBreakpoint
+    from repro_torch.core.controller import Controller, ReplayingController
+    from repro_torch.engine import Engine, ServeEngine, small_draft_cfg
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(1, cfg.vocab, (n,)).astype(np.int32)
+               for n in CONTROL_LENS]
+    max_len = max(CONTROL_LENS) + CONTROL_NEW + 16
+
+    def engine(**kw):
+        return ServeEngine(cfg, params, max_len=max_len, slots=len(prompts),
+                           prefill_chunk=16, decode_chunk=4,
+                           compact_decode=False, device=dev, **kw)
+
+    # a. pause, inspect, update and resume from a thread mid-generation
+    eng = engine()
+    ref = eng.generate(prompts, CONTROL_NEW)          # also captures
+    ctl = eng.engine.controller
+    reqs = [eng.submit(p, CONTROL_NEW) for p in prompts]
+    seen = {}
+    ticks0 = eng.tick_no
+    deadline = time.perf_counter() + CONTROL_WAIT
+
+    def user():
+        while eng.tick_no < ticks0 + 4 and time.perf_counter() < deadline:
+            time.sleep(0.0005)
+        seen["sent_at"] = eng.tick_no
+        r = ctl.send(M.pause()).wait(CONTROL_WAIT)
+        seen["paused_at"] = None if r is None else r["paused_at"]
+        seen["inspect"] = ctl.send(M.inspect()).wait(CONTROL_WAIT)
+        ctl.send(M.update(max_prefill_defer=2, decode_chunk=2)).wait(
+            CONTROL_WAIT)
+        ctl.send(M.resume()).wait(CONTROL_WAIT)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    th = threading.Thread(target=user)
+    th.start()
+    want, captured, bad = serve_ticks(torch, eng)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    th.join(CONTROL_WAIT)
+    fails += [f"control a: {b}" for b in bad]
+    hold_launches("a", launches, want, fails)
+    out = np.stack([r.output() for r in reqs])
+    info = seen.get("inspect") or {}
+    lat = ctl.pause_latency[-1] if ctl.pause_latency else float("nan")
+    paused = seen.get("paused_at")
+    ok = np.array_equal(out, ref)
+    if not ok:
+        bad = np.argwhere(out != ref)[:5].tolist()
+        fails.append(f"control a: tokens under control != the "
+                     f"uninterrupted run's at {bad}")
+    if th.is_alive() or paused is None or info.get("paused") is not True:
+        fails.append(f"control a: the session did not complete "
+                     f"(paused_at {paused}, inspect paused "
+                     f"{info.get('paused')})")
+    if (eng.decode_chunk, eng.engine.max_prefill_defer) != (2, 2):
+        fails.append("control a: the update did not apply")
+    kinds = [r.kind for r in ctl.log]
+    log(f"[control] a: {len(prompts)} requests (prompts "
+        f"{list(CONTROL_LENS)}), {CONTROL_NEW} new each, {eng.tick_no - ticks0}"
+        f" ticks in {wall:.4f} s; a thread sent pause at tick "
+        f"{seen.get('sent_at')}, paused at {paused}: pause latency "
+        f"{None if paused is None else paused[0] - seen['sent_at']} ticks, "
+        f"{lat * 1e3:.3f} ms (send to effect); inspect answered while paused "
+        f"{info.get('paused')} at tick {info.get('tick')}; update "
+        f"decode_chunk 2, max_prefill_defer 2, resume; control log {kinds}; "
+        f"tokens equal the uninterrupted run's {ok}; launches "
+        f"{_nonzero(launches)} (the graphs' replays: "
+        f"{'equal' if launches == want else want})")
+
+    lap("a", marks)
+
+    # b. a durably logged schedule: a token budget that fires and a
+    # garbage draft published as bf16 tensors on the card; then a crash
+    # and a ReplayingController on a fresh engine
+    dcfg = small_draft_cfg(cfg)
+    dparams = lm.init(dcfg, torch.Generator(device=dev).manual_seed(SEED + 1),
+                      device=dev)
+    garbage = tree_map(lambda x: (-x).to(torch.bfloat16), dparams)
+
+    def draft_engine(**kw):
+        e = engine(spec_decode=True, draft_cfg=dcfg, draft_params=dparams,
+                   **kw)
+        force_arm(e, "spec:draft")
+        return e
+
+    def budget_run(e, schedule):
+        """Serve the prompts on ``e``; ``schedule`` sends its messages after
+        2 ticks; a thread resumes the budget's pause.  (tokens, the tick
+        the budget paused at, launches, graphs' launches, wall)."""
+        c = e.engine.controller
+        rs = [e.submit(p, CONTROL_NEW) for p in prompts]
+        fired = {}
+
+        def resumer():
+            end = time.perf_counter() + CONTROL_WAIT
+            while not c.paused and time.perf_counter() < end:
+                time.sleep(0.0005)
+            fired["tick"] = e.tick_no
+            c.send(M.resume())
+
+        reset_launches()
+        t0 = time.perf_counter()
+        th = threading.Thread(target=resumer)
+        th.start()
+        w, _, bad = serve_ticks(torch, e, lambda: schedule(c))
+        wall = time.perf_counter() - t0
+        got = dict(LAUNCHES)
+        th.join(CONTROL_WAIT)
+        fails.extend(f"control b: {b}" for b in bad)
+        if th.is_alive():
+            fails.append("control b: the budget never paused the stream")
+        return np.stack([r.output() for r in rs]), fired.get("tick"), got, \
+            w, wall
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/serve_control.log"
+        e1 = draft_engine(engine=Engine(durable_log=path))
+
+        def schedule(c):
+            c.send(M.set_breakpoint(GlobalCountBreakpoint(
+                "budget", "emitted", target=CONTROL_BUDGET)))
+            c.send(M.update(draft_params=garbage))
+
+        out1, fire1, l1, w1, wall1 = budget_run(e1, schedule)
+        hold_launches("b, logged run", l1, w1, fails)
+        t0 = time.perf_counter()
+        records = Controller.read_durable_log(path)
+        t_read = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        logged = [(r.kind, r.step) for r in records]
+        swap = [r for r in records if r.kind == "update"]
+        back = tree_leaves(swap[0].payload["draft_params"]) if swap else []
+        exact = len(back) == len(tree_leaves(garbage)) and all(
+            b.dtype == torch.bfloat16 and b.device.type == "cpu" and
+            torch.equal(b, g.cpu())
+            for b, g in zip(back, tree_leaves(garbage)))
+        if not exact:
+            fails.append("control b: the logged draft did not read back "
+                         "bf16 bit for bit")
+        # the first run's draft, as it served after the swap
+        live = [t.clone() for t in tree_leaves(e1.draft_params)]
+        del e1                                        # "crash"
+        _free(torch)
+
+        rc = ReplayingController(records)
+        e2 = draft_engine(engine=Engine(controller=rc))
+        out2, fire2, l2, w2, wall2 = budget_run(e2, lambda c: None)
+        hold_launches("b, replay", l2, w2, fails)
+        replayed = [(r.kind, r.step) for r in rc.log
+                    if r.kind in ("breakpoint", "update")]
+        same_draft = all(torch.equal(a, b) for a, b in zip(
+            live, tree_leaves(e2.draft_params)))
+    for cond, msg in (
+            (np.array_equal(out1, ref), "the logged run's tokens != the "
+             "uninterrupted plain run's (a garbage draft changed a token)"),
+            (np.array_equal(out2, out1), "the replayed tokens != the "
+             "logged run's"),
+            (fire1 is not None and fire1 == fire2, f"the budget paused at "
+             f"tick {fire1}, in the replay at {fire2}"),
+            (replayed == [x for x in logged if x[0] != "resume"],
+             f"replayed effects {replayed} != logged {logged}"),
+            (same_draft, "the replayed draft != the logged run's"),
+            (logged[:2] == [("breakpoint", 2), ("update", 2)],
+             f"logged {logged}")):
+        if not cond:
+            fails.append(f"control b: {msg}")
+    log(f"[control] b: spec:draft forced, a budget of {CONTROL_BUDGET} "
+        f"emitted tokens and update(draft_params=...) with "
+        f"{len(tree_leaves(garbage))} bf16 tensors on {dev} "
+        f"({sum(t.numel() for t in tree_leaves(garbage))} values) logged at "
+        f"tick 2; durable log {logged}, {size} bytes, read back in "
+        f"{t_read:.4f} s, the draft bf16 bit for bit {exact}; the budget "
+        f"paused at tick {fire1}, a thread resumed; tokens equal the plain "
+        f"uninterrupted run's {np.array_equal(out1, ref)}; crash, then a "
+        f"ReplayingController on a fresh engine: replayed {replayed}, "
+        f"paused at tick {fire2}, tokens bit-identical "
+        f"{np.array_equal(out2, out1)}, its draft the logged run's "
+        f"{same_draft}; walls {wall1:.4f} s, {wall2:.4f} s; launches "
+        f"{_nonzero(l1)}, {_nonzero(l2)} (the graphs' replays and each "
+        f"capture's warm-up step: {'equal' if (l1, l2) == (w1, w2) else (w1, w2)})")
+    return ref
+
+
+def control_train(torch, dev, cfg, fails, marks):
+    """[control] c and d: training with async checkpoints, a user session
+    from a thread, a crash and recovery; the engine shared with serving."""
+    import tempfile
+    import threading
+    import warnings
+
+    from repro_torch.core import messages as M
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.engine import ServeEngine
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.loop import LoopConfig, TrainLoop
+    from repro_torch.runtime.train import TrainHyper
+
+    tc = CONTROL_TRAIN
+    ccfg = cut(cfg, tc["layers"])
+    per_step = moe_step_launches(lm.n_moe_layers(ccfg), tc["mb"])
+    zero = dict.fromkeys(LAUNCHES, 0)
+
+    def steps_launches(n):
+        return {**zero, **{k: n * v for k, v in per_step.items()}}
+
+    def stream():
+        return TokenStream(vocab=ccfg.vocab, seq_len=tc["seq"],
+                           global_batch=tc["batch"], seed=SEED,
+                           class_alpha=TRAIN_ALPHA)
+
+    def lcfg(d, ckpt_every):
+        return LoopConfig(microbatches=tc["mb"], ckpt_every=ckpt_every,
+                          ckpt_dir=d, ckpt_async=True, device=str(dev))
+
+    def jobs(loop):
+        """Every job the loop's engine measures: (end, kind, seconds)."""
+        rec, orig = [], loop.engine.observe
+
+        def observe(job, seconds):
+            rec.append((time.perf_counter(), job.kind, seconds))
+            orig(job, seconds)
+        loop.engine.observe = observe
+        return rec
+
+    def session(loop, n):
+        """Run to ``session_at``, then a user thread pauses the loop,
+        inspects it while paused, sets lr_scale 0.5 and resumes: its pause
+        is queued before the loop's next poll, so it lands at
+        (session_at, 0) in every run; then ``n`` more steps."""
+        ctl = loop.controller
+        loop.run(tc["session_at"])
+        got = {}
+
+        def user():
+            got["paused_at"] = ctl.send(M.pause()).wait(CONTROL_WAIT)
+            got["inspect"] = ctl.send(M.inspect()).wait(CONTROL_WAIT)
+            ctl.send(M.update(lr_scale=0.5)).wait(CONTROL_WAIT)
+            ctl.send(M.resume()).wait(CONTROL_WAIT)
+
+        th = threading.Thread(target=user)
+        th.start()
+        while ctl.mailbox.empty() and th.is_alive():
+            time.sleep(0.0005)
+        loop.run(n)
+        th.join(CONTROL_WAIT)
+        paused = (got.get("paused_at") or {}).get("paused_at")
+        if th.is_alive() or tuple(paused or ()) != (tc["session_at"], 0) \
+                or not (got.get("inspect") or {}).get("paused"):
+            fails.append(f"control c: the session landed at {paused}, "
+                         f"inspect {got.get('inspect')}")
+        return paused
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the uninterrupted run
+        reset_launches()
+        a = TrainLoop(ccfg, stream(), TrainHyper(), lcfg(f"{tmp}/a", 0),
+                      seed=SEED)
+        t0 = time.perf_counter()
+        session(a, tc["steps"] - tc["session_at"])
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        hold_launches("c, run A", dict(LAUNCHES),
+                      steps_launches(tc["steps"]), fails,
+                      MOE_KERNELS + ("flash_fwd", "flash_bwd"))
+
+        lap("c, run A", marks)
+
+        # the run that checkpoints and crashes
+        reset_launches()
+        b = TrainLoop(ccfg, stream(), TrainHyper(),
+                      lcfg(f"{tmp}/b", tc["ckpt_every"]), seed=SEED)
+        rec = jobs(b)
+        session(b, tc["crash_after"] - tc["session_at"])
+        torch.cuda.synchronize()
+        hold_launches("c, run B", dict(LAUNCHES),
+                      steps_launches(tc["crash_after"]), fails)
+        acked = b.ckpt.restorable_steps()
+        del b                                         # "crash"
+        _free(torch)
+        snaps = [s for _, k, s in rec if k == "ckpt_snapshot"]
+        persists = [(t - s, t) for t, k, s in rec if k == "ckpt_persist"]
+        inflight, idle = [], []
+        for t, k, s in rec:
+            if k.startswith("train_step"):
+                lo = t - s
+                (inflight if any(p0 < t and lo < p1 for p0, p1 in persists)
+                 else idle).append(s)
+
+        lap("c, run B", marks)
+
+        # recovery: restore + replay
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = TrainLoop.recover(ccfg, stream(), TrainHyper(),
+                              lcfg(f"{tmp}/b", 0))
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        start, pending = int(c.state["step"]), len(c.controller._replay)
+        t0 = time.perf_counter()
+        c.run(tc["steps"] - start)
+        torch.cuda.synchronize()
+        t_replay = time.perf_counter() - t0
+        hold_launches("c, recovery", dict(LAUNCHES),
+                      steps_launches(tc["steps"] - start), fails)
+        same = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a.state["params"]), tree_leaves(c.state["params"])))
+        if not same or c.lc.lr_scale != 0.5 or start != 4:
+            fails.append(f"control c: recovered from step {start} "
+                         f"(acked {acked}), lr_scale {c.lc.lr_scale}, params "
+                         f"bit-identical to the uninterrupted run's {same}")
+        log(f"[control] c: {ccfg.name} at {tc['layers']} of "
+            f"{cfg.num_layers} layers (full width), {tc['batch']} x "
+            f"{tc['seq']} in {tc['mb']} microbatches, ckpt_every "
+            f"{tc['ckpt_every']} async; a thread paused at "
+            f"({tc['session_at']}, 0), inspected while paused, set lr_scale "
+            f"0.5, resumed; run A {tc['steps']} steps in {wall_a:.4f} s; run "
+            f"B crashed after step {tc['crash_after']}, checkpoints acked "
+            f"{acked}; snapshot {[round(s * 1e3, 3) for s in snaps]} ms, "
+            f"persist {[round((p1 - p0) * 1e3, 3) for p0, p1 in persists]} "
+            f"ms; a step with a persist in flight "
+            f"{[round(s * 1e3, 3) for s in inflight]} ms, without "
+            f"{[round(s * 1e3, 3) for s in idle]} ms (the engine's measured "
+            f"steps)")
+        log(f"[control] c: recovery from step {start} with {pending} "
+            f"logged records to replay (the update is applied again; a "
+            f"replay skips pause and resume): restore {t_restore:.4f} s + replay of "
+            f"{tc['steps'] - start} steps {t_replay:.4f} s = recovery wall "
+            f"{t_restore + t_replay:.4f} s; params bit-identical to the "
+            f"uninterrupted run's {same}; lr_scale {c.lc.lr_scale}")
+
+        lap("c, recovery", marks)
+
+        # the recovered run again under torch's deterministic algorithms
+        # (a report: where torch has no deterministic kernel it raises; with
+        # warn_only it names each such op); torch.histc on the card, which
+        # has none, shows the mode is live
+        raised, warned, det_same = None, [], None
+        try:
+            torch.use_deterministic_algorithms(True)
+            try:
+                torch.histc(torch.ones(8, device=dev))
+                control = "nothing (the mode is not live)"
+            except RuntimeError as e:
+                control = str(e).splitlines()[0][:120]
+            d = TrainLoop.recover(ccfg, stream(), TrainHyper(),
+                                  lcfg(f"{tmp}/b", 0))
+            try:
+                d.run(tc["steps"] - start)
+                det_same = all(torch.equal(x, y) for x, y in zip(
+                    tree_leaves(a.state["params"]),
+                    tree_leaves(d.state["params"])))
+            except RuntimeError as e:
+                raised = str(e).splitlines()[0][:300]
+                del d
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                d = TrainLoop.recover(ccfg, stream(), TrainHyper(),
+                                      lcfg(f"{tmp}/b", 0))
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    d.run(tc["steps"] - start)
+                warned = sorted({str(w.message).splitlines()[0][:200]
+                                 for w in caught})
+                det_same = all(torch.equal(x, y) for x, y in zip(
+                    tree_leaves(a.state["params"]),
+                    tree_leaves(d.state["params"])))
+            del d
+        finally:
+            torch.use_deterministic_algorithms(False)
+        log(f"[control] c: under torch.use_deterministic_algorithms(True) "
+            f"(torch.histc on the card raises: {control}) the recovered run "
+            f"raised: {raised or 'nothing'}"
+            + (f"; with warn_only its nondeterministic ops ({len(warned)}): "
+               f"{warned}" if raised else "")
+            + f"; its params equal the uninterrupted run's {det_same}")
+        del a
+        _free(torch)
+
+    lap("c, determinism", marks)
+
+    # d. one engine under the recovered loop and a serve engine
+    rng = np.random.default_rng(SEED + 12)
+    serve = ServeEngine(ccfg, c.state["params"], max_len=64, slots=2,
+                        prefill_chunk=16, decode_chunk=4,
+                        compact_decode=False, engine=c.engine, device=dev)
+    reset_launches()
+    for n in (12, 20):
+        serve.submit(rng.integers(1, ccfg.vocab, (n,)).astype(np.int32), 8)
+    want, _, bad = serve_ticks(torch, serve)
+    fails.extend(f"control d: {b}" for b in bad)
+    n_dec = len(c.engine.decisions)
+    c.run(4)
+    torch.cuda.synchronize()
+    want = {k: want[k] + steps_launches(4)[k] for k in want}
+    hold_launches("d", dict(LAUNCHES), want, fails,
+                  MOE_KERNELS + ("flash_fwd", "flash_bwd"))
+    paths = [{k: v for k, v in dd.items() if k != "decision"}
+             for dd in list(c.engine.decisions)
+             if dd["decision"] == "step_path"]
+    after = [{k: v for k, v in dd.items() if k != "decision"}
+             for dd in list(c.engine.decisions)[n_dec:]
+             if dd["decision"] == "step_path"]
+    kinds = dict(c.engine.jobs_run)
+    if not ({"serve_prefill", "serve_decode"} <= set(kinds) and
+            any(k.startswith("train_step") for k in kinds)):
+        fails.append(f"control d: the shared engine ran {kinds}")
+    log(f"[control] d: one Engine under the recovered TrainLoop and a "
+        f"ServeEngine (2 requests, then 4 more steps): jobs_run {kinds}; "
+        f"step-path decisions of the loop {paths}; after the serve "
+        f"{after}; train_step_fused EMA "
+        f"{c.engine.costs.estimate('train_step_fused')}, granulated "
+        f"{c.engine.costs.estimate('train_step_granulated')} (prior "
+        f"0.10 s until measured)")
+
+
+def control_phase(torch, dev, fails) -> None:
+    """[control]: the Amber control plane on the card (see CONTROL_*)."""
+    from repro_torch.models import lm
+    cfg = moe_cfg()
+    marks = [time.perf_counter()]
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev)
+    control_serve(torch, dev, cfg, params, fails, marks)
+    lap("b", marks)
+    del params
+    _free(torch)
+    control_train(torch, dev, cfg, fails, marks)
+    lap("d", marks)
+    _free(torch)
+    log(f"[control] the phase {marks[-1] - marks[0]:.1f} s; {card()}")
+
+
 def gemma3_phase(torch, dev, fails) -> list:
     """gemma3-1b at full width (26 layers: 22 ``local`` over a window of
     1024 keys with a rolling decode cache, 4 ``attn``; d_model 1152, 4
@@ -5855,6 +6398,9 @@ def main() -> int:
     flash_rows = flash_phase(torch, dev, train_launches)
     rows += flash_rows + train_rows
     phase_time("flash")
+    _free(torch)
+    control_phase(torch, dev, fails)
+    phase_time("control")
     for ph, tr in zip(SSM_PHASES, SSM_TRAIN):
         _free(torch)
         row, launches = ssm_phase(torch, dev, ph, fails)

@@ -18,12 +18,16 @@ from repro_torch.core.messages import ControlMessage, LogRecord
 
 
 def _json_safe(x):
-    """Durable-log encoding: numpy arrays (and CPU tensors) and the small control-plane
-    dataclasses (Migration) become tagged JSON values instead of raising
-    TypeError — a dropped ``plan`` record silently breaks §2.6.2 recovery."""
+    """Durable-log encoding: tensors (any device, any dtype), numpy arrays
+    and the small control-plane dataclasses (Migration) become tagged JSON
+    values instead of raising TypeError — a dropped ``plan`` record
+    silently breaks §2.6.2 recovery.  A tensor is copied to the host with
+    its torch dtype and shape; bf16 and f16 go through f32, which holds
+    them exactly, so ``_json_restore`` gives back the same bits."""
     import dataclasses as _dc
 
     import numpy as _np
+    import torch as _torch
     if isinstance(x, dict):
         return {k: _json_safe(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
@@ -32,6 +36,13 @@ def _json_safe(x):
         return int(x)
     if isinstance(x, _np.floating):
         return float(x)
+    if isinstance(x, _torch.Tensor):
+        t = x.detach().cpu()
+        if t.dtype in (_torch.bfloat16, _torch.float16):
+            t = t.float()
+        return {"__tensor__": t.reshape(-1).tolist(),
+                "dtype": str(x.dtype).removeprefix("torch."),
+                "shape": list(x.shape)}
     if hasattr(x, "__array__") and not isinstance(x, (str, bytes)):
         a = _np.asarray(x)
         return {"__ndarray__": a.tolist(), "dtype": str(a.dtype)}
@@ -44,6 +55,13 @@ def _json_safe(x):
 
 def _json_restore(x):
     if isinstance(x, dict):
+        if "__tensor__" in x:
+            import torch as _torch
+            dtype = getattr(_torch, x["dtype"])
+            wide = _torch.float32 if dtype in (_torch.bfloat16,
+                                               _torch.float16) else dtype
+            return _torch.tensor(x["__tensor__"], dtype=wide).reshape(
+                x["shape"]).to(dtype)
         if "__ndarray__" in x:
             import numpy as _np
             return _np.asarray(x["__ndarray__"], dtype=x["dtype"])
@@ -105,20 +123,24 @@ class Controller:
         if self.durable_log_path and msg.kind in ("update", "plan", "pause",
                                                   "resume", "breakpoint"):
             import json as _json
-            d = {"kind": rec.kind, "payload": _json_safe(rec.payload),
-                 "seq": rec.seq, "step": rec.step,
-                 "microbatch": rec.microbatch}
+
+            def line_of(payload):
+                return _json.dumps({"kind": rec.kind, "payload": payload,
+                                    "seq": rec.seq, "step": rec.step,
+                                    "microbatch": rec.microbatch})
             try:
-                line = _json.dumps(d)
-            except TypeError:
-                # a payload type _json_safe doesn't model must not kill the
-                # worker's poll, but it must not vanish silently either:
-                # log a tagged repr and warn — replay will surface it
+                line = line_of(_json_safe(rec.payload))
+            except (TypeError, ValueError, RuntimeError) as e:
+                # a payload _json_safe cannot encode (a type it does not
+                # model, a tensor whose values cannot be read, such as one
+                # on the meta device) must not kill the worker's poll, but
+                # it must not vanish silently either: log a tagged repr
+                # and warn — replay will surface it
                 import warnings as _w
-                d["payload"] = {"__unserializable__": repr(rec.payload)}
-                line = _json.dumps(d)
+                line = line_of({"__unserializable__": repr(rec.payload)})
                 _w.warn(f"durable log: {rec.kind} payload not "
-                        f"JSON-serializable; logged as repr")
+                        f"JSON-serializable ({type(e).__name__}: {e}); "
+                        f"logged as repr")
             with open(self.durable_log_path, "a") as f:
                 f.write(line + "\n")
         if msg.kind == "pause":

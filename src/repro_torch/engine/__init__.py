@@ -11,15 +11,20 @@ from repro_torch.engine.draft import (distill_draft, greedy_streams,
                                       slice_draft_params, small_draft_cfg,
                                       truncated_draft_cfg)
 from repro_torch.engine.engine import Engine
-from repro_torch.engine.jobs import Job, TickCandidate
+from repro_torch.engine.jobs import (Job, TickCandidate, layout_kind,
+                                     serve_decode_workflow,
+                                     serve_tick_workflow, spec_kind,
+                                     train_step_workflow)
 from repro_torch.engine.prefix_cache import (PrefixAnalyzer, PrefixCache,
                                              request_fingerprint)
 from repro_torch.engine.serve import (PROPOSERS, DraftProposer, NgramProposer,
                                       Proposer, Request, ServeEngine,
                                       SlotPool)
 
-__all__ = ["AutoTuner", "DraftProposer", "Engine", "Job", "Knob", "NgramProposer", "PROPOSERS",
-           "PrefixAnalyzer", "PrefixCache", "Proposer", "Request",
-           "ServeEngine", "SlotPool", "TickCandidate", "distill_draft",
-           "greedy_streams", "request_fingerprint", "slice_draft_params",
-           "small_draft_cfg", "truncated_draft_cfg"]
+__all__ = ["AutoTuner", "DraftProposer", "Engine", "Job", "Knob",
+           "NgramProposer", "PROPOSERS", "PrefixAnalyzer", "PrefixCache",
+           "Proposer", "Request", "ServeEngine", "SlotPool", "TickCandidate",
+           "distill_draft", "greedy_streams", "layout_kind",
+           "request_fingerprint", "serve_decode_workflow",
+           "serve_tick_workflow", "slice_draft_params", "small_draft_cfg",
+           "spec_kind", "train_step_workflow", "truncated_draft_cfg"]
