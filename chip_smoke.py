@@ -115,16 +115,26 @@
    the engine's weight tensors and the live tensors' requested bytes
    growing by the rows and the routing plan only, tok/s beside
    ``[placed]`` a's; b. a 4-slot pool at ``pool_tp = 2`` (rows split by
-   heads, ``models.tp``'s step captured as one graph): the TP step's
-   logits within atol = rtol = 2e-2 of the unsplit step's, each of 8
-   steps from the unsplit step's state (the difference along the TP
-   pool's own state logged), outputs equal to the 4-row oracle except
-   from a token where its top-2 margin is within what that bound lets the
-   two logits move, the
-   TP MoE layer's integers equal to the unsplit layer's on one input, the
-   two steps' replay times, each shard's weight bytes, every
-   launch a replay's; the MoE kernels on the TP pool's rows against their
-   plain versions (``@tp``); the phase within 30 s;
+   heads, ``models.tp``'s step a ``StagedStep``: one CUDA graph per TP
+   shard and stage, each on its shard's device, the exchanges' copies
+   between them outside every graph): the stage and graph counts per
+   shard, the TP step's logits through the stage graphs equal to the
+   eager staged step's bit for bit and within atol = rtol = 2e-2 of the
+   unsplit step's, each of 8 steps from the unsplit step's state, each
+   TP layer from the unsplit layer's input within that bound of it (the
+   difference along the TP pool's own state logged),
+   outputs equal to the 4-row oracle except from a token where its top-2
+   margin is within what that bound lets the two logits move, the TP MoE
+   layer's integers equal to the unsplit layer's on one input, the step's
+   time by replay beside the TP step captured whole in one graph and the
+   unsplit step's, each shard's weight bytes, tok/s, every launch a stage graph's
+   replay (read from its kernel nodes, kernels 1-3 in shard 0's stages
+   only); the MoE kernels on the TP pool's rows against their plain
+   versions (``@tp``); a and b within 40 s; c. ``starcoder2-7b`` at its
+   published widths and depth in a 2-slot pool at ``pool_tp = 2``, the
+   same checks and numbers (no MoE; the whole step's logits within 5.4308
+   times the bound, MESH_C_STEP_LIMIT), held to its own 2-row static
+   loop, within 60 s;
    the MoE kernels also on inputs at compact heights 1 and 2 and on pools
    1's and 2's rows and a placed pool's, against their plain versions;
 6. ``[train]``: first ``adamw.apply_`` (in place) against ``adamw.apply``
@@ -3119,15 +3129,31 @@ def placed_phase(torch, dev, cfg, srv, oracle, prompts, fails) -> list:
 # its slots out into another 2-slot pool (every tick 2 rows high, so every
 # request is held to a 2-row oracle: cuBLAS rounds rows by the product's
 # height); b. a 4-slot pool at pool_tp 2 (rows split by heads, the
-# tensor-parallel step as one graph), held to [pools]' 4-row oracle under
-# the near-tie rule
-MESH_BUDGET_S = 30.0
+# tensor-parallel step a graph per TP shard and stage, the copies between
+# them outside: engine.serve.StagedStep), held to [pools]' 4-row oracle
+# under the near-tie rule; c. the same form on a dense model
+MESH_BUDGET_S = 40.0            # a and b
 MESH_STEPS = 8                  # TP vs unsplit: steps along one state
 # the TP step's logits against the unsplit step's, atol and rtol (tests/
 # test_torch_serve.py's TOL: the split products add their partial sums in
-# another order); a token parts from the oracle at a near-tie only where
-# its top-2 margin is within what this bound lets the two logits move
+# another order), whole in b, layer by layer in b and c; a token parts from
+# the oracle at a near-tie only where its top-2 margin is within what this
+# bound lets the two logits move
 MESH_TP_TOL = 2e-2
+# c. starcoder2-7b (arXiv:2402.19173) at its published widths and depth
+# (d_model 4608, 36 heads over 4 KV heads, d_ff 18432, vocab 49152, 32
+# layers): a dense GQA split at a width where tensor parallelism is used;
+# 2 slots, 2 prompts, held to its own 2-row static loop
+MESH_C_ARCH = "starcoder2-7b"
+# c's whole TP step against the unsplit step, in units of the MESH_TP_TOL
+# bound: 32 random bf16 layers carry a layer's last-bit rounding past
+# that bound, as the unsplit step shows against itself at twice the rows
+# (up to 2.7154 of it on an H100 at 700 W, where the TP step read up to
+# 3.9898; PERF.md section 6); the limit is twice that height reading
+MESH_C_STEP_LIMIT = 5.4308
+MESH_C_SLOTS, MESH_C_LENS, MESH_C_NEW = 2, (24, 40), 16
+MESH_C_MAX_LEN = 96
+MESH_C_BUDGET_S = 60.0
 
 
 def requested_bytes(torch) -> int:
@@ -3192,71 +3218,361 @@ def mesh_run(torch, eng, submit, prompts, card) -> tuple:
     return reqs, wall, seen, moves
 
 
-def tp_against_unsplit(torch, cfg, eng, sp, dev, rng) -> tuple:
+def over_bound(got, ref) -> float:
+    """The largest |got - ref| over MESH_TP_TOL * (1 + |ref|)."""
+    ref = ref.float()
+    return ((got.float() - ref).abs() / (MESH_TP_TOL * (1 + ref.abs())))\
+        .max().item()
+
+
+def tp_layers(torch, cfg, params, shards, whole, split, tok) -> list:
+    """The TP step layer by layer against the unsplit one from ``whole``'s
+    state (a one-device pool; ``split``, a pool of the TP layout, gets its
+    rows): each step's own loop, eagerly (``lm.decode_step`` and
+    ``models.tp.decode_step``), with a ``tap`` that keeps each unsplit
+    layer's output and hands it to the TP step as its next layer's input.
+    The embedding's, every block's and the head's largest difference over
+    the bound (``over_bound``); both pools are left with ``whole``'s
+    rows."""
+    from repro_torch.models import lm, tp
+    slots = range(whole.slots)
+    now = whole.read_rows(slots, pos=True)
+    split.write_rows(slots, now)
+    ref, out = [], []
+
+    def keep(i, x):
+        ref.append(x.clone())
+        return x
+
+    def swap(i, x):
+        out.append(over_bound(x, ref[i]))
+        return ref[i]
+
+    t = tok[:, None]
+    a = lm.decode_step(params, {"caches": whole.caches, "pos": whole.pos}, t,
+                       cfg, moe_groups="row", tap=keep)[0]
+    b = tp.decode_step(shards, {"caches": split.caches, "pos": split.pos}, t,
+                       cfg, split.group, moe_groups="row", tap=swap)[0]
+    out.append(over_bound(b, a))
+    for pool in (whole, split):
+        pool.write_rows(slots, now)
+    return out
+
+
+def tp_against_unsplit(torch, cfg, eng, sp, dev, rng) -> dict:
     """The TP pool's rows copied into a one-device pool (``whole``) and
-    into two pools of the TP layout, stepped MESH_STEPS times on the
-    unsplit step's greedy tokens.  ``same`` gets ``whole``'s rows before
-    each step, so each of its steps starts from the unsplit step's state:
-    the gate, the largest ratio of a logit difference to its bound
-    MESH_TP_TOL * (1 + |unsplit logit|) (over 1 fails).  ``own`` steps
-    along its own state, as a served pool does, so its rounding compounds
-    through the cache: its largest logit difference is logged.  Also the
-    two steps' graph-replay times, and the TP MoE layer's integers
-    against the unsplit layer's on one input."""
-    from repro_torch.engine.serve import SlotPool, build_decode_step
+    into three pools of the TP layout, stepped MESH_STEPS times on the
+    unsplit step's greedy tokens, ``whole`` through a ``GraphedStep`` and
+    two TP pools through ``StagedStep``s of their own, the graphs a tick
+    runs.  ``same`` and ``eager`` get ``whole``'s rows before each step,
+    so each of their steps starts from the unsplit step's state:
+    ``ratios``, each step's largest logit difference over the bound
+    MESH_TP_TOL * (1 + |unsplit logit|); ``equal``, whether ``same``'s
+    stage graphs gave the logits and argmax of the same step run eagerly
+    on ``eager`` (``build_decode_step``'s step over the eager
+    ``tp.Stages``), bit for bit.  ``own`` steps along its own state, as a
+    served pool does, so its rounding compounds through the cache:
+    ``drift``, its largest logit difference.  ``height``: the ratio of the
+    unsplit step itself run at twice the rows (each row twice) from the
+    same state, against ``whole``'s: what rounding alone (cuBLAS rounds
+    rows by the product's height) moves the logits by.  ``layers``: at the
+    first and the last step, ``tp_layers``' ratios.  ``ms``: a step's time
+    by replay between events, each called as a tick calls it: the
+    ``StagedStep`` (its stage graphs and the copies between them, launched
+    from the host), the TP step captured whole in one ``GraphedStep`` on
+    this card (the form a TP pool ran before it was staged) and the
+    unsplit ``GraphedStep``.  ``ints``, for a MoE model, the TP MoE
+    layer's integers against the unsplit layer's on one input;
+    ``counts``, the step's stages per shard."""
+    from repro_torch.engine.serve import (GraphedStep, SlotPool, SlotTick,
+                                          StagedStep)
     from repro_torch.models import lm, tp
     from repro_torch.models import moe as moe_lib
-    slots = range(sp.slots)
+    n = sp.slots
+    slots = range(n)
     rows = sp.read_rows(slots, pos=True)
-    whole = SlotPool(cfg, sp.slots, SERVE_MAX_LEN, dev)
-    same, own = (SlotPool(cfg, sp.slots, SERVE_MAX_LEN, None, mesh=sp.mesh)
-                 for _ in range(2))
+    whole = SlotPool(cfg, n, sp.max_len, dev, lid=100)
+    same, own, eager = (SlotPool(cfg, n, sp.max_len, None, mesh=sp.mesh,
+                                 lid=lid) for lid in (101, 102, 104))
+    twice = SlotPool(cfg, 2 * n, sp.max_len, dev, lid=103)
     for pool in (whole, same, own):
         pool.write_rows(slots, rows)
-    step = build_decode_step(cfg, dev)
+    tick = SlotTick(cfg, dev, graph=True)
     params, shards = eng.params, eng._params_for(sp)[0]
-    active = torch.ones(sp.slots, dtype=torch.bool, device=dev)
-    ratios, drift = [], 0.0
+    runs = [tick.runner("step", w, None, pool)
+            for w, pool in ((params, whole), (shards, same), (shards, own),
+                            (params, twice))]
+    if not all(isinstance(r, StagedStep) for r in runs[1:3]):
+        raise AssertionError("a TP pool's step is not a StagedStep")
+    step = tick.steps["step"]
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    out = {"ratios": [], "height": [], "drift": 0.0, "layers": [],
+           "equal": []}
     with torch.no_grad():
-        tok = torch.as_tensor(rng.integers(1, cfg.vocab, sp.slots),
-                              device=dev)
-        for _ in range(MESH_STEPS):
-            same.write_rows(slots, whole.read_rows(slots, pos=True))
-            a, greedy = step(params, None, whole, tok, active)
-            b, _ = step(shards, None, same, tok, active)
-            c, _ = step(shards, None, own, tok, active)
-            bound = MESH_TP_TOL * (1 + a.float().abs())
-            ratios.append(((a.float() - b.float()).abs() / bound)
-                          .max().item())
-            drift = max(drift, (a.float() - c.float()).abs().max().item())
-            tok = greedy.clone()
-        ms = {name: graph_ms(torch, lambda p=p, pool=pool: step(
-            p, None, pool, tok, active), reps=10)
-            for name, p, pool in (("unsplit", params, whole),
-                                  ("tp", shards, same))}
-        # the MoE layer alone on one input: routing, dispatch and combine
-        # run once, so its integers are the unsplit layer's
-        x = torch.randn((sp.slots, 1, cfg.d_model), device=dev,
-                        dtype=torch.bfloat16)
-        plan = moe_lib.identity_plan(cfg, 1, device=dev)
-        off = torch.arange(sp.slots, device=dev)
-        _, m1 = moe_lib.moe_ffn(lm._layer_views(params, "moe", 1)[0], x,
-                                plan.slots[0], plan.cum[0], cfg, off)
-        ps = [lm._layer_views(s_, "moe", 1)[0] for s_ in shards]
-        _, m2 = tp.moe_ffn(ps, x, plan.slots[0], plan.cum[0], cfg, off,
-                           sp.group)
-    ints = {k: bool(torch.equal(m1[k], m2[k]))
-            for k in ("slot_counts", "kept_counts", "dropped",
-                      "expert_counts")}
-    return ratios, drift, ms, ints
+        tok = torch.as_tensor(rng.integers(1, cfg.vocab, n), device=dev)
+        for i in range(MESH_STEPS):
+            now = whole.read_rows(slots, pos=True)
+            same.write_rows(slots, now)
+            twice.write_rows(range(2 * n), {
+                k: torch.cat([v, v], 0 if k[0] in ("ng", "ctx", "pos")
+                             else 1) for k, v in now.items()})
+            if i in (0, MESH_STEPS - 1):
+                out["layers"].append(tp_layers(torch, cfg, params, shards,
+                                               whole, eager, tok))
+            else:
+                eager.write_rows(slots, now)
+            a, greedy = (t.clone() for t in runs[0](tok, active))
+            b, bg = (t.clone() for t in runs[1](tok, active))
+            e, eg = step(shards, None, eager, tok, active)
+            out["equal"].append(bool(torch.equal(b, e))
+                                and bool(torch.equal(bg, eg)))
+            c = runs[2](tok, active)[0]
+            out["ratios"].append(over_bound(b, a))
+            out["drift"] = max(out["drift"],
+                               (a.float() - c.float()).abs().max().item())
+            d = runs[3](torch.cat([tok, tok]), torch.cat([active, active]))
+            out["height"].append(over_bound(d[0][:n], a))
+            tok = greedy
+        one = GraphedStep(step, shards, None, same)
+        out["ms"] = {"tp": event_ms(torch, lambda: runs[1](tok, active)),
+                     "tp one graph": event_ms(torch,
+                                              lambda: one(tok, active)),
+                     "unsplit": event_ms(torch, lambda: runs[0](tok, active))}
+        del one
+        out["ints"] = None
+        if cfg.moe is not None:
+            # the MoE layer alone on one input: routing, dispatch and
+            # combine run once, so its integers are the unsplit layer's
+            x = torch.randn((n, 1, cfg.d_model), device=dev,
+                            dtype=torch.bfloat16)
+            plan = moe_lib.identity_plan(cfg, 1, device=dev)
+            off = torch.arange(n, device=dev)
+            _, m1 = moe_lib.moe_ffn(lm._layer_views(params, "moe", 1)[0], x,
+                                    plan.slots[0], plan.cum[0], cfg, off)
+            ps = [lm._layer_views(s_, "moe", 1)[0] for s_ in shards]
+            _, m2 = tp.moe_ffn(ps, x, plan.slots[0], plan.cum[0], cfg, off,
+                               sp.group)
+            out["ints"] = {k: bool(torch.equal(m1[k], m2[k]))
+                           for k in ("slot_counts", "kept_counts", "dropped",
+                                     "expert_counts")}
+    out["counts"] = runs[1].stage_counts()
+    del runs, tick
+    return out
+
+
+def stage_report(tick, since) -> tuple:
+    """The stage graphs of ``tick``'s TP steps (``SlotTick.stage_graphs``,
+    keyed by (pool, step, rows, data shard, TP shard, stage)) per TP
+    shard: their count, their replays since ``since`` (a snapshot of
+    ``stage_graphs()``'s replays; a step captured since adds its warm-up
+    step once a stage) and their kernel nodes a replay; each TP step's
+    copies a step; the MoE kernel launches those replays made, read from each
+    stage graph's kernel nodes; and the breaches: a stage graph whose MoE
+    kernel nodes are not its capture's counts, or a MoE kernel node in a
+    stage of a shard other than the first (routing, dispatch and combine
+    run on shard 0)."""
+    from repro_torch.engine.serve import StagedStep
+    from repro_torch.kernels.graphs import graph_nodes
+    shards, want, bad = {}, dict.fromkeys(MOE_KERNELS, 0), []
+    marks = {"moe_gating": "gating_kernel",
+             "moe_dispatch": "dispatch_scatter",
+             "moe_combine": "combine_kernel"}
+    for key, st in tick.stage_graphs().items():
+        was = since.get(key)
+        n = st.replays - was if was is not None else st.replays + 1
+        nodes = [nm for kind, nm in graph_nodes(st.graph) if kind == "kernel"]
+        got = {k: sum(m in nm for nm in nodes) for k, m in marks.items()}
+        ent = shards.setdefault(key[4], {"graphs": 0, "replays": 0,
+                                         "kernel nodes": 0})
+        ent["graphs"] += 1
+        ent["replays"] += n
+        ent["kernel nodes"] += len(nodes)
+        for k in MOE_KERNELS:
+            want[k] += n * got[k]
+        if any(got[k] != st.per_replay[k] for k in MOE_KERNELS):
+            bad.append(f"{key} holds MoE kernel nodes {got}, its capture "
+                       f"counted {_nonzero(st.per_replay)}")
+        if key[4] and any(got.values()):
+            bad.append(f"{key} holds MoE kernel nodes {got}")
+    copies = [g.copies for g in tick.graphs.values()
+              if isinstance(g, StagedStep)]
+    return shards, copies, want, bad
+
+
+def mesh_tp(torch, dev, tag, cfg, params, group, slots, max_len, prompts,
+            new, ref, top2, fails, moe, limit) -> tuple:
+    """A ``slots``-slot pool at ``pool_tp = 2`` over ``group`` serving
+    ``prompts`` (``new`` tokens each) through ``BatchedServer`` →
+    ``ServeEngine`` → the stage graphs of ``models.tp``'s step, on
+    ``params`` (the engine's weights; each shard's slices made by
+    ``tp.split_params``).  ``ref(prompt)`` gives the static loop's
+    tokens, ``top2(prompt)`` its top-2 logits a step (the near-tie rule's
+    room, asked only of a request that parts from it).  Logs the
+    weight bytes per shard, the stage and graph counts per shard, the
+    launches (from the stage graphs' kernel nodes), tok/s, the logits
+    against the unsplit step's and the step times; with ``moe``, holds
+    kernels 1-3 against their plain versions on the TP pool's rows and
+    returns their JSON rows.  Holds (``tp_against_unsplit``) the stage
+    graphs' logits and argmax to the eager step's bit for bit, each TP
+    layer to the unsplit layer within MESH_TP_TOL and the whole step's
+    logits to the unsplit step's within ``limit`` times that bound.
+    Returns (rows, checks)."""
+    import dataclasses as dc
+    from repro_torch.engine.serve import SlotPool
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.runtime.serve import BatchedServer
+    rng = np.random.default_rng(SEED + 11)
+    tcfg = dc.replace(cfg, serve=dc.replace(cfg.serve, pool_tp=2))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    tsrv = BatchedServer(tcfg, params, max_len=max_len, slots=slots,
+                         compact_decode=False, placements={0: group},
+                         device=dev)
+    eng = tsrv.engine()
+    sp = eng.pools[0]
+    split = eng._params_for(sp)[0]
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - mem0
+    shard_b = [sum(t.numel() * t.element_size() for t in _leaves(w))
+               for w in split]
+    t0 = time.perf_counter()
+    warm_pools(torch, eng, cfg, rng)
+    warm = time.perf_counter() - t0
+    since = {k: st.replays for k, st in eng._tick.stage_graphs().items()}
+    replays0 = {k: g.replays for k, g in eng._tick.graphs.items()}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [tsrv.submit(p, new) for p in prompts]
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in MOE_KERNELS}
+    shards, copies, want, bad_nodes = stage_report(eng._tick, since)
+    steps = {k[2]: g.replays - replays0.get(k, 0)
+             for k, g in eng._tick.graphs.items() if k[1] == "step"}
+    rate = sum(len(r.output()) for r in reqs) / wall
+    cmp = tp_against_unsplit(torch, cfg, eng, sp, dev, rng)
+    ratios, ms, ints = cmp["ratios"], cmp["ms"], cmp["ints"]
+    ratio = max(ratios)
+    layer = max(max(x) for x in cmp["layers"])
+    near = []
+    for i, (p, r) in enumerate(zip(prompts, reqs)):
+        want_t = ref(p)
+        if not np.array_equal(r.output(), want_t):
+            # the gate lets each of the top-2 logits move by MESH_TP_TOL
+            # * (1 + |logit|), so a flip needs a margin within their sum
+            t2 = top2(p)
+            allow = MESH_TP_TOL * (2 + np.abs(t2).sum(-1))
+            near += [(i,) + x[1:] for x in near_tie_check(
+                f"{tag}, request {i}", r.output()[None], want_t[None],
+                (t2[:, 0] - t2[:, 1])[None], allow[None], fails)]
+    engine_b = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"{tag}: a {slots}-slot pool at pool_tp 2 over "
+        f"{[str(d) for d in group]}: each shard's weights {shard_b} B (the "
+        f"engine's {engine_b} B; memory_allocated grew {grown} B with the "
+        f"shards' weights and the pool's rows); the pool's first serve "
+        f"(its captures) {warm:.2f} s; {len(prompts)} requests "
+        f"({new} new tokens each) in {wall:.4f} s, {rate:.1f} generated "
+        f"tok/s; TP steps by height (replays) {steps}")
+    log(f"{tag}: stage graphs per TP shard of the served StagedSteps "
+        f"(graphs, replays in the run, kernel nodes a replay) {shards}; "
+        f"a step's stages per shard {cmp['counts']}, exchanges' copies a "
+        f"step "
+        f"{copies}; no stage graph holds two shards' work (each is "
+        f"captured between two stage switches on its shard's device)")
+    log(f"{tag}: the TP step's logits from the unsplit step's state, the "
+        f"largest difference over its bound (atol = rtol = {MESH_TP_TOL}) "
+        f"at each of {MESH_STEPS} steps {[round(x, 4) for x in ratios]} "
+        f"(limit {limit}; the unsplit step at {2 * slots} rows, each row "
+        f"twice, against itself at {slots}: "
+        f"{[round(x, 4) for x in cmp['height']]}); the stage graphs' "
+        f"logits and argmax equal to the eager staged step's bit for bit "
+        f"at each step: {cmp['equal']}; along the TP pool's own state the "
+        f"largest logit difference {cmp['drift']:.6f}; a step at {slots} "
+        f"rows by replay between events: the StagedStep {ms['tp']:.4f} ms, "
+        f"the TP step as one graph on this card {ms['tp one graph']:.4f} "
+        f"ms ({ms['tp'] / ms['tp one graph']:.3f}x), the unsplit "
+        f"GraphedStep {ms['unsplit']:.4f} ms "
+        f"({ms['tp'] / ms['unsplit']:.3f}x); (request, token, margin) "
+        f"parting from the {slots}-row generate_static at a near-tie "
+        f"within the bound's room for the top-2 logits: {near}")
+    log(f"{tag}: layer by layer from the unsplit layer's input (embedding, "
+        f"{cfg.num_layers} blocks, head), the largest difference over the "
+        f"bound at the first and the last step: "
+        f"{[[round(x, 4) for x in r] for r in cmp['layers']]}")
+    if moe:
+        log(f"{tag}: the MoE layer's integers equal the unsplit layer's: "
+            f"{ints}; launches {_nonzero(launches)} (the stage graphs' "
+            f"replays x their MoE kernel nodes, and one warm-up step per "
+            f"capture in the run: "
+            f"{'equal' if launches == want else want})")
+    checks = {
+        f"launches {launches} are not the stage graphs' {want}":
+            launches != want,
+        "a stage graph's kernel nodes": bad_nodes,
+        "the pool is not at tp 2": sp.tp != 2,
+        "a shard ran no stage graph": sorted(shards) != [0, 1],
+        "the stage graphs' logits or argmax differ from the eager staged "
+        f"step's at a step: {cmp['equal']}": not all(cmp["equal"]),
+        f"a TP layer's output parts from the unsplit layer's by "
+        f"{layer:.4f} of atol = rtol = {MESH_TP_TOL}": not layer <= 1,
+        f"the TP step's logits part from the unsplit step's by "
+        f"{ratio:.4f} of atol = rtol = {MESH_TP_TOL}, over {limit}":
+            not ratio <= limit,
+    }
+    rows = []
+    if moe:
+        checks.update({
+            "the TP MoE layer's integers differ": not all(ints.values()),
+            "no MoE kernel launched from shard 0's stage graphs":
+                min(want.values()) == 0})
+        # the MoE kernels on the TP pool's rows, through its shards'
+        # weights
+        copy = SlotPool(cfg, slots, max_len, None, mesh=sp.mesh)
+        sp.gather_into(copy, range(slots))
+        rows, shapes = check_kernels(
+            torch, step_inputs(torch, cfg, split, dev, rng, copy), want)
+        log_kernel_rows(suffixed(rows, "tp"), shapes)
+        del copy
+    del eng, tsrv, sp, split
+    _free(torch)
+    return rows, checks
+
+
+def mesh_dense(torch, dev, group, fails) -> dict:
+    """[mesh] c: MESH_C_ARCH at its published widths (bf16 weights drawn
+    on the card from SEED) in a MESH_C_SLOTS-slot pool at ``pool_tp = 2``
+    over ``group``, held to its own MESH_C_SLOTS-row static loop under the
+    near-tie rule (``mesh_tp``).  Returns the checks."""
+    from repro_torch.configs import get_arch
+    from repro_torch.runtime.serve import BatchedServer
+    cfg = get_arch(MESH_C_ARCH)
+    log(f"[mesh] c: {cfg.name}, {cfg.num_layers} layers")
+    params = model_init(torch, cfg, dev, "mesh c")
+    srv = BatchedServer(cfg, params, max_len=MESH_C_MAX_LEN, device=dev)
+    oracle = StaticOracle(torch, srv, fails, rows=MESH_C_SLOTS,
+                          tag="mesh c")
+    rng = np.random.default_rng(SEED + 12)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in MESH_C_LENS]
+    oracle.prefetch([(p, MESH_C_NEW) for p in prompts])
+
+    _, checks = mesh_tp(
+        torch, dev, "[mesh] c", cfg, srv.params, group, MESH_C_SLOTS,
+        MESH_C_MAX_LEN, prompts, MESH_C_NEW,
+        lambda p: oracle(p, MESH_C_NEW),
+        lambda p: oracle.margins(p, MESH_C_NEW, top2=True)[1], fails,
+        moe=False, limit=MESH_C_STEP_LIMIT)
+    del srv, oracle, params
+    _free(torch)
+    return checks
 
 
 def mesh_phase(torch, dev, cfg, srv, oracle, prompts, placed_rate,
                fails) -> list:
     """Pools over a device group on the card: see the module docstring's
     [mesh].  Returns the MoE kernels' JSON rows on the TP pool's rows."""
-    import dataclasses as dc
-    from repro_torch.engine.serve import SlotPool
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
     from repro_torch.models import moe as moe_lib
@@ -3344,82 +3660,26 @@ def mesh_phase(torch, dev, cfg, srv, oracle, prompts, placed_rate,
     })
     del eng, msrv, sp, seen, weights
     _free(torch)
-    # b. pool_tp = 2 over the same group: the TP step, one graph a height
-    tcfg = dc.replace(cfg, serve=dc.replace(cfg.serve, pool_tp=2))
-    torch.cuda.synchronize()
-    mem0 = torch.cuda.memory_allocated()
-    tsrv = BatchedServer(tcfg, srv.params, max_len=SERVE_MAX_LEN,
-                         slots=POOL_SLOTS, compact_decode=False,
-                         placements={0: group}, device=dev)
-    eng = tsrv.engine()
-    sp = eng.pools[0]
-    split = eng._params_for(sp)[0]
-    torch.cuda.synchronize()
-    grown_b = torch.cuda.memory_allocated() - mem0
-    shard_b = [sum(t.numel() * t.element_size() for t in _leaves(w))
-               for w in split]
-    warm_pools(torch, eng, cfg, rng)
-    since = {k: g.replays for k, g in eng._tick.graphs.items()}
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    reqs = [tsrv.submit(p, PLACED_NEW) for p in prompts]
-    eng.run_until_done()
-    torch.cuda.synchronize()
-    wall_b = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    want = graph_launches(eng._tick.graphs, since)
-    ratios, drift, ms, ints = tp_against_unsplit(torch, cfg, eng, sp, dev,
-                                                 rng)
-    ratio = max(ratios)
+    # b. pool_tp = 2 over the same group: the TP step's stage graphs
     oracle.prefetch([(p, MIGRATE_NEW) for p in prompts])
-    near = []
-    for i, (p, r) in enumerate(zip(prompts, reqs)):
-        ref = oracle(p, MIGRATE_NEW)[:PLACED_NEW]
-        if not np.array_equal(r.output(), ref):
-            # the gate lets each of the top-2 logits move by MESH_TP_TOL
-            # * (1 + |logit|), so a flip needs a margin within their sum
-            m, top2 = oracle.margins(p, MIGRATE_NEW, top2=True)
-            allow = MESH_TP_TOL * (2 + np.abs(top2).sum(-1))
-            near += [(i,) + x[1:] for x in near_tie_check(
-                f"mesh b, request {i}", r.output()[None], ref[None],
-                m[None], allow[None], fails)]
-    rate_b = sum(len(r.output()) for r in reqs) / wall_b
-    log(f"[mesh] b: a {POOL_SLOTS}-slot pool at pool_tp 2 over "
-        f"{[str(d) for d in group]}; each shard's weights {shard_b} B (the "
-        f"engine's {sum(t.numel() * t.element_size() for t in _leaves(eng.params))}"
-        f" B; memory_allocated grew {grown_b} B with the pool's rows); "
-        f"{wall_b:.4f} s, {rate_b:.1f} generated tok/s; the TP step's "
-        f"logits from the unsplit step's state, the largest difference "
-        f"over its bound (atol = rtol = {MESH_TP_TOL}) at each of "
-        f"{MESH_STEPS} steps {[round(r, 4) for r in ratios]}; along the TP "
-        f"pool's own state the largest logit difference {drift:.6f}; a "
-        f"step at {POOL_SLOTS} rows by graph replay "
-        f"{ms['tp']:.4f} ms (unsplit {ms['unsplit']:.4f} ms, "
-        f"{ms['tp'] / ms['unsplit']:.3f}x); the MoE layer's integers equal "
-        f"the unsplit layer's: {ints}; (request, token, margin) parting "
-        f"from the 4-row generate_static at a near-tie within the bound's "
-        f"room for the top-2 logits: {near}")
-    log(f"[mesh] b: launches {_nonzero(launches)} (replays x per replay: "
-        f"{'equal' if launches == want else want})")
-    checks.update({
-        f"b: launches {launches} are not the replays' {want}":
-            launches != want,
-        "b: the TP MoE layer's integers differ": not all(ints.values()),
-        f"b: the TP step's logits part from the unsplit step's by "
-        f"{ratio:.4f} of atol = rtol = {MESH_TP_TOL}": not ratio <= 1,
-        "b: the pool is not at tp 2": sp.tp != 2,
-    })
-    # the MoE kernels on the TP pool's rows, through its shards' weights
-    copy = SlotPool(cfg, POOL_SLOTS, SERVE_MAX_LEN, None, mesh=sp.mesh)
-    sp.gather_into(copy, range(POOL_SLOTS))
-    rows, shapes = check_kernels(
-        torch, step_inputs(torch, cfg, split, dev, rng, copy), want)
-    log_kernel_rows(suffixed(rows, "tp"), shapes)
-    del eng, tsrv, sp, split, copy
-    _free(torch)
-    secs = time.perf_counter() - t_phase
-    log(f"[mesh] phase {secs:.1f} s (budget {MESH_BUDGET_S} s)")
+
+    def top2_b(p):
+        return oracle.margins(p, MIGRATE_NEW, top2=True)[1][:PLACED_NEW]
+
+    rows, checks_b = mesh_tp(
+        torch, dev, "[mesh] b", cfg, srv.params, group, POOL_SLOTS,
+        SERVE_MAX_LEN, prompts, PLACED_NEW,
+        lambda p: oracle(p, MIGRATE_NEW)[:PLACED_NEW], top2_b, fails,
+        moe=True, limit=1.0)
+    checks.update({f"b: {k}": v for k, v in checks_b.items()})
+    secs_b = time.perf_counter() - t_phase
+    # c. starcoder2-7b at its published widths, a dense GQA split
+    t_c = time.perf_counter()
+    checks.update({f"c: {k}": v
+                   for k, v in mesh_dense(torch, dev, group, fails).items()})
+    secs_c = time.perf_counter() - t_c
+    log(f"[mesh] a and b {secs_b:.1f} s (budget {MESH_BUDGET_S} s), c "
+        f"{secs_c:.1f} s (budget {MESH_C_BUDGET_S} s)")
     for what, bad_ in checks.items():
         if bad_:
             fails.append(f"mesh: {what}" + (f": {bad_[:5]}"

@@ -142,9 +142,12 @@ its name or a sequence of them, made a pool mesh at ``serve.pool_tp``
 divides the slots (each shard's rows and its tick on its own row of the
 group; a tick enqueues every shard before it makes its one host copy),
 else whole on the group's first row; at ``pool_tp`` > 1 a pool's rows
-split by heads and its step is ``models.tp``'s tensor-parallel step.  A
-group may name one card several times: every split and every shard's
-step runs there, one after the other.  A placed pool reads the weights
+split by heads and its step is ``models.tp``'s tensor-parallel step,
+whose ``model`` devices may be distinct cards (on the card a
+``StagedStep``: a graph per TP shard and stage on the shard's card, the
+copies between them outside).  A group may name one card several times:
+every split and every shard's step runs there, one after the other, in
+the sequence of calls that distinct cards run.  A placed pool reads the weights
 through ``_params_for``: one copy per device group of its rows, made by
 ``serving_params`` (which keeps a tensor already on the device, so a pool
 placed on the engine's own card reads the engine's tensors) or, at
@@ -264,30 +267,42 @@ def build_decode_step(cfg: ArchConfig, device,
 
     A pool whose rows split by heads over a group of ``tp`` > 1 devices
     (``SlotPool.tp``) runs the tensor-parallel step ``models.tp``'s, with
-    ``params`` its shards' weights (``tp.split_params``); the draft runs
-    unsplit on the group's first device."""
+    ``params`` its shards' weights (``tp.split_params``), as the program
+    of stages ``stages`` (a ``tp.Stages``; by default the eager one): the
+    n-gram learn and the draft join shard 0's first stage, the positions'
+    write-back and the argmax its last.  The draft runs unsplit on the
+    group's first device."""
     plan = _plan(cfg, device)
     dplan = _plan(draft_cfg, device) if draft_cfg is not None else None
 
-    def step(params, dparams, pool, tok, active):
+    def step(params, dparams, pool, tok, active, stages=None):
         """tok [B] int64, active [B] bool -> (logits [B,V] f32, argmax
         [B])."""
-        ng_learn(pool.ng, pool.ctx, tok, active)
-        if draft_cfg is not None:
-            lm.decode_step(dparams, {"caches": pool.draft, "pos": pool.pos},
-                           tok[:, None], draft_cfg, plan=dplan,
-                           moe_groups="row", active=active)
-        state = {"caches": pool.caches, "pos": pool.pos}
+        rt = None
         if pool.tp > 1:
-            logits, st = tp_lib.decode_step(params, state, tok[:, None], cfg,
-                                            pool.group, plan=plan,
-                                            moe_groups="row", active=active)
-        else:
-            logits, st = lm.decode_step(params, state, tok[:, None], cfg,
-                                        plan=plan, moe_groups="row",
-                                        active=active)
-        pool.pos.copy_(st["pos"])
-        return logits, torch.argmax(logits, dim=-1)
+            rt = tp_lib.Stages(pool.group) if stages is None else stages
+            rt.at(0)
+        try:
+            ng_learn(pool.ng, pool.ctx, tok, active)
+            if draft_cfg is not None:
+                lm.decode_step(dparams, {"caches": pool.draft,
+                                         "pos": pool.pos},
+                               tok[:, None], draft_cfg, plan=dplan,
+                               moe_groups="row", active=active)
+            state = {"caches": pool.caches, "pos": pool.pos}
+            if rt is not None:
+                logits, st = tp_lib.decode_step(
+                    params, state, tok[:, None], cfg, pool.group, plan=plan,
+                    moe_groups="row", active=active, stages=rt)
+            else:
+                logits, st = lm.decode_step(params, state, tok[:, None], cfg,
+                                            plan=plan, moe_groups="row",
+                                            active=active)
+            pool.pos.copy_(st["pos"])
+            return logits, torch.argmax(logits, dim=-1)
+        finally:
+            if rt is not None and stages is None:
+                rt.end()
 
     return step
 
@@ -380,6 +395,187 @@ class GraphedStep:
         return self.logits, self.greedy
 
 
+@dataclasses.dataclass
+class StageGraph:
+    """One (TP shard, stage) of a ``StagedStep``: its CUDA graph on the
+    shard's device, the kernel launches one replay makes (recorded at
+    capture) and its replays."""
+    shard: int
+    stage: int
+    device: torch.device
+    graph: Any
+    per_replay: Dict[str, int]
+    replays: int = 0
+
+
+class _StageCapture(tp_lib.Stages):
+    """``tp.Stages`` that captures each (shard, stage) in a CUDA graph of
+    its own: ``at(j)`` ends the open capture and begins one on shard
+    ``j``'s device, on that device's capture stream and into its graph
+    memory pool; an exchange ends the open capture and allocates the
+    destination's staging tensor (outside every graph and every capture),
+    recording the copy that a replay makes.  ``ops`` is the step's replay
+    order: ``StageGraph``s and (staging tensor, source) copies."""
+
+    def __init__(self, devices, mempools, streams):
+        super().__init__(devices)
+        self.mempools, self.streams = mempools, streams
+        self.ops: List[Any] = []
+        self.count = [0] * len(self.devices)
+        self._open = None
+
+    def at(self, j: int) -> None:
+        if self._open is not None and self._open[0] == j:
+            return
+        self._close()
+        dev = self.devices[j]
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(torch.cuda.device(dev))
+        ctx.enter_context(torch.cuda.stream(self.streams[dev]))
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = dict(LAUNCHES)
+        try:
+            graph.capture_begin(pool=self.mempools[dev])
+        except BaseException:
+            ctx.close()
+            raise
+        self._open = (j, graph, ctx, before)
+
+    def _close(self) -> None:
+        if self._open is None:
+            return
+        j, graph, ctx, before = self._open
+        self._open = None
+        try:
+            graph.capture_end()
+        finally:
+            ctx.close()
+        graph.instantiate()
+        per = launches_since(before)
+        LAUNCHES.update(before)              # the capture launched nothing
+        self.ops.append(StageGraph(j, self.count[j], self.devices[j], graph,
+                                   per))
+        self.count[j] += 1
+
+    def to(self, x, src: int, dst: int):
+        self._close()
+        if src == dst:
+            return x
+        staged = torch.empty(x.shape, dtype=x.dtype,
+                             device=self.devices[dst])
+        self.ops.append((staged, x))
+        return staged
+
+    def end(self) -> None:
+        self._close()
+
+
+class StagedStep:
+    """A tensor-parallel pool's ``step`` (``build_decode_step`` over a
+    pool of ``tp`` > 1, ``models.tp``'s program of stages) captured as one
+    CUDA graph per (TP shard, stage), each on its shard's device, with the
+    exchanges' copies between them outside every graph: the form that
+    runs a pool whose shards sit on distinct cards, and the one every TP
+    pool runs, a card named twice included, so that one card runs the
+    sequence of calls that two cards run.  Called as ``GraphedStep`` is:
+    it writes the static token and active inputs, replays ``ops`` in
+    order and returns the last stage's static logits and argmax.
+
+    Capture: one eager step first with every row inactive (no pool row or
+    position moves), on a side stream of each of the group's devices
+    (kernel libraries loaded, cuBLAS workspaces and the gating scratch
+    made); then the step once more under ``_StageCapture``.  Each shard's
+    stages capture on that side stream of its device, under
+    ``torch.cuda.device(its device)``, into ``mempools[its device]``;
+    every staging tensor is allocated then, once, and never replaced (the
+    graphs hold their addresses; ``SlotTick.release`` drops them with the
+    graphs).  A failed capture raises; there is no fallback.
+
+    Replay: each stage graph under ``torch.cuda.device(its device)``, so
+    that it launches on that device's current stream, and each copy as
+    ``staging.copy_(source)``, which orders itself after both devices'
+    current streams (torch's cross-device copy), so a copy never reads a
+    stage's output before the stage has written it, nor overwrites a
+    staging tensor a stage still reads.  Each stage graph credits its own
+    per-replay launches (``kernels.credit_launches``) and counts its
+    replays; ``per_replay`` is their sum over a step, as a
+    ``GraphedStep``'s is."""
+
+    def __init__(self, step, *state, mempools):
+        pool = state[-1]
+        devs = list(pool.group)
+        dev = devs[0]
+        b = pool.pos.shape[0]
+        self.rows = b
+        self.state = state
+        self.tok = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.active = torch.zeros((b,), dtype=torch.bool, device=dev)
+        sides = {d: torch.cuda.Stream(d) for d in dict.fromkeys(devs)}
+        for d, side in sides.items():
+            side.wait_stream(torch.cuda.current_stream(d))
+        with contextlib.ExitStack() as ctx:
+            for side in sides.values():
+                ctx.enter_context(torch.cuda.stream(side))
+            warm = tp_lib.Stages(devs)
+            try:
+                step(*state, self.tok, self.active, stages=warm)
+            finally:
+                warm.end()
+        for d, side in sides.items():
+            torch.cuda.current_stream(d).wait_stream(side)
+            torch.cuda.synchronize(d)
+        cap = _StageCapture(devs, mempools, sides)
+        try:
+            self.logits, self.greedy = step(*state, self.tok, self.active,
+                                            stages=cap)
+        finally:
+            cap.end()
+        self.ops = cap.ops
+        self.stages = [op for op in self.ops if isinstance(op, StageGraph)]
+        self.copies = len(self.ops) - len(self.stages)
+        self.replays = 0
+
+    @property
+    def per_replay(self) -> Dict[str, int]:
+        out = dict.fromkeys(LAUNCHES, 0)
+        for g in self.stages:
+            for k, n in g.per_replay.items():
+                out[k] += n
+        return out
+
+    def stage_counts(self) -> Dict[int, int]:
+        """The number of stage graphs of each TP shard."""
+        out: Dict[int, int] = {}
+        for g in self.stages:
+            out[g.shard] = out.get(g.shard, 0) + 1
+        return out
+
+    def kernel_nodes(self):
+        """The kernel name of each kernel node of every stage graph, in
+        replay order: what a step launches on the devices."""
+        from repro_torch.kernels.graphs import graph_nodes
+        return [name for g in self.stages
+                for kind, name in graph_nodes(g.graph) if kind == "kernel"]
+
+    def bound_to(self, *state) -> bool:
+        return len(state) == len(self.state) and \
+            all(a is b for a, b in zip(state, self.state))
+
+    def __call__(self, tok, active):
+        self.tok.copy_(tok)
+        self.active.copy_(active)
+        for op in self.ops:
+            if isinstance(op, StageGraph):
+                with torch.cuda.device(op.device):
+                    op.graph.replay()
+                credit_launches(op.per_replay)
+                op.replays += 1
+            else:
+                op[0].copy_(op[1])
+        self.replays += 1
+        return self.logits, self.greedy
+
+
 class Proposer:
     """One speculative-proposer arm: the source of the draft chain the
     target verifies.  ``propose(tick, pool, dparams, first, active, L)``
@@ -462,9 +658,12 @@ class SlotTick:
     With ``graph`` (a pool on the card) each step runs as a
     ``GraphedStep``, captured on its first use over each (pool, height):
     a pool's full rows, each shard of a split pool and each compact buffer
-    set are separate states.  A tensor-parallel step (a group on one card:
-    ``ServeEngine._as_mesh`` refuses one over distinct cards) is one graph.
-    All share one graph memory pool.  The reset zeroing, the token
+    set are separate states.  A tensor-parallel pool's target step runs as
+    a ``StagedStep``: a graph per (TP shard, stage), each on its shard's
+    device, the copies between them outside, whether the shards sit on
+    distinct cards or on one card named twice.  Each device the tick
+    captures on has one graph memory pool, which its graphs share.  The
+    reset zeroing, the token
     select and the valid mask between steps, sampling and the tick's one
     host copy stay outside the graph.  Without it (a CPU pool) the same
     steps run eagerly.  ``record``, when a list, receives each step's
@@ -477,11 +676,12 @@ class SlotTick:
         if draft_cfg is not None:
             self.steps["propose"] = build_propose_step(draft_cfg, device)
         self.graph = graph
-        # (pool lid, step name, rows) -> its graph
-        self.graphs: Dict[tuple, GraphedStep] = {}
+        # (pool lid, step name, rows[, data shard]) -> its graph, or a TP
+        # pool's StagedStep (its stage graphs: ``stage_graphs``)
+        self.graphs: Dict[tuple, Any] = {}
         self.captures = 0
         self.record: Optional[list] = None
-        self._mempool = None
+        self._mempools: Dict[torch.device, Any] = {}
 
     @staticmethod
     def key(pool, name: str) -> tuple:
@@ -491,6 +691,29 @@ class SlotTick:
         if pool.shard is None:
             return (pool.lid, name, pool.slots)
         return (pool.lid, name, pool.slots, pool.shard)
+
+    def stage_graphs(self) -> Dict[tuple, StageGraph]:
+        """Every stage graph of the tick's TP steps, keyed by (pool lid,
+        step name, rows, data shard, TP shard, stage): the data shard is
+        the split pool's shard index, -1 for its compact buffer sets and
+        None for a pool that is not split, so that no two shards on one
+        card share a graph."""
+        out = {}
+        for key, g in self.graphs.items():
+            if isinstance(g, StagedStep):
+                base = key if len(key) == 4 else key + (None,)
+                for st in g.stages:
+                    out[base + (st.shard, st.stage)] = st
+        return out
+
+    def _mempool(self, dev) -> Any:
+        """The graph memory pool of device ``dev``: one a device, shared by
+        every graph this tick captures there (they never run concurrently,
+        and a tick consumes a replay's outputs before the next replay)."""
+        got = self._mempools.get(dev)
+        if got is None:
+            got = self._mempools[dev] = torch.cuda.graph_pool_handle()
+        return got
 
     @property
     def graphed(self) -> Optional[GraphedStep]:
@@ -513,9 +736,10 @@ class SlotTick:
     def release(self) -> None:
         """Drop every graph of every pool and height: the next tick
         captures again (a weight or draft publish rebinds the weights the
-        graphs hold).  The memory pool goes with them."""
+        graphs hold).  The memory pools and a TP step's staging tensors go
+        with them."""
         self.graphs.clear()
-        self._mempool = None
+        self._mempools.clear()
 
     def drop_pool(self, lid: int) -> None:
         """Drop every graph of pool ``lid``, full and compact heights: a
@@ -531,13 +755,17 @@ class SlotTick:
         step = self.steps[name]
         if not self.graph:
             return lambda tok, active: step(*state, tok, active)
-        key = self.key(state[-1], name)
+        pool = state[-1]
+        key = self.key(pool, name)
         g = self.graphs.get(key)
         if g is None:
-            if self._mempool is None:
-                self._mempool = torch.cuda.graph_pool_handle()
-            g = self.graphs[key] = GraphedStep(step, *state,
-                                               mempool=self._mempool)
+            if name == "step" and pool.tp > 1:
+                g = StagedStep(step, *state, mempools={
+                    d: self._mempool(d) for d in pool.group})
+            else:
+                g = GraphedStep(step, *state,
+                                mempool=self._mempool(pool.pos.device))
+            self.graphs[key] = g
             self.captures += 1
         elif not g.bound_to(*state):
             raise ValueError(f"the tick's {key} graph was captured over "
@@ -1209,10 +1437,11 @@ class ServeEngine:
         them) as a pool mesh at ``serve.pool_tp``; a card without an index
         (``"cuda"``) is the engine's own.  A group may name several
         devices, or one device several times (a group on one card: every
-        split and every shard's step runs, one after the other).  Every
-        device must be of the engine's type: a sampled request's generator
-        moves between pools only within one device type.  The ``model``
-        devices of each ``data`` row must be one card."""
+        split and every shard's step runs, one after the other); the
+        ``model`` devices of a ``data`` row may be distinct cards (the TP
+        step's stages run each on its shard's card, ``StagedStep``).
+        Every device must be of the engine's type: a sampled request's
+        generator moves between pools only within one device type."""
         if isinstance(plc, SH.Mesh):
             raw = plc.group
         else:
@@ -1226,17 +1455,9 @@ class ServeEngine:
                     "request's sampling generator cannot carry its stream "
                     "between a CPU and a CUDA generator)")
             group.append(self._home if d.index is None else d)
-        mesh = plc._replace(group=tuple(group)) if isinstance(
-            plc, SH.Mesh) else SH.pool_mesh(group, self.cfg.serve.pool_tp)
-        t = mesh.shape.get("model", 1)
-        if any(len(set(group[i:i + t])) > 1 for i in range(0, len(group), t)):
-            raise ValueError(
-                f"a tensor-parallel pool over distinct cards {group}: its "
-                "step is captured as one graph on one card, and the form "
-                "across cards (a graph per card, the copies between them "
-                "outside) waits for a machine with two cards (ROADMAP.md, "
-                "queue 1, item 8)")
-        return mesh
+        if isinstance(plc, SH.Mesh):
+            return plc._replace(group=tuple(group))
+        return SH.pool_mesh(group, self.cfg.serve.pool_tp)
 
     def _params_for(self, sp: SlotPool):
         """(weights, draft weights) a pool's ticks read: the engine's own

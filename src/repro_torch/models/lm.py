@@ -34,7 +34,7 @@ from __future__ import annotations
 import functools
 import itertools
 from collections import defaultdict
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch.utils import checkpoint as ckpt
@@ -251,7 +251,8 @@ def init_cache(cfg: ArchConfig, batch: int, smax: int, kv_dtype=None,
 
 def decode_step(params, state, token, cfg: ArchConfig, *, plan=None,
                 moe_groups: str = "batch", active=None,
-                metrics: Optional[list] = None):
+                metrics: Optional[list] = None,
+                tap: Optional[Callable] = None):
     """token [B,1] int; state from init_cache (its caches are updated in
     place).  Returns (logits [B,V] f32, state with ``pos`` advanced).
 
@@ -261,15 +262,20 @@ def decode_step(params, state, token, cfg: ArchConfig, *, plan=None,
     its own position — the reference engine's vmap over batch-1 slots.
     ``active`` [B] bool (default all): inactive rows leave their caches and
     positions untouched.  ``metrics``, when a list, receives each MoE
-    layer's metrics dict."""
+    layer's metrics dict.  ``tap(i, x)``, when given, sees the residual
+    stream after the embedding (``i`` 0) and after the ``i``-th layer, and
+    the step goes on from what it returns."""
     pos = state["pos"]
     b = token.shape[0]
     x = params["embed"][token].to(torch.bfloat16)
+    if tap is not None:
+        x = tap(0, x)
     ctx = {"cfg": cfg, "pos": pos, "moe_groups": moe_groups,
            "token_offset": pos[:1], "active": active, "moe_metrics": []}
     if plan is None and n_moe_layers(cfg):
         plan = moe_lib.identity_plan(cfg, n_moe_layers(cfg), device=x.device)
     caches, counts, views = state["caches"], type_counts(cfg), {}
+    i = 0
     for t, count, off in pattern_runs(cfg):
         decode = BLOCKS[t]["decode"]
         if t not in views:
@@ -281,6 +287,9 @@ def decode_step(params, state, token, cfg: ArchConfig, *, plan=None,
                 ctx["plan_slots"], ctx["plan_cum"] = plan.slots[li], \
                     plan.cum[li]
             x = decode(p_l, x, c_l, ctx)
+            i += 1
+            if tap is not None:
+                x = tap(i, x)
     if metrics is not None:
         metrics.extend(ctx["moe_metrics"])
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)

@@ -41,11 +41,23 @@ same of its split, ``configs/base.py``'s ``pool_tp``).
 ``split_params`` makes each shard's weights; ``cache_pieces`` says how a
 pool's cache leaves split with the heads they belong to, and
 ``init_cache`` makes each shard's; ``decode_step`` is the step.
+
+The step is written as a program of *stages* (``Stages``): each stage is
+one shard's work on its own device and tensors, and every device crossing
+above (the positions, mask and token to each shard; a block's normed
+input, Mamba2's ``B``/``C`` and RWKV6's shifted row to each shard; each
+partial sum, sum of squares, expert output and logit slice back to the
+first shard; the norm's scale and the experts' buffer slices out to the
+shards) is an *exchange* between stages.  Run eagerly the stages do
+exactly the arithmetic above; on the card the engine captures one CUDA
+graph per (shard, stage) and runs the exchanges as copies between them
+(``engine.serve.StagedStep``), so a pool's shards may sit on distinct
+cards.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -236,35 +248,75 @@ def init_cache(cfg: ArchConfig, slots: int, max_len: int, tp: int,
 
 # ---------------------------------------------------------------- the step
 
-class _Shards:
-    """The per-step context of the shards: their devices, per-layer
-    weights and caches, each device's copy of the positions and the active
-    mask, and the partial-sum reduction on the first device."""
+class Stages:
+    """The step as a program over its shards: its work runs in *stages*,
+    each on one shard's device and reading only that shard's tensors, and
+    an *exchange* hands a tensor from one shard to another between stages.
 
-    def __init__(self, cfg, tp, devices, pos, active):
-        self.cfg, self.tp, self.devices = cfg, tp, list(devices)
+    ``at(j)`` says that the work that follows is shard ``j``'s (a new
+    stage unless shard ``j``'s is the one open); ``to(x, src, dst)`` hands
+    shard ``src``'s ``x`` to shard ``dst`` and ends the open stage, also
+    where ``src == dst`` (then ``x`` itself comes back), so that the work
+    after it on shard ``src`` is a stage of its own; ``end()`` ends the
+    last stage.  A step hands every shard its inputs before any shard
+    starts on them (``_Shards.bcast``), so that on distinct cards the
+    shards' stages of one exchange run side by side.
+
+    This form runs each stage where it stands (on a card with the shard's
+    device current) and an exchange as ``x.to(device)``.  The engine's
+    ``engine.serve.StagedStep`` captures each (shard, stage) in a CUDA
+    graph of its own on the shard's device and replays them in order, with
+    the exchanges' copies into persistent staging tensors between them,
+    outside every graph."""
+
+    def __init__(self, devices: Sequence[torch.device]):
+        self.devices = list(devices)
+        self._home: Optional[int] = None
+
+    def at(self, j: int) -> None:
+        d = self.devices[j]
+        if d.type == "cuda" and d.index is not None:
+            if self._home is None:
+                self._home = torch.cuda.current_device()
+            torch.cuda.set_device(d)
+
+    def to(self, x, src: int, dst: int):
+        return x if src == dst else x.to(self.devices[dst])
+
+    def end(self) -> None:
+        if self._home is not None:
+            torch.cuda.set_device(self._home)
+            self._home = None
+
+
+class _Shards:
+    """The per-step context of the shards: their devices, each shard's
+    copy of the positions and the active mask, the broadcast from and the
+    partial-sum reduction on the first shard, and the step's ``Stages``."""
+
+    def __init__(self, cfg, tp, devices, pos, active, rt: Stages):
+        self.cfg, self.tp, self.devices, self.rt = cfg, tp, list(devices), rt
         self.plan = split_plan(cfg, tp)
-        self.dev0 = self.devices[0]
-        self.pos = [pos.to(d) for d in self.devices]
-        self.active = [None if active is None else active.to(d)
-                       for d in self.devices]
+        self.pos = self.bcast(pos)
+        self.active = [None] * tp if active is None else self.bcast(active)
 
     def ctx(self, base, j):
         return dict(base, pos=self.pos[j], active=self.active[j])
 
-    def sum(self, parts):
-        """Partial outputs added on the first device, in shard order."""
-        out = parts[0].to(self.dev0)
-        for p in parts[1:]:
-            out = out + p.to(self.dev0)
-        return out
+    def bcast(self, x):
+        """The first shard's ``x`` handed to every shard (shard 0 keeps
+        ``x``)."""
+        return [self.rt.to(x, 0, j) for j in range(self.tp)]
 
-    def project(self, ys, ws, dtype):
-        """The sum of the shards' partial products ``y @ w`` (``w`` a
-        slice of a projection along the dim it contracts, in f32): each
-        product in f32, added on the first device in shard order, rounded
-        to ``dtype`` once."""
-        return self.sum([y.float() @ w for y, w in zip(ys, ws)]).to(dtype)
+    def sum(self, parts):
+        """Partial outputs (shard ``j``'s on shard ``j``) added on the
+        first shard, in shard order; shard 0's stage is left open."""
+        got = [self.rt.to(p, j, 0) for j, p in enumerate(parts)]
+        self.rt.at(0)
+        out = got[0]
+        for p in got[1:]:
+            out = out + p
+        return out
 
     def shard_cfg(self):
         c = self.cfg
@@ -277,44 +329,53 @@ def _sq_sum(y):
     return y.float().square().sum(-1, keepdim=True)
 
 
-def _norm_split(sh, ys, gammas, eps, width):
-    """``rms_norm`` over the concatenation of the shards' ``ys`` (each on
-    its device) with the matching slices of its gain: the sum of squares
-    added over the shards on the first device, the scale handed back."""
-    var = sh.sum([_sq_sum(y) for y in ys]) / width
-    scale = torch.rsqrt(var + eps)
-    return [y * scale.to(y.device).to(y.dtype) * g.to(y.dtype)
-            for y, g in zip(ys, gammas)]
+def _partial(y, w):
+    """A shard's partial product ``y @ w`` (``w`` a slice of a projection
+    along the dim it contracts, in f32), in f32; ``_Shards.sum`` adds the
+    shards' and the caller rounds once."""
+    return y.float() @ w
+
+
+def _norm_scales(sh, sqs, eps, width):
+    """``rms_norm``'s scale over the concatenation of the shards' rows
+    from each shard's sum of squares ``sqs``: added over the shards on the
+    first shard, the scale handed back to each shard."""
+    var = sh.sum(sqs) / width
+    return sh.bcast(torch.rsqrt(var + eps))
 
 
 def _attention(sh, ps, cs, xn, base, window=None, rolling=False):
     cfg = sh.cfg
     if not sh.plan["attn"]:
+        sh.rt.at(0)
         return B._decode_attention(cfg, ps[0], xn, cs[0], sh.ctx(base, 0),
                                    window, rolling)
-    scfg = sh.shard_cfg()
-    return sh.project([B._decode_attention(scfg, p, xn.to(d), c,
-                                           sh.ctx(base, j), window, rolling,
-                                           project=False)
-                       for j, (p, c, d) in enumerate(zip(ps, cs,
-                                                         sh.devices))],
-                      [p["wo"] for p in ps], xn.dtype)
+    scfg, xs, parts = sh.shard_cfg(), sh.bcast(xn), []
+    for j, (p, c) in enumerate(zip(ps, cs)):
+        sh.rt.at(j)
+        y = B._decode_attention(scfg, p, xs[j], c, sh.ctx(base, j), window,
+                                rolling, project=False)
+        parts.append(_partial(y, p["wo"]))
+    return sh.sum(parts).to(xn.dtype)
 
 
 def _mlp(sh, ps, hn):
     if not sh.plan["mlp"]:
+        sh.rt.at(0)
         p = ps[0]
         return swiglu(hn, p["w_gate"], p["w_up"], p["w_down"])
-    gus = []
-    for p, d in zip(ps, sh.devices):
-        h = hn.to(d)
-        gus.append(F.silu(h @ p["w_gate"].to(h.dtype)) *
-                   (h @ p["w_up"].to(h.dtype)))
-    return sh.project(gus, [p["w_down"] for p in ps], hn.dtype)
+    hs, parts = sh.bcast(hn), []
+    for j, p in enumerate(ps):
+        sh.rt.at(j)
+        h = hs[j]
+        gu = F.silu(h @ p["w_gate"].to(h.dtype)) * (h @ p["w_up"].to(h.dtype))
+        parts.append(_partial(gu, p["w_down"]))
+    return sh.sum(parts).to(hn.dtype)
 
 
 def _attn_block(sh, ps, x, cs, base, window=None, rolling=False):
     eps = sh.cfg.norm_eps
+    sh.rt.at(0)
     h = x + _attention(sh, ps, cs, rms_norm(x, ps[0]["ln1"], eps), base,
                        window, rolling)
     return h + _mlp(sh, ps, rms_norm(h, ps[0]["ln2"], eps))
@@ -326,19 +387,23 @@ def _local_block(sh, ps, x, cs, base):
 
 
 def expert_fn(sh, ps):
-    """The experts over the dispatch buffer ``[G, slots, cap, D]``: each
-    shard its own range of slots, on its device, gathered back whole on
-    the first device."""
+    """The experts over the dispatch buffer ``[G, slots, cap, D]`` (on the
+    first shard): each shard its own range of slots, gathered back whole
+    on the first shard, whose stage is left open."""
     def run(buf):
         if not sh.plan["experts"]:
             return moe_lib.expert_ffn(ps[0], buf)
         s = buf.shape[1]
-        outs = []
-        for j, (p, d) in enumerate(zip(ps, sh.devices)):
+        pieces, outs = [], []
+        for j in range(sh.tp):
             lo, hi = _part(s, sh.tp, j)
-            outs.append(moe_lib.expert_ffn(p, buf[:, lo:hi].to(d))
-                        .to(sh.dev0))
-        return torch.cat(outs, 1)
+            pieces.append(sh.rt.to(buf[:, lo:hi], 0, j))
+        for j, p in enumerate(ps):
+            sh.rt.at(j)
+            outs.append(moe_lib.expert_ffn(p, pieces[j]))
+        got = [sh.rt.to(o, j, 0) for j, o in enumerate(outs)]
+        sh.rt.at(0)
+        return torch.cat(got, 1)
     return run
 
 
@@ -348,13 +413,20 @@ def moe_ffn(ps, x, plan_slots, plan_cum, cfg: ArchConfig, token_offset,
     on the first device): ``models.moe.moe_ffn`` with the experts' buffer
     split over the shards, so routing, dispatch and combine are the
     unsplit layer's calls."""
-    sh = _Shards(cfg, len(devices), devices, token_offset, None)
-    return moe_lib.moe_ffn(ps[0], x, plan_slots, plan_cum, cfg,
-                           token_offset, impl, expert_fn=expert_fn(sh, ps))
+    rt = Stages(devices)
+    try:
+        sh = _Shards(cfg, len(devices), devices, token_offset, None, rt)
+        rt.at(0)
+        return moe_lib.moe_ffn(ps[0], x, plan_slots, plan_cum, cfg,
+                               token_offset, impl,
+                               expert_fn=expert_fn(sh, ps))
+    finally:
+        rt.end()
 
 
 def _moe_block(sh, ps, x, cs, base):
     eps = sh.cfg.norm_eps
+    sh.rt.at(0)
     h = x + _attention(sh, ps, cs, rms_norm(x, ps[0]["ln1"], eps), base)
     return B._moe_ffn(ps[0], h, dict(base, expert_fn=expert_fn(sh, ps)))
 
@@ -362,6 +434,7 @@ def _moe_block(sh, ps, x, cs, base):
 def _rwkv_block(sh, ps, x, cs, base):
     cfg, eps, p0, c0 = sh.cfg, sh.cfg.norm_eps, ps[0], cs[0]
     active = base.get("active")
+    sh.rt.at(0)
     xn = rms_norm(x, p0["ln1"], eps)
     x_tm = c0["x_tm"].to(xn.dtype)
     if not sh.plan["rwkv"]:
@@ -370,25 +443,34 @@ def _rwkv_block(sh, ps, x, cs, base):
         B._write_rows(c0["s"], s_new, active)
     else:
         ctx = dict(base, cfg=sh.shard_cfg())
-        ys, gs = [], []
-        for j, (p, c, d) in enumerate(zip(ps, cs, sh.devices)):
-            y, g, s_new = B.rwkv_time_heads(p, xn.to(d), ctx,
-                                            x_prev=x_tm.to(d), state=c["s"])
+        xs, prev = sh.bcast(xn), sh.bcast(x_tm)
+        ys, gs, sqs = [], [], []
+        for j, (p, c) in enumerate(zip(ps, cs)):
+            sh.rt.at(j)
+            y, g, s_new = B.rwkv_time_heads(p, xs[j], ctx, x_prev=prev[j],
+                                            state=c["s"])
             B._write_rows(c["s"], s_new, sh.active[j])
             ys.append(y)
             gs.append(g)
-        ys = _norm_split(sh, ys, [p["ln_x"] for p in ps], eps, cfg.d_model)
-        tm = sh.project([y * F.silu(g) for y, g in zip(ys, gs)],
-                        [p["wo"] for p in ps], xn.dtype)
+            sqs.append(_sq_sum(y))
+        scales, parts = _norm_scales(sh, sqs, eps, cfg.d_model), []
+        for j, (p, y, g) in enumerate(zip(ps, ys, gs)):
+            sh.rt.at(j)
+            y = y * scales[j].to(y.dtype) * p["ln_x"].to(y.dtype)
+            parts.append(_partial(y * F.silu(g), p["wo"]))
+        tm = sh.sum(parts).to(xn.dtype)
     B._write_rows(c0["x_tm"], xn, active)
     h = x + tm
     hn = rms_norm(h, p0["ln2"], eps)
     value = None
     if sh.plan["mlp"]:
         def value(xk):
-            return sh.project([B.rwkv_channel_key(p, xk.to(d))
-                               for p, d in zip(ps, sh.devices)],
-                              [p["wcv"] for p in ps], hn.dtype)
+            xks, parts = sh.bcast(xk), []
+            for j, p in enumerate(ps):
+                sh.rt.at(j)
+                parts.append(_partial(B.rwkv_channel_key(p, xks[j]),
+                                      p["wcv"]))
+            return sh.sum(parts).to(hn.dtype)
     cm, _ = B.rwkv_channel_mix(p0, hn, x_prev=c0["x_cm"].to(hn.dtype),
                                value=value)
     B._write_rows(c0["x_cm"], hn, active)
@@ -396,6 +478,7 @@ def _rwkv_block(sh, ps, x, cs, base):
 
 
 def _mamba_block(sh, ps, x, cs, base):
+    sh.rt.at(0)
     if not sh.plan["mamba"]:
         return B.mamba_decode(ps[0], x, cs[0], sh.ctx(base, 0))
     cfg, eps, p0, c0 = sh.cfg, sh.cfg.norm_eps, ps[0], cs[0]
@@ -407,24 +490,32 @@ def _mamba_block(sh, ps, x, cs, base):
                              p0["conv_w_bc"])
     bm, cm = torch.split(bc, [ns, ns], dim=-1)
     B._write_rows(c0["conv_bc"], win_bc[:, 1:], base.get("active"))
-    vs = []
-    for j, (p, c, d) in enumerate(zip(ps, cs, sh.devices)):
-        z, xj, dt = torch.split(xn.to(d) @ p["in_proj"].to(x.dtype),
+    xs, bms, cms = sh.bcast(xn), sh.bcast(bm), sh.bcast(cm)
+    vs, sqs = [], []
+    for j, (p, c) in enumerate(zip(ps, cs)):
+        sh.rt.at(j)
+        z, xj, dt = torch.split(xs[j] @ p["in_proj"].to(x.dtype),
                                 [dl, dl, hl], dim=-1)
-        win, xs = B.conv_step(c["conv"], xj, p["conv_w"])
-        y, h_new = B.mamba_heads_step(p, xs, dt[:, 0], bm.to(d), cm.to(d),
+        win, xc = B.conv_step(c["conv"], xj, p["conv_w"])
+        y, h_new = B.mamba_heads_step(p, xc, dt[:, 0], bms[j], cms[j],
                                       c["h"], cfg.ssm.head_dim)
         B._write_rows(c["conv"], win[:, 1:], sh.active[j])
         B._write_rows(c["h"], h_new, sh.active[j])
         vs.append(y * F.silu(z))
-    vs = _norm_split(sh, vs, [p["norm"] for p in ps], eps, di)
-    return x + sh.project(vs, [p["out_proj"] for p in ps], x.dtype)
+        sqs.append(_sq_sum(vs[-1]))
+    scales, parts = _norm_scales(sh, sqs, eps, di), []
+    for j, (p, v) in enumerate(zip(ps, vs)):
+        sh.rt.at(j)
+        v = v * scales[j].to(v.dtype) * p["norm"].to(v.dtype)
+        parts.append(_partial(v, p["out_proj"]))
+    return x + sh.sum(parts).to(x.dtype)
 
 
 def _replicated(t):
     """A block type the step does not split runs whole on the first
     shard (whisper's ``dec``)."""
     def run(sh, ps, x, cs, base):
+        sh.rt.at(0)
         return B.BLOCKS[t]["decode"](ps[0], x, cs[0], sh.ctx(base, 0))
     return run
 
@@ -436,11 +527,13 @@ TP_BLOCKS = {"attn": _attn_block, "shared_attn": _attn_block,
 
 def _embed(sh, shards, token):
     if not sh.plan["vocab"]:
+        sh.rt.at(0)
         return shards[0]["embed"][token].to(torch.bfloat16)
-    parts = []
-    for j, (p, d) in enumerate(zip(shards, sh.devices)):
+    ts, parts = sh.bcast(token), []
+    for j, p in enumerate(shards):
+        sh.rt.at(j)
         lo, hi = _part(sh.cfg.vocab, sh.tp, j)
-        t = token.to(d)
+        t = ts[j]
         mine = (t >= lo) & (t < hi)
         rows = p["embed"][torch.where(mine, t - lo, 0)]
         parts.append(torch.where(mine[..., None], rows, 0)
@@ -456,46 +549,76 @@ def _logits(sh, shards, x):
         return xj @ w.to(xj.dtype)
 
     if not sh.plan["vocab"]:
+        sh.rt.at(0)
         return head(shards[0], x)
-    return torch.cat([head(p, x.to(d)).to(sh.dev0)
-                      for p, d in zip(shards, sh.devices)], -1)
+    xs, outs = sh.bcast(x), []
+    for j, p in enumerate(shards):
+        sh.rt.at(j)
+        outs.append(head(p, xs[j]))
+    got = [sh.rt.to(o, j, 0) for j, o in enumerate(outs)]
+    sh.rt.at(0)
+    return torch.cat(got, -1)
 
 
 def decode_step(shards: List[Dict[str, Any]], state, token,
                 cfg: ArchConfig, devices: Sequence[torch.device], *,
                 plan=None, moe_groups: str = "row", active=None,
-                metrics: Optional[list] = None):
+                metrics: Optional[list] = None,
+                stages: Optional[Stages] = None,
+                tap: Optional[Callable] = None):
     """``lm.decode_step`` over ``len(devices)`` shards: ``shards`` from
     ``split_params``, ``state["caches"]`` from ``init_cache`` (updated in
     place), ``state["pos"]`` ``[B]``, ``token`` ``[B, 1]`` and ``active``
     on the first device.  Returns (logits [B,V] f32 on the first device,
-    state with ``pos`` advanced)."""
+    state with ``pos`` advanced).
+
+    The step runs as ``stages`` says (``Stages`` for the eager form, which
+    this call ends; a caller that passes its own ends it, so that its work
+    after the step joins shard 0's last stage).  It begins with one
+    exchange (the positions, the active mask and the token to every
+    shard) and ends in shard 0's stage.  ``tap`` is ``lm.decode_step``'s,
+    called in shard 0's stage."""
     tp = len(devices)
-    pos = state["pos"]
-    sh = _Shards(cfg, tp, devices, pos, active)
-    x = _embed(sh, shards, token)
-    base = {"cfg": cfg, "pos": pos, "moe_groups": moe_groups,
-            "token_offset": pos[:1], "active": active, "moe_metrics": []}
-    if plan is None and lm.n_moe_layers(cfg):
-        plan = moe_lib.identity_plan(cfg, lm.n_moe_layers(cfg),
-                                     device=x.device)
-    caches, counts, views = state["caches"], lm.type_counts(cfg), {}
-    for t, count, off in lm.pattern_runs(cfg):
-        run = TP_BLOCKS.get(t) or _replicated(t)
-        if t not in views:
-            views[t] = [lm._layer_views(s, t, counts[t]) for s in shards]
-        for li in range(off, off + count):
-            ps = [v[li] for v in views[t]]
-            cs = [{k: v[li] for k, v in c.get(t, {}).items()}
-                  for c in caches]
-            ctx = base
-            if t == "moe":
-                ctx = dict(base, plan_slots=plan.slots[li],
-                           plan_cum=plan.cum[li])
-            x = run(sh, ps, x, cs, ctx)
-    if metrics is not None:
-        metrics.extend(base["moe_metrics"])
-    x = rms_norm(x, shards[0]["final_ln"], cfg.norm_eps)
-    logits = _logits(sh, shards, x)
-    step = torch.ones_like(pos) if active is None else active.long()
-    return logits[:, 0].float(), {"caches": caches, "pos": pos + step}
+    rt = Stages(devices) if stages is None else stages
+    try:
+        pos = state["pos"]
+        sh = _Shards(cfg, tp, devices, pos, active, rt)
+        x = _embed(sh, shards, token)
+        rt.at(0)
+        if tap is not None:
+            x = tap(0, x)
+        base = {"cfg": cfg, "pos": pos, "moe_groups": moe_groups,
+                "token_offset": pos[:1], "active": active,
+                "moe_metrics": []}
+        if plan is None and lm.n_moe_layers(cfg):
+            plan = moe_lib.identity_plan(cfg, lm.n_moe_layers(cfg),
+                                         device=x.device)
+        caches, counts, views = state["caches"], lm.type_counts(cfg), {}
+        i = 0
+        for t, count, off in lm.pattern_runs(cfg):
+            run = TP_BLOCKS.get(t) or _replicated(t)
+            if t not in views:
+                views[t] = [lm._layer_views(s, t, counts[t]) for s in shards]
+            for li in range(off, off + count):
+                ps = [v[li] for v in views[t]]
+                cs = [{k: v[li] for k, v in c.get(t, {}).items()}
+                      for c in caches]
+                ctx = base
+                if t == "moe":
+                    ctx = dict(base, plan_slots=plan.slots[li],
+                               plan_cum=plan.cum[li])
+                x = run(sh, ps, x, cs, ctx)
+                i += 1
+                if tap is not None:
+                    rt.at(0)
+                    x = tap(i, x)
+        if metrics is not None:
+            metrics.extend(base["moe_metrics"])
+        rt.at(0)
+        x = rms_norm(x, shards[0]["final_ln"], cfg.norm_eps)
+        logits = _logits(sh, shards, x)
+        step = torch.ones_like(pos) if active is None else active.long()
+        return logits[:, 0].float(), {"caches": caches, "pos": pos + step}
+    finally:
+        if stages is None:
+            rt.end()

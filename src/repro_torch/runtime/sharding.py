@@ -216,12 +216,15 @@ def pool_mesh(devices, tp: int = 1) -> Mesh:
     ``model`` gets ``tp`` devices and ``data`` the rest.  The default
     ``tp=1`` keeps every product's reduction on one device, which keeps
     the engine's greedy outputs those of ``generate_static``.  A group may
-    name one device several times."""
+    name one device several times, or distinct devices of one type."""
     if isinstance(devices, (str, torch.device)):
         devices = [devices]
     group = tuple(as_device(d) for d in devices)
     if not group:
         raise ValueError("pool_mesh needs at least one device")
+    if len({d.type for d in group}) > 1:
+        raise ValueError(f"a pool over {[str(d) for d in group]}: a CPU and "
+                         "a CUDA device never share a pool")
     tp = max(int(tp), 1)
     if len(group) % tp:
         raise ValueError(f"{len(group)} devices do not divide by tp={tp}")

@@ -24,7 +24,8 @@ cross-shard sum runs; only an overlap between devices does not.
   ``pool_tp = 2`` equals ``generate_static`` except from a token where the
   oracle's top-2 margin is within the room that bound leaves the two
   logits, the steps held to it along the oracle's own tokens (the
-  near-tie rule).  A TP pool over distinct devices is refused.
+  near-tie rule).  A TP pool over distinct devices is placed; a group of
+  two device types is refused.
 * Against the JAX package, in a process of its own with four forced host
   devices (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
   its ``decode_step`` jitted with the weights under ``param_specs(...,
@@ -146,22 +147,32 @@ def test_pool_shards():
 
 
 def test_tp_over_distinct_devices_refused():
-    """A tensor-parallel pool runs its step as one graph on one card, so
-    the ``model`` devices of each ``data`` row must be one device: over
-    two (here the CPU under two names, ``cpu`` and ``cpu:0``, which the
-    engine keeps apart) the placement raises and nothing falls back; a
-    split over them at ``pool_tp = 1``, or rows of one device each at
-    ``pool_tp = 2``, are placed."""
+    """A tensor-parallel pool over distinct devices (here the CPU under two
+    names, ``cpu`` and ``cpu:0``, which the engine keeps apart) is placed:
+    its step runs as stages, each on its shard's device
+    (tests/test_torch_tp_cards.py serves it); so are 2 x 2 groups (each
+    data row one device named twice, or two distinct devices), a join
+    over them and a split over them at ``pool_tp = 1``.  What is refused
+    is a group of two device types: a CPU and a CUDA device never share a
+    pool, at any ``pool_tp``."""
     cfg = _own("gemma3-1b")[0]
     tp2 = dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve,
                                                              pool_tp=2))
-    with pytest.raises(ValueError, match="distinct cards"):
-        _engine("gemma3-1b", cfg=tp2, placements={0: ["cpu", "cpu:0"]})
-    eng = _engine("gemma3-1b", cfg=tp2,
-                  placements={0: ["cpu", "cpu", "cpu:0", "cpu:0"]})
-    assert eng.pools[0].split and eng.pools[0].tp == 2
-    with pytest.raises(ValueError, match="distinct cards"):
-        eng.add_pool(placement=["cpu:0", "cpu"])
+    eng = _engine("gemma3-1b", cfg=tp2, placements={0: ["cpu", "cpu:0"]})
+    sp = eng.pools[0]
+    assert not sp.split and sp.tp == 2
+    assert sp.group == (torch.device("cpu"), torch.device("cpu", 0))
+    for group in (["cpu", "cpu", "cpu:0", "cpu:0"],
+                  ["cpu", "cpu:0", "cpu", "cpu:0"]):
+        eng = _engine("gemma3-1b", cfg=tp2, placements={0: group})
+        assert eng.pools[0].split and eng.pools[0].tp == 2
+    lid = eng.add_pool(placement=["cpu:0", "cpu"])
+    assert eng._pool(lid).tp == 2
+    for group in (["cpu", "cuda:0"], ["cuda:0", "cpu"]):
+        with pytest.raises(ValueError, match="device type"):
+            _engine("gemma3-1b", cfg=tp2, placements={0: group})
+        with pytest.raises(ValueError, match="never share a pool"):
+            S.pool_mesh(group, tp=2)
     eng = _engine("gemma3-1b", placements={0: ["cpu", "cpu:0"]})
     assert eng.pools[0].split
 

@@ -652,6 +652,72 @@ def test_parallel_group_ticks_on_disjoint_devices():
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.cuda
+def test_tp_pool_over_two_cards():
+    """The MoE smoke model with the fused kernels in a ``pool_tp = 2`` pool
+    over ``cuda:0`` and ``cuda:1`` (its step a graph per shard and stage,
+    each on its shard's card, the copies between the cards outside): the
+    tokens of the same pool over the one card named twice, and, stepped
+    from one state, the same logits and argmax at every step."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices: a TP pool across cards")
+    from repro_torch.engine.serve import StagedStep, build_decode_step
+    from repro_torch.models import tp
+    from repro_torch.runtime.serve import serving_params
+    base = get_arch("paper-moe-100m-smoke")
+    cfg = dataclasses.replace(
+        base, moe=dataclasses.replace(base.moe, fused_gating=True,
+                                      fused_dispatch=True),
+        serve=dataclasses.replace(base.serve, pool_tp=2))
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    params = lm.init(cfg, torch.Generator(device=c0).manual_seed(0),
+                     device=c0)
+    groups = ([c0, c1], [c0, c0])
+    prompts = _prompts(6, seed=8)
+    outs = []
+    for group in groups:
+        eng = ServeEngine(cfg, params, max_len=MAX_LEN, slots=4,
+                          prefill_chunk=4, decode_chunk=2,
+                          compact_decode=False, placements={0: group},
+                          device=c0)
+        reqs = [eng.submit(p, max_new=10) for p in prompts]
+        _run(eng, reqs)
+        outs.append([r.output() for r in reqs])
+        staged = [g for g in eng._tick.graphs.values()
+                  if isinstance(g, StagedStep)]
+        assert staged and {st.device for st in staged[0].stages} == \
+            set(group)
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    serving = serving_params(params, c0)
+    pools = [SlotPool(cfg, 4, MAX_LEN, None, mesh=S.pool_mesh(g, tp=2))
+             for g in groups]
+    rng = np.random.default_rng(9)
+    rows = {k: v.to(c0) for k, v in pools[1].read_rows(range(4),
+                                                      pos=True).items()}
+    for k, v in rows.items():
+        if v.dtype.is_floating_point:
+            rows[k] = torch.randn(v.shape, device=c0).to(v.dtype)
+    rows[("pos",)] = torch.as_tensor(rng.integers(0, 20, 4), device=c0)
+    runs = []
+    for pool in pools:
+        pool.write_rows(range(4), rows)
+        tick = SlotTick(cfg, c0, graph=True)
+        runs.append(tick.runner("step", tp.split_params(
+            serving, cfg, 2, pool.group), None, pool))
+    assert isinstance(runs[0], StagedStep)
+    active = torch.tensor([True, True, False, True], device=c0)
+    tok = torch.as_tensor(rng.integers(1, cfg.vocab, 4), device=c0)
+    for _ in range(6):
+        (la, ga), (lb, gb) = [tuple(t.clone() for t in run(tok, active))
+                              for run in runs]
+        assert torch.equal(la, lb) and torch.equal(ga, gb)
+        tok = ga
+    got = [p.read_rows(range(4), pos=True) for p in pools]
+    for k in got[0]:
+        assert torch.equal(got[0][k], got[1][k]), k
+
+
 # ------------------------------------------------------------- on the card
 
 @pytest.mark.cuda
