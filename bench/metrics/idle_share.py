@@ -1,0 +1,9 @@
+"""idle_share: the device.  The share of the traced sub-window in which
+no kernel, copy or fill ran on the card, in percent."""
+
+
+def read(run):
+    tr = run["trace"]
+    if tr is None or tr["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
