@@ -197,6 +197,7 @@ from repro_torch.models import lm
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import tp as tp_lib
 from repro_torch.runtime import sharding as SH
+from repro_torch.runtime import tracing
 from repro_torch.runtime.serve import serving_params
 
 # xxhash/murmur-style odd multipliers, one per n-gram context position (the
@@ -759,12 +760,14 @@ class SlotTick:
         key = self.key(pool, name)
         g = self.graphs.get(key)
         if g is None:
-            if name == "step" and pool.tp > 1:
-                g = StagedStep(step, *state, mempools={
-                    d: self._mempool(d) for d in pool.group})
-            else:
-                g = GraphedStep(step, *state,
-                                mempool=self._mempool(pool.pos.device))
+            with tracing.span("serve.capture", pool=pool.lid, step=name,
+                              rows=pool.slots):
+                if name == "step" and pool.tp > 1:
+                    g = StagedStep(step, *state, mempools={
+                        d: self._mempool(d) for d in pool.group})
+                else:
+                    g = GraphedStep(step, *state,
+                                    mempool=self._mempool(pool.pos.device))
             self.graphs[key] = g
             self.captures += 1
         elif not g.bound_to(*state):
@@ -861,10 +864,13 @@ class Request:
     # last advanced, and the peak (the starvation bound's witness)
     deferred: int = 0
     max_deferred: int = 0
-    # wall-clock marks for first-token and completion latency
+    # wall-clock marks for first-token and completion latency, and one
+    # (time, len(tokens), tick_no) each time the visible tokens grow (the
+    # first's time is t_first)
     t_submit: float = 0.0
     t_first: Optional[float] = None
     t_done: Optional[float] = None
+    marks: List[tuple] = dataclasses.field(default_factory=list)
     done: threading.Event = dataclasses.field(
         default_factory=threading.Event, repr=False)
 
@@ -1028,10 +1034,12 @@ class SlotPool:
         sub = self._compact.get(rows)
         if sub is None:
             first = self.shards[0]
-            sub = self._compact[rows] = SlotPool(
-                self.cfg, rows, self.max_len, None, self.draft_cfg,
-                lid=self.lid, pool_id=self.pool_id, mesh=self.mesh,
-                shard=-1 if self.split else None, group=first.group)
+            with tracing.span("serve.alloc", pool=self.lid, what="rows",
+                              rows=rows):
+                sub = self._compact[rows] = SlotPool(
+                    self.cfg, rows, self.max_len, None, self.draft_cfg,
+                    lid=self.lid, pool_id=self.pool_id, mesh=self.mesh,
+                    shard=-1 if self.split else None, group=first.group)
         return sub
 
     # ------------------------------------------------------------ row ops
@@ -1473,13 +1481,15 @@ class ServeEngine:
         ent = self._pool_params.setdefault(sp.group, {})
         dev = sp.group[0]
         if ent.get("src") is not self.params:
-            ent["params"] = serving_params(self.params, dev) \
-                if len(sp.group) == 1 else tp_lib.split_params(
-                    self.params, self.cfg, len(sp.group), sp.group)
+            with tracing.span("serve.alloc", pool=sp.lid, what="params"):
+                ent["params"] = serving_params(self.params, dev) \
+                    if len(sp.group) == 1 else tp_lib.split_params(
+                        self.params, self.cfg, len(sp.group), sp.group)
             ent["src"] = self.params
         if self.draft_cfg is not None and \
                 ent.get("dsrc") is not self.draft_params:
-            ent["draft"] = serving_params(self.draft_params, dev)
+            with tracing.span("serve.alloc", pool=sp.lid, what="draft"):
+                ent["draft"] = serving_params(self.draft_params, dev)
             ent["dsrc"] = self.draft_params
         return ent["params"], ent.get("draft")
 
@@ -1504,9 +1514,10 @@ class ServeEngine:
         dev = sp.device
         tick = self._ticks.get(dev)
         if tick is None:
-            tick = self._ticks[dev] = SlotTick(
-                self.cfg, dev, graph=dev.type == "cuda",
-                draft_cfg=self.draft_cfg)
+            with tracing.span("serve.alloc", pool=sp.lid, what="tick"):
+                tick = self._ticks[dev] = SlotTick(
+                    self.cfg, dev, graph=dev.type == "cuda",
+                    draft_cfg=self.draft_cfg)
         return tick
 
     def _release(self) -> None:
@@ -1721,6 +1732,7 @@ class ServeEngine:
         now = time.perf_counter()
         req.t_first = req.t_first or now
         req.t_done = now
+        req.marks.append((now, len(req.tokens), self.tick_no))
         self.tokens_out += len(req.tokens)
         req.done.set()
 
@@ -1745,7 +1757,9 @@ class ServeEngine:
             self._sync(*{g for sh in sp.shards for g in sh.group})
             return out
 
-        return self.engine.run_job(job, thunk, extra=(pjob,))
+        with tracing.span("serve.rows", pool=sp.lid, kind=kind,
+                          tokens=tokens):
+            return self.engine.run_job(job, thunk, extra=(pjob,))
 
     def _snapshot_slot(self, sp: SlotPool, slot: int, path) -> None:
         """Capture one slot's pool row (to host tensors) and commit it into
@@ -1768,7 +1782,7 @@ class ServeEngine:
             # routing rather than a stranded class
         return [sp.lid for sp in self.pools if not sp.draining]
 
-    def _admit(self) -> None:
+    def _admit(self) -> int:
         """Join queued requests into free slots.  The row zeroing and
         position reset are deferred into the next tick (the ``reset``
         mask); only the slot's sampling generator is set here.
@@ -1790,8 +1804,10 @@ class ServeEngine:
         begin at the cached depth and ``reset`` stays False (the seed write
         replaces the whole row).  Sampled requests never seed and never
         hit: their tokens are draws, not facts.  Each pool's seed rows land
-        in ONE batched write."""
+        in ONE batched write.  Returns the number of requests that joined
+        a slot."""
         seeds: Dict[int, List[tuple]] = {}
+        admitted = 0
         remaining: Deque[Request] = deque()
         for req in self.queue:
             if (self.prefix is not None and req.temperature <= 0
@@ -1818,6 +1834,7 @@ class ServeEngine:
             sp = self._pool(pid)
             slot = next(s for s in range(sp.slots) if sp.active[s] is None)
             req.pool, req.slot = pid, slot
+            admitted += 1
             req.joined_version = self.params_version
             sp.active[slot] = req
             node = None
@@ -1852,6 +1869,7 @@ class ServeEngine:
                           lambda: sp.seed_rows([s for s, _ in ss],
                                                [n.snapshot for _, n in ss],
                                                [n.pos for _, n in ss]))
+        return admitted
 
     # -------------------------------------------------------------- control
     def _inspect(self, what: str) -> Dict[str, Any]:
@@ -1954,8 +1972,9 @@ class ServeEngine:
             # a draft is acceptance-only state: the swap needs no drain and
             # no re-seed.  Ignored without a draft configured at
             # construction (enabling one would need the pool's draft rows)
-            self.draft_params = serving_params(updates["draft_params"],
-                                               self.device)
+            with tracing.span("serve.publish", what="draft"):
+                self.draft_params = serving_params(updates["draft_params"],
+                                                   self.device)
             self._release()
         if "prefix_cache" in updates:
             on = bool(updates["prefix_cache"])
@@ -1976,10 +1995,11 @@ class ServeEngine:
             # its next use.  Rebinding never writes into the
             # old tensors, which the caller may share (BatchedServer hands
             # its own).
-            self.params = serving_params(updates["params"], self.device)
-            if self._self_draft:
-                self.draft_params = slice_draft_params(
-                    self.params, self.cfg, self.draft_cfg)
+            with tracing.span("serve.publish", what="params"):
+                self.params = serving_params(updates["params"], self.device)
+                if self._self_draft:
+                    self.draft_params = slice_draft_params(
+                        self.params, self.cfg, self.draft_cfg)
             self._release()
             # an explicit params_version in the same update wins; a bare
             # params swap auto-bumps so stale results can never serve
@@ -2284,6 +2304,8 @@ class ServeEngine:
             if outs_r.size and r.t_first is None:
                 r.t_first = now               # first-token latency mark
             r.tokens.extend(int(t) for t in outs_r)
+            if outs_r.size:
+                r.marks.append((now, len(r.tokens), self.tick_no))
             n_new += len(outs_r)
             if len(r.tokens) >= r.max_new:
                 self._evict(r)
@@ -2363,45 +2385,86 @@ class ServeEngine:
         (``_group_plans``): every plan is dispatched before any is
         finished, and each pool's time is measured from the round's start,
         as ``Engine.run_job`` measures (a cold shape stays out of the
-        EMAs)."""
-        if self._poll():
-            return False
+        EMAs).
+
+        Each call is a ``serve.tick`` span (``runtime.tracing``) whose
+        attributes are the round's: ``tick_no``, ``pool``, ``mode``, ``L``,
+        ``rows`` (participants over the round's plans; 0 on an idle tick),
+        ``height`` (the rows its steps ran at), ``compact``, ``cold``,
+        ``group`` (co-ticks) and ``device`` (the engine's device type).
+        Inside it: ``serve.poll``, ``serve.admit``, ``serve.plan``,
+        ``serve.device`` (from the first dispatch, at the ``t0`` the
+        measurements start from, to the end of the last host copy; it
+        holds each plan's ``serve.dispatch`` and ``serve.collect``, and in
+        a group round the commits of all plans but the last) and
+        ``serve.commit`` (a plan's measurements and commit; the last one
+        also the aging, breakpoints and autotuner)."""
+        with tracing.span("serve.tick", tick_no=self.tick_no, rows=0,
+                          device=self.device.type) as span:
+            return self._round(span)
+
+    def _round(self, span) -> bool:
+        """``tick``'s work, its attributes set on ``span``."""
+        with tracing.span("serve.poll", mirror=True):
+            if self._poll():
+                return False
         self._drain_step()
-        self._admit()
-        if self.single_pool:
-            sp = self.pools[0]
-            act = [r for r in sp.active if r is not None]
-            if not act:
+        with tracing.span("serve.admit", mirror=True) as admit:
+            admit.attrs["admitted"] = self._admit()
+        with tracing.span("serve.plan", mirror=True):
+            if self.single_pool:
+                sp = self.pools[0]
+                act = [r for r in sp.active if r is not None]
+                if not act:
+                    return True
+                n_pre = sum(r.prefilling for r in act)
+                pre_toks = sum(len(r.prompt) - r.prompt_off
+                               for r in act if r.prefilling)
+                arms = self._pool_spec_arms(act)
+                mode = self.engine.choose_serve_tick(
+                    len(act) - n_pre, n_pre, pre_toks, self.decode_chunk,
+                    self.prefill_chunk,
+                    spec_len=self.spec_len if arms else 0,
+                    pool_id=sp.pool_id, arms=arms)
+            else:
+                cands = self._candidates()
+                if not cands:
+                    return True
+                gid, mode = self.engine.choose_serve_job(cands)
+                sp = self._pool(gid - self.pool_id)
+                act = [r for r in sp.active if r is not None]
+            plan = self._plan_tick(sp, act, mode)
+            if plan is None:
                 return True
-            n_pre = sum(r.prefilling for r in act)
-            pre_toks = sum(len(r.prompt) - r.prompt_off
-                           for r in act if r.prefilling)
-            arms = self._pool_spec_arms(act)
-            mode = self.engine.choose_serve_tick(
-                len(act) - n_pre, n_pre, pre_toks, self.decode_chunk,
-                self.prefill_chunk, spec_len=self.spec_len if arms else 0,
-                pool_id=sp.pool_id, arms=arms)
-        else:
-            cands = self._candidates()
-            if not cands:
-                return True
-            gid, mode = self.engine.choose_serve_job(cands)
-            sp = self._pool(gid - self.pool_id)
-            act = [r for r in sp.active if r is not None]
-        plan = self._plan_tick(sp, act, mode)
-        if plan is None:
-            return True
-        group = self._group_plans(plan)
+            group = self._group_plans(plan)
+        plans = [plan] + group
+        span.attrs.update(
+            pool=plan.sp.lid, mode=plan.mode, L=plan.L,
+            rows=sum(len(p.part) for p in plans),
+            height=sum(len(p.idx) for p in plans), compact=plan.compact,
+            cold=any(p.job.meta["cold"] for p in plans), group=len(group))
         t0 = time.perf_counter()
-        live = [(p, p.dispatch()) for p in [plan] + group]
+        device = tracing.span("serve.device").begin(t0)
+        live = []
+        for p in plans:
+            with tracing.span("serve.dispatch"):
+                live.append((p, p.dispatch()))
         part, n_new = [], 0
-        for p, out in live:
-            outs = p.finish(out)
-            dt = time.perf_counter() - t0
+        for i, (p, out) in enumerate(live):
+            with tracing.span("serve.collect"):
+                outs = p.finish(out)
+            t1 = time.perf_counter()
+            if i == len(live) - 1:
+                device.end(t1)
+            commit = tracing.span("serve.commit", mirror=True).begin()
             for j in (p.job,) + p.extras:
-                self.engine.observe(j, dt)
-            n_new += self._commit_tick(p, outs)
+                self.engine.observe(j, t1 - t0)
+            k = self._commit_tick(p, outs)
+            commit.attrs["tokens"] = k
+            n_new += k
             part = part + p.part
+            if i < len(live) - 1:
+                commit.end()
         self.parallel_group_ticks += len(group)
         self._age_prefills(part)
         self.tokens_out += n_new
@@ -2411,6 +2474,7 @@ class ServeEngine:
             # knob moves at the boundary of work ticks only: idle ticks
             # returned above, so no window accumulates empty time
             self.autotuner.on_tick()
+        commit.end()
         return True
 
     # ----------------------------------------------------------- convenience
