@@ -7,6 +7,7 @@
    (one ``nvcc`` per source, all started together), prints each kernel's
    registers and spills, and fails unless every bf16 flash (12 kernels:
    forward, dK/dV and dQ at each of head dims 64, 112, 128 and 256),
+   decode-attention (5: head dims up to 16, 32, 64, 128 and 256),
    Mamba2 SSD and RWKV6 chunk kernel, and every kernel of the scans' bf16
    backwards that multiplies (12: the Mamba2 and RWKV6 state and chunk
    kernels at state or head sizes 16, 32 and 64), issues tensor-core
@@ -19,7 +20,8 @@
    prompts of mixed lengths 16..128, 32 new tokens each — the MoE main
    path, with every kernel's launch count set to 0 just before it and read
    just after (each replay credits the launches its capture recorded, and
-   the counts must be exactly replays x that, and the tick's graph holds
+   the counts must be exactly replays x that, none of the MoE kernels and
+   the decode attention at 0, and the tick's graph holds
    as many gating kernel nodes as its capture counted); then the same
    work again under a CUDA-only ``torch.profiler`` trace, for the device's
    busy share of the untraced main path's wall time.  A trace gives times
@@ -166,6 +168,16 @@
    (``distill_draft``'s draft) beside ``scaled_dot_product_attention``,
    the backward at the training shape and at head dim 16 beside aten's
    flash-attention backward, all by CUDA-graph replay;
+   ``[decode_attn]``: the split-KV decode-attention kernel at ``yi-34b``'s
+   decode shape (8 rows, 56 query heads over 8 KV heads, hd 128, a cache
+   of 3088 positions; the rows at mixed positions on and off the split
+   boundaries, then every row at context 256, 1024 and 3088) against its
+   plain version within ``tests/test_torch_decode_attention.py``'s bound,
+   timed by CUDA-graph replay over enough distinct caches that none stays
+   in the 50 MB L2 (as a step meets each layer's cache), beside its byte
+   bound, the plain version over the whole cache and
+   ``scaled_dot_product_attention`` over the context (``enable_gqa``;
+   the library yardstick only);
 8. ``[control]``: the Amber control plane on the card.  a. 4 requests
    (prompts of 16-50 tokens, 64 new each) on a 4-slot engine of
    ``paper-moe-100m`` at full width and depth; a thread pauses it mid-
@@ -242,7 +254,8 @@
    for the record, causal only); c. forward vs step-by-step decode on
    ``[2, 128]``; d. each block type's last layer, forward vs decode at 1100
    tokens, so the ring wraps; e. ``BatchedServer.generate`` on 4 prompts
-   of 16..1040 tokens after a warm-up that captures the tick's graph; f.
+   of 16..1040 tokens after a warm-up that captures the tick's graph,
+   exactly one ``decode_attn`` launch a layer and replay; f.
    greedy ``ServeEngine`` against ``generate_static`` on ``[2, 1040] +
    16`` at the first 7 layers (6 ``local``, 1 ``attn``); g. ``TrainLoop``:
    one microbatch through the kernels against the
@@ -480,7 +493,8 @@ TENSOR_CORE_KERNELS = {
     "mamba2_ssd_bwd": (("mamba2_ssd_bwd_state_kernel",
                         "mamba2_ssd_bwd_chunk_kernel"), 6),
     "rwkv6_scan_bwd": (("rwkv6_scan_bwd_state_kernel",
-                        "rwkv6_scan_bwd_chunk_kernel"), 6)}
+                        "rwkv6_scan_bwd_chunk_kernel"), 6),
+    "decode_attention": (("decode_attn_kernel",), 4)}
 NO_SPILLS = tuple(m for marks, _ in TENSOR_CORE_KERNELS.values()
                   for m in marks)
 
@@ -1618,10 +1632,11 @@ def _nonzero(counts) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def moe_phase(torch, dev, fails) -> list:
+def moe_phase(torch, dev, fails) -> tuple:
     """The MoE serving main path, its device trace, the graphed tick
     against the eager one, the MoE kernels against their plain versions,
-    and engine == static.  Returns the kernels' JSON rows."""
+    and engine == static.  Returns the kernels' JSON rows and the main
+    path's launches."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
     from repro_torch.runtime.serve import BatchedServer
@@ -1660,8 +1675,8 @@ def moe_phase(torch, dev, fails) -> list:
     if out.shape != (len(prompts), MAX_NEW) or out.min() < 0 or \
             out.max() >= cfg.vocab:
         raise AssertionError(f"bad serve output {out.shape}")
-    missing = [k for k in ("moe_gating", "moe_dispatch", "moe_combine")
-               if launches[k] == 0]
+    missing = [k for k in ("moe_gating", "moe_dispatch", "moe_combine",
+                           "decode_attn") if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     # every launch of the main path is one that a replay of the graph made
@@ -1764,7 +1779,7 @@ def moe_phase(torch, dev, fails) -> list:
         raise AssertionError(f"ServeEngine != generate_static at {bad}")
     log(f"[equiv] ServeEngine (graphed tick) == generate_static on [4, 64] "
         f"+ {MAX_NEW}: engine {t_engine:.4f} s, static {t_static:.4f} s")
-    return rows
+    return rows, launches
 
 
 # [spec], [prefix], [publish]: the serve engine's speculative arms, its
@@ -4006,6 +4021,98 @@ def flash_phase(torch, dev, launches) -> list:
     return rows
 
 
+# [decode_attn]: yi-34b's decode shape (rows, H, KH, max_len, hd) and the
+# contexts it is timed at; caches enough to hold this many bytes cycle
+# through a timed graph, so that no call finds its cache in the L2
+DECODE_SHAPE = (8, 56, 8, 3088, 128)
+DECODE_CTXS = (256, 1024, 3088)
+DECODE_COLD_BYTES = 200e6
+
+
+def decode_attn_phase(torch, dev, fails, launches) -> list:
+    """The decode-attention kernel against its plain version at
+    DECODE_SHAPE, first with the rows at mixed positions on and off the
+    split boundaries (the test file's YI_POS), then with every row at each
+    of DECODE_CTXS, timed there beside its byte bound, the plain version
+    (which reads the whole cache) and ``scaled_dot_product_attention`` over
+    the context.  Each check holds the kernel within the test file's
+    rounding bound (``_bound``).  ``launches``: the ``[serve]`` main path's
+    count.  Returns the JSON rows ``decode_attn@ctx<n>``."""
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_decode_attention import YI_POS, _bound, _worst
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.models.attention import decode_attention as plain
+    b, h, kh, smax, hd = DECODE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+
+    def check(k, v, pos, what):
+        got = decode_attention(q, k, v, pos)
+        want = plain(q, k, v, pos)
+        worst = _worst(got, want, _bound(q, k, v, pos, want))
+        if not worst <= 1.0:
+            fails.append(f"decode_attn {what}: {worst:.3f} of the bound")
+        return float((got.float() - want.float()).abs().max()), worst
+
+    kv = [torch.randn((b, smax, kh, hd), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    pos = torch.tensor(YI_POS, dtype=torch.long, device=dev)
+    err, worst = check(*kv, pos, f"at positions {YI_POS}")
+    log(f"[decode_attn] {b} rows at positions {YI_POS} of {smax}: "
+        f"{worst:.3f} of the test's bound, max |error| {err:.6f}")
+    del kv
+    cache_bytes = 2 * b * smax * kh * hd * 2
+    rows = []
+    for ctx in DECODE_CTXS:
+        n = max(2, int(-(-DECODE_COLD_BYTES // (cache_bytes * ctx / smax))))
+        caches = [tuple(torch.randn((b, smax, kh, hd), generator=gen,
+                                    device=dev).to(torch.bfloat16)
+                        for _ in range(2)) for _ in range(n)]
+        pos = torch.full((b,), ctx - 1, dtype=torch.long, device=dev)
+        err, worst = check(*caches[0], pos, f"at context {ctx}")
+        # the library yardstick reads [B, KH, ctx, hd] (copied outside the
+        # timing) with the query heads grouped over them
+        sdpa = [tuple(x[:, :ctx].transpose(1, 2).contiguous() for x in kv)
+                for kv in caches]
+        qh = q.transpose(1, 2).contiguous()
+        turn = iter(range(1 << 30))
+
+        def cycled(fn):
+            return lambda: fn(*caches[next(turn) % n])
+
+        def cycled_sdpa():
+            ks, vs = sdpa[next(turn) % n]
+            return F.scaled_dot_product_attention(qh, ks, vs,
+                                                  enable_gqa=True)
+        with torch.no_grad():
+            ms = graph_ms(torch, cycled(lambda k, v: decode_attention(
+                q, k, v, pos)), reps=4 * n)
+            plain_ms = graph_ms(torch, cycled(lambda k, v: plain(
+                q, k, v, pos)), reps=4)
+            library_ms = graph_ms(torch, cycled_sdpa, reps=4 * n)
+        nbytes = 2 * b * ctx * kh * hd * 2 + 2 * b * h * hd * 2
+        b_ms, b_by = bound_ms(nbytes, 4 * b * h * ctx * hd, BF16_FLOP_PER_S)
+        rows.append(dict(
+            name=f"decode_attn@ctx{ctx}", route="cuda",
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces="none (models/attention.py decode_attention, plain)",
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms))
+        log(f"[decode_attn] {b} rows at context {ctx} of {smax} ({h} heads "
+            f"over {kh}, hd {hd}, {n} caches cycled): {ms:.4f} ms, "
+            f"{b_ms / ms:.3f} of the bound {b_ms:.5f} ms by {b_by} "
+            f"({ms / b_ms:.2f}x); plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {library_ms:.4f} ms; "
+            f"{worst:.3f} of the test's bound; [serve] main path launches "
+            f"{launches}; {card()}")
+        del caches, sdpa
+        _free(torch)
+    return rows
+
+
 def _rel_l2(torch, a, b) -> float:
     return (torch.linalg.vector_norm((a - b).float()) /
             torch.linalg.vector_norm(b.float()).clamp_min(1e-30)).item()
@@ -5133,8 +5240,8 @@ def gemma3_phase(torch, dev, fails) -> list:
     ``scaled_dot_product_attention``; c. forward vs step-by-step decode; d.
     each block type's last layer, forward vs decode past the window (the
     ring wraps); e. ``BatchedServer.generate`` on GEMMA_PROMPT_LENS prompts
-    (one past the window) after a warm-up that captures the tick's graph;
-    f. greedy ``ServeEngine`` vs ``generate_static`` on prompts crossing the
+    (one past the window) after a warm-up that captures the tick's graph,
+    one decode-attention launch a layer and replay; f. greedy ``ServeEngine`` vs ``generate_static`` on prompts crossing the
     window, at its first GEMMA_STATIC_LAYERS layers; g. ``TrainLoop`` with
     f32 master weights: one microbatch through
     the kernels against the plain versions, a warm-up step, then
@@ -5321,8 +5428,14 @@ def gemma3_phase(torch, dev, fails) -> list:
         f"{out.size / wall:.1f} generated tok/s "
         f"({sum(GEMMA_PROMPT_LENS) / wall:.1f} prompt tok/s), "
         f"{eng._tick.graphed.replays - replays0} replays of the tick's graph, "
-        f"{eng._tick.captures} capture; launches {_nonzero(launches)} "
-        f"(decode attention runs the plain step)")
+        f"{eng._tick.captures} capture; launches {_nonzero(launches)}")
+    replays = eng._tick.graphed.replays - replays0
+    per = eng._tick.graphed.per_replay["decode_attn"]
+    if not launches["decode_attn"] == replays * per > 0 or \
+            per != cfg.num_layers:
+        fails.append(f"{tag} serve: {launches['decode_attn']} decode_attn "
+                     f"launches, not {replays} replays x {per} (one a "
+                     f"layer, {cfg.num_layers})")
     del srv, eng, reqs
     _free(torch)
     t_step = step_time("e. serve", t_step)
@@ -6648,7 +6761,7 @@ def main() -> int:
             f"{now - t_all:.1f} s)")
         t_phase = now
 
-    rows = moe_phase(torch, dev, fails)
+    rows, serve_launches = moe_phase(torch, dev, fails)
     _free(torch)
     phase_time("serve, graph, kernel, equiv")
     rows += serve_features_phase(torch, dev, fails, phase_time)
@@ -6658,6 +6771,10 @@ def main() -> int:
     flash_rows = flash_phase(torch, dev, train_launches)
     rows += flash_rows + train_rows
     phase_time("flash")
+    _free(torch)
+    rows += decode_attn_phase(torch, dev, fails,
+                              serve_launches["decode_attn"])
+    phase_time("decode_attn")
     _free(torch)
     control_phase(torch, dev, fails)
     phase_time("control")

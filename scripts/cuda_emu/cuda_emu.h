@@ -5,10 +5,11 @@
 // __syncthreads is a block-wide std::barrier; the warp-synchronous
 // operations (shuffles, ldmatrix .x4 and .x4.trans, mma.sync.m16n8k16
 // bf16 with f32 accumulators) exchange their operands through a per-warp
-// buffer between two warp-wide barriers; cp.async is a plain copy.  A
-// thread that returns drops out of its barriers, as an exited CUDA thread
-// does.  Shared memory is one buffer a block, 256-aligned, its "shared
-// addresses" offsets into it.  Timing means nothing here.
+// buffer between two warp-wide barriers, and __syncwarp is one such
+// barrier; cp.async is a plain copy.  A thread that returns drops out of
+// its barriers, as an exited CUDA thread does.  Shared memory is one
+// buffer a block, 256-aligned, its "shared addresses" offsets into it.
+// Timing means nothing here.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -71,6 +72,8 @@ template <typename F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribu
   return v <= 232448 ? 0 : 1;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
 
 // ---- per-thread state
 struct EmuBlock {
@@ -94,6 +97,7 @@ inline int emu_lane() { return (int)(threadIdx.x & 31); }
 inline int emu_warp() { return (int)(threadIdx.x >> 5); }
 inline uint64_t* emu_x(int lane) { return &emu_blk->xch[((size_t)emu_warp() * 32 + lane) * 8]; }
 inline void emu_wsync() { emu_blk->wbar[emu_warp()]->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_wsync(); }
 
 inline float __shfl_xor_sync(unsigned, float v, int m) {
   float* me = (float*)emu_x(emu_lane()); me[0] = v; emu_wsync();
@@ -114,6 +118,7 @@ inline void cp_async16(uint32_t dst, const void* src, bool ok) {
 }
 inline void cp_commit() {}
 inline void cp_wait_all() {}
+inline void cp_wait1() {}
 
 inline uint16_t emu_h(uint32_t addr, int col) {
   uint16_t v; memcpy(&v, emu_blk->sbase + addr + 2 * col, 2); return v;

@@ -1,17 +1,28 @@
 """Rewrite a ``csrc/*.cu`` source for the CPU emulation in
 ``cuda_emu.h``: include that header for the CUDA ones, drop the kernels'
 inline-PTX helpers (``cp_async16``, ``cp_commit``, ``cp_wait_all``,
-``ldsm4``, ``ldsm4t``, ``mma``: the header emulates them), turn each
-``extern __shared__`` array into the block's buffer and each
+``cp_wait1``, ``ldsm4``, ``ldsm4t``, ``mma``: the header emulates them),
+turn each ``extern __shared__`` array into the block's buffer and each
 ``kernel<<<grid, block, smem, stream>>>(args);`` into an ``emu_launch``.
+``build`` does that for a source and compiles it with g++ (C++20) into
+``build/cuda_emu/``; ``Cuda`` is a CPU tensor that the wrappers' device
+checks take for a CUDA one.
 
     python scripts/cuda_emu/prep.py src/.../csrc/x.cu build/cuda_emu/x.cpp
 """
+import ctypes
 import re
+import subprocess
 import sys
+from pathlib import Path
 
-HELPERS = ("cp_async16", "cp_commit", "cp_wait_all", "ldsm4", "ldsm4t",
-           "mma")
+import torch
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parents[1]
+
+HELPERS = ("cp_async16", "cp_commit", "cp_wait_all", "cp_wait1", "ldsm4",
+           "ldsm4t", "mma")
 
 
 def drop_function(src, name):
@@ -60,6 +71,27 @@ def prep(src):
                  r"\1* \2 = (\1*)emu_smem;", src)
     return re.sub(r"([\w:]+(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
                   launch, src, flags=re.S)
+
+
+def build(name) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` rewritten, compiled and loaded."""
+    out = ROOT / "build" / "cuda_emu"
+    out.mkdir(parents=True, exist_ok=True)
+    src = ROOT / "src/repro_torch/kernels/csrc" / f"{name}.cu"
+    (out / f"{name}.cpp").write_text(prep(src.read_text()))
+    lib = out / f"lib{name}.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-w",
+                    "-I", str(HERE), "-o", str(lib), str(out / f"{name}.cpp"),
+                    "-lpthread"], check=True)
+    return ctypes.CDLL(str(lib))
+
+
+class Cuda(torch.Tensor):
+    """A CPU tensor that the wrappers' device checks take for a CUDA one."""
+
+    @property
+    def is_cuda(self):
+        return True
 
 
 if __name__ == "__main__":

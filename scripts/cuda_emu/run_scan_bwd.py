@@ -11,8 +11,6 @@ inputs are ``tests/test_torch_scan_grad.py``'s (the models' layouts and
 ranges, seed 0).  A small shape takes seconds: every CUDA thread is a host
 thread.
 """
-import ctypes
-import subprocess
 import sys
 import types
 from pathlib import Path
@@ -24,29 +22,8 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests"),
                 str(Path(__file__).resolve().parent)]
 
-from prep import prep  # noqa: E402
+from prep import Cuda, build  # noqa: E402
 from test_torch_scan_grad import mamba_inputs, rwkv_inputs  # noqa: E402
-
-
-class Cuda(torch.Tensor):
-    """A CPU tensor that the wrappers' device checks take for a CUDA one."""
-
-    @property
-    def is_cuda(self):
-        return True
-
-
-def build(name):
-    out = ROOT / "build" / "cuda_emu"
-    out.mkdir(parents=True, exist_ok=True)
-    src = ROOT / "src/repro_torch/kernels/csrc" / f"{name}.cu"
-    (out / f"{name}.cpp").write_text(prep(src.read_text()))
-    lib = out / f"lib{name}.so"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-w",
-                    "-I", str(Path(__file__).resolve().parent), "-o",
-                    str(lib), str(out / f"{name}.cpp"), "-lpthread"],
-                   check=True)
-    return ctypes.CDLL(str(lib))
 
 
 def worst(got, want):

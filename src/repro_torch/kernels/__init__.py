@@ -12,7 +12,7 @@ import torch
 # main path went through the kernels.
 LAUNCHES = {"moe_gating": 0, "moe_dispatch": 0, "moe_combine": 0,
             "rwkv6_scan": 0, "mamba2_ssd": 0, "flash_fwd": 0, "flash_bwd": 0,
-            "rwkv6_scan_bwd": 0, "mamba2_ssd_bwd": 0}
+            "rwkv6_scan_bwd": 0, "mamba2_ssd_bwd": 0, "decode_attn": 0}
 
 
 def reset_launches() -> None:

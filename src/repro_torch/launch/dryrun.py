@@ -71,6 +71,8 @@ from repro_torch.analysis import flops as F
 from repro_torch.analysis import roofline as RL
 from repro_torch.configs import (ARCH_IDS, SHAPES, ArchConfig, ShapeCfg,
                                  cell_applicable, get_arch)
+from repro_torch.kernels.decode_attention.decode_attention import \
+    scratch_floats
 from repro_torch.kernels.mamba2_ssd.mamba2_ssd import \
     bwd_scratch as mamba2_scratch
 from repro_torch.kernels.rwkv6_scan.rwkv6_scan import \
@@ -123,6 +125,13 @@ def _flash_bwd(q, k, v, o, lse, do, causal=True, window=None, q_offset=0):
     return tuple(_empty(x.shape, x.dtype) for x in (q, k, v))
 
 
+def _decode_attn(q, k_cache, v_cache, pos, window=None, rolling=False):
+    b, _, h, hd = q.shape
+    part = _empty((scratch_floats(b, h, k_cache.shape[1], hd),), F32)
+    del part
+    return _empty(q.shape, q.dtype)
+
+
 def _rwkv6(r, k, v, w, u, s0=None):
     b, h, _, n = r.shape
     return _empty(r.shape, r.dtype), _empty((b, h, n, n), F32)
@@ -163,6 +172,7 @@ def meta_kernels():
     down the card's route, and each CUDA wrapper there is replaced by its
     outputs' shapes: the trace sees the card's path (the flash kernels,
     not the plain chunked attention) and launches nothing."""
+    from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba2_ssd import ops as mb
@@ -179,8 +189,9 @@ def meta_kernels():
              (fa, "flash_fwd_cuda", _flash_fwd),
              (fa, "flash_bwd_cuda", _flash_bwd), (rw, "rwkv6_cuda", _rwkv6),
              (mb, "mamba2_cuda", _mamba2), (rw, "rwkv6_bwd_cuda", _rwkv6_bwd),
-             (mb, "mamba2_bwd_cuda", _mamba2_bwd)]
-    fakes += [(m, "resolve", resolve) for m in (mg, md, fa_ops, rw, mb)]
+             (mb, "mamba2_bwd_cuda", _mamba2_bwd),
+             (da, "decode_attn_cuda", _decode_attn)]
+    fakes += [(m, "resolve", resolve) for m in (mg, md, fa_ops, rw, mb, da)]
     with contextlib.ExitStack() as stack:
         for mod, name, fn in fakes:
             stack.enter_context(mock.patch.object(mod, name, fn))

@@ -5,7 +5,9 @@ chunks, O(S·chunk) memory): the plain version of the flash-attention
 kernel (``kernels.flash_attention``), which the blocks call on the card.
 ``decode_attention`` is the serving path: one new token per row against a
 KV cache, with a *per-row* position, so rows of one batch may sit at
-different depths (the serve engine's slots).
+different depths (the serve engine's slots).  It is the plain version of
+the split-KV decode-attention kernel (``kernels.decode_attention``), which
+the blocks call on the card.
 """
 from __future__ import annotations
 

@@ -34,10 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.mamba2_ssd.ops import mamba2, mamba2_decode_step
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6, rwkv6_decode_step
-from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_mrope, apply_rope, rms_norm,
                                        swiglu)
@@ -127,8 +127,8 @@ def _decode_attention(cfg, p, x, cache, ctx, window=None, rolling=False,
         if active is not None:
             new = torch.where(active[:, None, None], new, c[rows, widx])
         c[rows, widx] = new
-    out = attn_lib.decode_attention(q, cache["k"], cache["v"], pos,
-                                    window=window, rolling=rolling)
+    out = decode_attention(q, cache["k"], cache["v"], pos, window=window,
+                           rolling=rolling, impl=ctx.get("impl", "auto"))
     out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
     return out @ p["wo"].to(x.dtype) if project else out
 
@@ -576,7 +576,8 @@ def dec_decode(p, x, cache, ctx):
     qc = (xq @ p["cwq"].to(x.dtype)).reshape(b, 1, cfg.n_heads, cfg.hd)
     last = torch.full((b,), cache["ck"].shape[1] - 1, dtype=torch.long,
                       device=x.device)
-    co = attn_lib.decode_attention(qc, cache["ck"], cache["cv"], last)
+    co = decode_attention(qc, cache["ck"], cache["cv"], last,
+                          impl=ctx.get("impl", "auto"))
     h = h + co.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["cwo"].to(x.dtype)
     return h + _plain_mlp(p, rms_norm(h, p["ln2"], cfg.norm_eps))
 
